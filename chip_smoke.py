@@ -7,17 +7,21 @@ Run from the root of a checkout (it imports ``src/repro_torch`` and reads the
 committed fixture under ``results/bench``). Phases, one JSON line each:
 
   device   the card's name, power limit and compute capability (must be 9.0)
-  build    nvcc builds of the four kernels (csrc/*.cu), all at once
+  build    nvcc builds of the five kernels (csrc/*.cu), all at once
   kernels  each kernel against its plain PyTorch version on the card, at the
            shapes of the main path, with times (CUDA events) and bounds
   parity   the committed profiling fixture (results/bench/model.npz with
            tables_a0.95_k16.npz) served on the CPU through the plain versions
-           and on the card through the kernels: equal tokens and counters,
+           and on the card through the kernels, without and with the int8
+           quant tier: equal tokens and counters (tier counters included),
            close logits
   serve    deepseek-v2-lite-buddy at full width cut to 8 layers, random
-           weights from seed 0: buddy profiling, a fused-dispatch batch
-           (4 x 8 prompt + 8 new tokens), then 2 steps through the gather
-           branch; every kernel's launch count from this phase must be > 0
+           weights from seed 0, two paths, each in its own launch-count
+           window: (1) buddy profiling, a fused-dispatch batch (4 x 8 prompt
+           + 8 new tokens), then 2 steps through the gather branch; (2) the
+           same with --quant-tier int8 --tier-coverage 0.5: fused, then 3
+           gather steps, both serving degraded slots. Every kernel of a path
+           must have launched in that path's window
 
 Then the kernels table line, the card's name and power limit as nvidia-smi
 prints them, and the result line. Without a CUDA card, or outside a checkout,
@@ -42,6 +46,7 @@ TOL_F32 = 1e-4                 # |kernel - plain| for f32 FFN outputs (f32
 TOL_GATE = 1e-6                # probs / TAE: the same f32 formulas
 LOGIT_TOL = 1e-3               # CPU vs card logits on the fixture (f32
 #                                matmuls in another order, two layers)
+FID_RTOL = 1e-5                # CPU vs card mean fidelity loss (f32 sums)
 FIXTURE = ROOT / "results" / "bench"
 
 
@@ -220,11 +225,61 @@ def kernel_expert_ffn(dev, gen):
     return row
 
 
-def _quantize(w):
-    """Symmetric per-output-channel int8 over the contraction axis (1)."""
+def kernel_quant_ffn(dev, gen):
     import torch
-    s = w.abs().amax(1).clamp(min=1e-8) / 127.0                     # [E, out]
-    return torch.round(w / s[:, None, :]).clamp(-127, 127).to(torch.int8), s
+    from repro_torch.kernels.quant_ffn import quant_ffn_cuda, quant_ffn_plain
+    e_n, k_n, t_n, d_n, f_n = 64, 6, 4, 2048, 1408
+    quant = _replicas(*_ffn_weights(gen, e_n, d_n, f_n, dev, torch.float32))
+    x_tok = torch.randn(t_n, d_n, generator=gen)
+    rows = {}
+    for name, c_n in (("decode", t_n * k_n), ("full", 32)):
+        if name == "decode":
+            # the gather branch's binning: 24 routed slots by expert
+            buf, counts = _binned(gen, x_tok, e_n, k_n, c_n, 1.0, dev)
+            buf, counts = buf[e_n:], counts[e_n:]
+        else:
+            buf = torch.randn(e_n, c_n, d_n, generator=gen).to(dev)
+            counts = None
+        got = quant_ffn_cuda(buf, *quant, counts)
+        want = quant_ffn_plain(buf, *quant, counts)
+        err = max_err(got, want)
+        require(err <= TOL_F32 * (1 + float(want.abs().max())),
+                f"quant_ffn {name}: err {err}")
+        live = (torch.full((e_n,), c_n) if counts is None
+                else counts.cpu())
+        n_live, filled = int((live > 0).sum()), int(live.sum())
+        # data-dependent: the live experts' int8 weights and f32 scales,
+        # the filled rows in, the whole output out
+        moved = (n_live * (3 * d_n * f_n + (2 * f_n + d_n) * 4)
+                 + filled * d_n * 4 + nbytes(got)
+                 + (0 if counts is None else nbytes(counts)))
+        b_ms, b_by = bound(moved, 2 * filled * d_n * f_n * 3)
+        rows[name] = {"max_abs_err": err,
+                      "max_abs_plain": float(want.abs().max()),
+                      "live_experts": n_live, "filled_rows": filled,
+                      "ms": time_ms(lambda: quant_ffn_cuda(buf, *quant,
+                                                           counts)),
+                      "plain_ms": time_ms(lambda: quant_ffn_plain(
+                          buf, *quant, counts)),
+                      "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
+    # bf16 activations and ragged shapes: correctness only
+    for (e, c, d, f) in ((3, 37, 200, 136), (2, 1, 40, 24)):
+        qs = _replicas(*_ffn_weights(gen, e, d, f, dev, torch.float32))
+        for dt, tol in ((torch.float32, TOL_F32), (torch.bfloat16, 5e-2)):
+            xs = torch.randn(e, c, d, generator=gen).to(dt).to(dev)
+            e2 = max_err(quant_ffn_cuda(xs, *qs), quant_ffn_plain(xs, *qs))
+            require(e2 <= tol, f"quant_ffn {dt} {(e, c, d, f)}: err {e2}")
+    emit({"phase": "kernels", "kernel": "quant_ffn",
+          "shape": [e_n, "C", d_n, f_n], "by_case": rows})
+    return rows["decode"]
+
+
+def _replicas(w1, w3, w2):
+    """The port's per-output-channel int8 replicas, as the kernels take
+    them."""
+    from repro_torch.core.quantize import quantize_expert_ffn
+    from repro_torch.kernels.quant_ffn import quant_operands
+    return quant_operands(quantize_expert_ffn(w1, w3, w2, 8))
 
 
 def _binned(gen, x_tok, e_n, k_n, c_n, deg_frac, dev):
@@ -257,10 +312,7 @@ def kernel_grouped_ffn(dev, gen):
     rows = {}
     for name, deg_frac in (("decode", 0.0), ("decode_int8", 0.4)):
         buf, counts = _binned(gen, x_tok, e_n, k_n, c_n, deg_frac, dev)
-        quant = None
-        if deg_frac:
-            (q1, s1), (q3, s3), (q2, s2) = map(_quantize, (w1, w3, w2))
-            quant = (q1, s1, q3, s3, q2, s2)
+        quant = _replicas(w1, w3, w2) if deg_frac else None
         got = grouped_ffn_cuda(buf, w1, w3, w2, quant, counts)
         want = grouped_ffn_plain(buf, w1, w3, w2, quant, counts)
         err = max_err(got, want)
@@ -290,9 +342,9 @@ def kernel_grouped_ffn(dev, gen):
 
 
 # ---------------------------------------------------------------------------
-def _fixture_run(device, fused: bool):
-    """Serve the committed profiling fixture; returns (tokens, stats,
-    per-step logits)."""
+def _fixture_run(device, fused: bool, tier: bool = False):
+    """Serve the committed profiling fixture, with the int8 tier when asked
+    for; returns (tokens, summary, per-step logits)."""
     import numpy as np
     import torch
     from repro_torch.checkpoint.io import load_npz
@@ -301,14 +353,25 @@ def _fixture_run(device, fused: bool):
     from repro_torch.core.policy import BuddyPolicy
     from repro_torch.runtime.cache import ExpertCache
     from repro_torch.runtime.prefetch import PrevStepPredictor
+    from repro_torch.runtime.tiers import TieredExpertStore
     from repro_torch.serving.engine import ServeEngine
     from repro_torch.training.data import MarkovLM
     cfg = profiling()
     n_moe, e_n = cfg.num_layers, cfg.moe.num_experts
-    cache = ExpertCache(n_moe, e_n, 0.5)
+    store = None
+    if tier:
+        # half coverage: the cache keeps 15 full slots, so hits, buddies,
+        # fetches and degraded slots all occur
+        store = TieredExpertStore(n_moe, e_n, 0.5, bits=8, coverage=0.5,
+                                  d_model=cfg.d_model, d_ff=cfg.moe.d_ff)
+        cache = store.cache
+    else:
+        cache = ExpertCache(n_moe, e_n, 0.5)
     eng = ServeEngine(cfg, load_npz(str(FIXTURE / "model.npz"), device),
                       tables=load_tables(str(FIXTURE / "tables_a0.95_k16.npz")),
-                      policy=BuddyPolicy(use_fused_dispatch=fused), cache=cache,
+                      policy=BuddyPolicy(use_fused_dispatch=fused,
+                                         quant_tier="int8" if tier else "off"),
+                      cache=None if tier else cache, tier=store,
                       predictor=PrevStepPredictor(n_moe, e_n),
                       prefetch_k=max(1, cache.capacity // 2))
     logits = []
@@ -325,17 +388,25 @@ def _fixture_run(device, fused: bool):
     return toks, eng.summary(), torch.stack(logits)
 
 
+def _tier_counters_equal(a: dict, b: dict) -> bool:
+    """Tier summaries agree: counters and budget exactly, the mean
+    fidelity loss to FID_RTOL (f32 sums in another order on the card)."""
+    fa, fb = a.pop("mean_fidelity_loss"), b.pop("mean_fidelity_loss")
+    return a == b and abs(fa - fb) <= FID_RTOL * abs(fa)
+
+
 def phase_parity():
     import numpy as np
     from repro_torch.kernels import ops
     out = {"phase": "parity"}
-    for fused in (True, False):
+    for fused, tier in ((True, False), (False, False), (True, True),
+                        (False, True)):
         before = ops.launch_counts()
-        t_cpu, s_cpu, l_cpu = _fixture_run("cpu", fused)
+        t_cpu, s_cpu, l_cpu = _fixture_run("cpu", fused, tier)
         require(ops.launch_counts() == before, "CPU run launched a kernel")
-        t_gpu, s_gpu, l_gpu = _fixture_run("cuda", fused)
+        t_gpu, s_gpu, l_gpu = _fixture_run("cuda", fused, tier)
         err = max_err(l_gpu, l_cpu)
-        tag = "fused" if fused else "gather"
+        tag = ("fused" if fused else "gather") + ("_int8" if tier else "")
         out[tag] = {"tokens_equal": bool(np.array_equal(t_cpu, t_gpu)),
                     "stats_equal": s_cpu["stats"] == s_gpu["stats"],
                     "ledger_equal": s_cpu["ledger"] == s_gpu["ledger"],
@@ -343,11 +414,64 @@ def phase_parity():
                     "n_sub": s_gpu["stats"]["n_sub"],
                     "n_hit": s_gpu["stats"]["n_hit"],
                     "n_miss_fetch": s_gpu["stats"]["n_miss_fetch"]}
-        require(out[tag]["tokens_equal"] and out[tag]["stats_equal"]
-                and out[tag]["ledger_equal"],
-                f"parity ({tag}): CPU and card disagree: {out[tag]}")
+        ok = (out[tag]["tokens_equal"] and out[tag]["stats_equal"]
+              and out[tag]["ledger_equal"])
+        if tier:
+            out[tag]["degraded_tokens"] = s_gpu["tier"]["degraded_tokens"]
+            out[tag]["tier_equal"] = _tier_counters_equal(s_cpu["tier"],
+                                                          s_gpu["tier"])
+            ok = ok and out[tag]["tier_equal"]
+            require(out[tag]["degraded_tokens"] > 0,
+                    f"parity ({tag}): the tier served no slot")
+        require(ok, f"parity ({tag}): CPU and card disagree: {out[tag]}")
         require(err <= LOGIT_TOL, f"parity ({tag}): logits err {err}")
     emit(out)
+
+
+def _serve_path(serve, flags, params, gather_steps: int) -> dict:
+    """One full-width serve path through the launcher's entry points: buddy
+    profiling and a fused-dispatch batch, then ``gather_steps`` steps
+    through the gather branch on the same weights."""
+    import torch
+    args = serve.parse_args(flags + ["--fused-dispatch"])
+    t0 = time.perf_counter()
+    eng, lm = serve.build_engine(args, params=params)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    prompts = lm.sample(args.batch, 8)
+    t0 = time.perf_counter()
+    toks = eng.generate(prompts, args.steps)
+    torch.cuda.synchronize()
+    fused_s = time.perf_counter() - t0
+    eng2, _ = serve.build_engine(serve.parse_args(flags),
+                                 params=eng.params if params is None
+                                 else params)
+    t0 = time.perf_counter()
+    toks2 = eng2.generate(prompts[:, :1], gather_steps)
+    torch.cuda.synchronize()
+    gather_s = time.perf_counter() - t0
+    return {"engines": (eng, eng2), "tokens": (toks, toks2),
+            "setup_s": setup_s, "fused_s": fused_s, "gather_s": gather_s}
+
+
+def _path_row(run) -> dict:
+    eng, eng2 = run["engines"]
+    s = eng.summary()
+    st = s["stats"]
+    row = {"setup_s": run["setup_s"], "fused_steps": st["steps"],
+           "fused_wall_ms_per_step": run["fused_s"] / st["steps"] * 1e3,
+           "gather_steps": eng2.stats.steps,
+           "gather_wall_ms_per_step":
+               run["gather_s"] / eng2.stats.steps * 1e3,
+           "n_sub": st["n_sub"], "n_hit": st["n_hit"],
+           "n_miss_fetch": st["n_miss_fetch"],
+           "simulated_tokens_per_s": s["tokens_per_s"]}
+    if eng.tier is not None:
+        row["degraded_fused"] = eng.tier.degraded_tokens
+        row["degraded_gather"] = eng2.tier.degraded_tokens
+        row["tier_budget_split"] = eng.tier.budget_split()
+        row["mean_fidelity_loss"] = eng.tier.summary()["mean_fidelity_loss"]
+    return row
 
 
 def phase_serve():
@@ -359,52 +483,43 @@ def phase_serve():
     flags = ["--arch", "deepseek-v2-lite-buddy", "--layers", "8",
              "--cache-rate", "0.5", "--policy", "buddy", "--predictor",
              "prev-step", "--batch", "4", "--steps", "8"]
-    args = serve.parse_args(flags + ["--fused-dispatch"])
-    cfg = serve.model_config(args)
-    ops.reset_launch_counts()                  # the main path starts here
-    t0 = time.perf_counter()
-    eng, lm = serve.build_engine(args)
-    torch.cuda.synchronize()
-    setup_s = time.perf_counter() - t0
-    prompts = lm.sample(args.batch, 8)
-    t0 = time.perf_counter()
-    toks = eng.generate(prompts, args.steps)
-    torch.cuda.synchronize()
-    fused_s = time.perf_counter() - t0
-    s = eng.summary()
-    # two more steps through the tiny-batch gather branch, same weights
-    eng2, _ = serve.build_engine(serve.parse_args(flags), params=eng.params)
-    t0 = time.perf_counter()
-    toks2 = eng2.generate(prompts[:, :1], 2)
-    torch.cuda.synchronize()
-    gather_s = time.perf_counter() - t0
-    counts = ops.launch_counts()               # ... and ends here
-    n_params = sum(t.numel() for t in
-                   _leaves(eng.params))
-    st = s["stats"]
+    cfg = serve.model_config(serve.parse_args(flags))
+    ops.reset_launch_counts()                  # path 1 starts here
+    base = _serve_path(serve, flags, None, 2)
+    counts_base = ops.launch_counts()          # ... and ends here
+    params = base["engines"][0].params
+    ops.reset_launch_counts()                  # path 2 (the tier) starts here
+    tier = _serve_path(serve, flags + ["--quant-tier", "int8",
+                                       "--tier-coverage", "0.5"], params, 3)
+    counts_tier = ops.launch_counts()          # ... and ends here
+    counts = {k: counts_base[k] + counts_tier[k] for k in counts_base}
     out = {"phase": "serve", "arch": cfg.arch_id, "layers": cfg.num_layers,
            "d_model": cfg.d_model, "experts": cfg.moe.num_experts,
            "d_ff_expert": cfg.moe.d_ff, "top_k": cfg.moe.top_k,
-           "vocab": cfg.vocab_size, "params": n_params,
-           "setup_s": setup_s,
-           "fused_steps": st["steps"],
-           "fused_wall_ms_per_step": fused_s / st["steps"] * 1e3,
-           "gather_steps": eng2.stats.steps,
-           "gather_wall_ms_per_step": gather_s / eng2.stats.steps * 1e3,
-           "n_sub": st["n_sub"], "n_hit": st["n_hit"],
-           "n_miss_fetch": st["n_miss_fetch"],
-           "simulated_tokens_per_s": s["tokens_per_s"],
+           "vocab": cfg.vocab_size,
+           "params": sum(t.numel() for t in _leaves(params)),
+           "base": dict(_path_row(base), launches=counts_base),
+           "int8_tier": dict(_path_row(tier), launches=counts_tier),
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
            "launches": counts}
     emit(out)
-    require(st["steps"] == 15 and eng2.stats.steps == 2, "wrong step count")
-    require(all(n > 0 for n in counts.values()),
-            f"a kernel was not launched on the main path: {counts}")
-    require(np.all((toks >= 0) & (toks < cfg.vocab_size))
-            and np.all((toks2 >= 0) & (toks2 < cfg.vocab_size)),
-            "generated tokens out of the vocabulary")
-    require(st["n_hit"] + st["n_sub"] + st["n_miss_fetch"] > 0,
-            "no expert slot was served")
+    for run, steps in ((base, 2), (tier, 3)):
+        eng, eng2 = run["engines"]
+        require(eng.stats.steps == 15 and eng2.stats.steps == steps,
+                "wrong step count")
+        require(all(np.all((t >= 0) & (t < cfg.vocab_size))
+                    for t in run["tokens"]),
+                "generated tokens out of the vocabulary")
+        st = eng.stats
+        require(st.n_hit + st.n_sub + st.n_miss_fetch > 0,
+                "no expert slot was served")
+    require(all(n > 0 for k, n in counts_base.items() if k != "quant_ffn"),
+            f"a kernel was not launched on the serve path: {counts_base}")
+    require(all(n > 0 for n in counts_tier.values()),
+            f"a kernel was not launched on the tier path: {counts_tier}")
+    require(out["int8_tier"]["degraded_fused"] > 0
+            and out["int8_tier"]["degraded_gather"] > 0,
+            f"a tier run served no degraded slot: {out['int8_tier']}")
     return counts
 
 
@@ -429,6 +544,8 @@ KERNELS = (  # name, source, TPU kernel it replaces (file:line of pallas_call)
      "src/repro/kernels/expert_ffn.py:62"),
     ("grouped_ffn", "src/repro_torch/csrc/grouped_ffn.cu",
      "src/repro/kernels/grouped_ffn.py:146"),
+    ("quant_ffn", "src/repro_torch/csrc/quant_ffn.cu",
+     "src/repro/kernels/quant_ffn.py:83"),
 )
 
 
@@ -447,7 +564,8 @@ def main() -> int:
     rows = {"topk_gate": kernel_topk(dev, gen),
             "buddy_substitute": kernel_buddy(dev, gen),
             "expert_ffn": kernel_expert_ffn(dev, gen),
-            "grouped_ffn": kernel_grouped_ffn(dev, gen)}
+            "grouped_ffn": kernel_grouped_ffn(dev, gen),
+            "quant_ffn": kernel_quant_ffn(dev, gen)}
     phase_parity()
     counts = phase_serve()
     table = []

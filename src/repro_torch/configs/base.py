@@ -1,8 +1,8 @@
 """Model / shape configuration system.
 
-Every assigned architecture provides a module in ``repro.configs`` exposing
-``CONFIG`` (the exact full-scale config from its source paper/model card) and
-``reduced()`` (a tiny same-family variant for CPU smoke tests).
+Every assigned architecture provides a module in ``repro_torch.configs``
+exposing ``CONFIG`` (the exact full-scale config from its source paper/model
+card) and ``reduced()`` (a tiny same-family variant for CPU smoke tests).
 """
 from __future__ import annotations
 

@@ -1,5 +1,5 @@
-// Tiled SwiGLU expert FFN for Hopper (sm_90a), shared by expert_ffn.cu and
-// grouped_ffn.cu.
+// Tiled SwiGLU expert FFN for Hopper (sm_90a), shared by expert_ffn.cu,
+// grouped_ffn.cu and quant_ffn.cu.
 //
 // Two launches, deterministic, no atomics:
 //   gate_up: h[g, m, f] = act(x[g, m, :] @ w1[e, :, f], x[g, m, :] @ w3[e, :, f])
@@ -10,6 +10,7 @@
 // the degraded class at expert e = g - E: int8 weights, everything in f32,
 // per-output-channel scales applied after each matmul. The scratch h is f32
 // for both classes (a full-precision value is stored already rounded to T).
+// quant_ffn.cu launches with E = 0, so every group is the degraded class.
 //
 // Each block computes a BM x BN output tile of one group, staging BK-deep
 // slices of the activations and weights in shared memory and accumulating in

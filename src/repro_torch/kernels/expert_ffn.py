@@ -59,6 +59,16 @@ def check_ffn_operands(name, x, w1, w3, w2, groups):
     return x.shape[1], d_n, f_n
 
 
+def check_counts(name, counts, groups, dev):
+    """Optional per-group filled-row counts: contiguous int32 [groups]."""
+    if counts is not None and (counts.device != dev
+                               or counts.dtype != torch.int32
+                               or tuple(counts.shape) != (groups,)
+                               or not counts.is_contiguous()):
+        raise ValueError(f"{name}: counts must be contiguous int32 "
+                         f"({groups},) on {dev}")
+
+
 def expert_ffn_cuda(x, w1, w3, w2):
     """The kernel on CUDA tensors (same contract as expert_ffn_plain)."""
     e_n = w1.shape[0]

@@ -18,20 +18,13 @@ from __future__ import annotations
 import ctypes
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.expert_ffn import (DTYPE_CODES, check_ffn_operands,
+from repro_torch.kernels.expert_ffn import (DTYPE_CODES, check_counts,
+                                            check_ffn_operands,
                                             expert_ffn_plain)
-
-
-def dequant_swiglu(x, w1_q, w1_s, w3_q, w3_s, w2_q, w2_s):
-    """The dequant + SwiGLU reference (all f32, scales per output channel
-    applied after each matmul). x [..., C, D]; returns [..., C, D] f32."""
-    xf = x.float()
-    h = F.silu(torch.matmul(xf, w1_q.float()) * w1_s[..., None, :])
-    g = torch.matmul(xf, w3_q.float()) * w3_s[..., None, :]
-    return torch.matmul(h * g, w2_q.float()) * w2_s[..., None, :]
+from repro_torch.kernels.quant_ffn import (check_quant, dequant_swiglu,
+                                           mask_unfilled)
 
 
 def grouped_ffn_plain(x, w1, w3, w2, quant=None, counts=None):
@@ -41,10 +34,7 @@ def grouped_ffn_plain(x, w1, w3, w2, quant=None, counts=None):
     if x.shape[0] != 2 * e_n:
         raise ValueError(f"grouped_ffn: expected {2 * e_n} groups, got "
                          f"{x.shape[0]}")
-    if counts is not None:
-        filled = torch.arange(x.shape[1], device=x.device) < counts[:, None]
-        x = torch.where(filled[..., None], x, torch.zeros((), dtype=x.dtype,
-                                                          device=x.device))
+    x = mask_unfilled(x, counts)
     full = expert_ffn_plain(x[:e_n], w1, w3, w2).float()
     if quant is None:
         deg = torch.zeros_like(full)
@@ -64,36 +54,15 @@ def _lib():
     return lib
 
 
-def _check_quant(quant, e_n, d_n, f_n, dev):
-    shapes = ((torch.int8, (e_n, d_n, f_n)), (torch.float32, (e_n, f_n)),
-              (torch.int8, (e_n, d_n, f_n)), (torch.float32, (e_n, f_n)),
-              (torch.int8, (e_n, f_n, d_n)), (torch.float32, (e_n, d_n)))
-    names = ("w1_q", "w1_s", "w3_q", "w3_s", "w2_q", "w2_s")
-    if len(quant) != 6:
-        raise ValueError("grouped_ffn_cuda: quant is (w1_q, w1_s, w3_q, "
-                         "w3_s, w2_q, w2_s)")
-    for nm, t, (dt, shp) in zip(names, quant, shapes):
-        if t.device != dev or t.dtype != dt or tuple(t.shape) != shp \
-                or not t.is_contiguous():
-            raise ValueError(f"grouped_ffn_cuda: {nm} must be contiguous {dt}"
-                             f" {shp} on {dev}, got {t.dtype} "
-                             f"{tuple(t.shape)} on {t.device}")
-
-
 def grouped_ffn_cuda(x, w1, w3, w2, quant=None, counts=None):
     """The kernel on CUDA tensors (same contract as grouped_ffn_plain)."""
     e_n = w1.shape[0]
     c_n, d_n, f_n = check_ffn_operands("grouped_ffn_cuda", x, w1, w3, w2,
                                        2 * e_n)
     dev = x.device
-    if counts is not None and (counts.device != dev
-                               or counts.dtype != torch.int32
-                               or tuple(counts.shape) != (2 * e_n,)
-                               or not counts.is_contiguous()):
-        raise ValueError(f"grouped_ffn_cuda: counts must be contiguous int32 "
-                         f"({2 * e_n},) on {dev}")
+    check_counts("grouped_ffn_cuda", counts, 2 * e_n, dev)
     if quant is not None:
-        _check_quant(quant, e_n, d_n, f_n, dev)
+        check_quant("grouped_ffn_cuda", quant, e_n, d_n, f_n, dev)
     groups = e_n if quant is None else 2 * e_n
     out = torch.zeros_like(x)                 # unfilled rows stay zero
     if c_n == 0:

@@ -12,12 +12,14 @@ from repro_torch.kernels.buddy_substitute import (buddy_substitute_cuda,
 from repro_torch.kernels.expert_ffn import expert_ffn_cuda, expert_ffn_plain
 from repro_torch.kernels.grouped_ffn import (grouped_ffn_cuda,
                                              grouped_ffn_plain)
+from repro_torch.kernels.quant_ffn import quant_ffn_cuda, quant_ffn_plain
 from repro_torch.kernels.topk_gate import topk_gate_cuda, topk_gate_plain
 
 _CUDA = {"topk_gate": topk_gate_cuda,
          "buddy_substitute": buddy_substitute_cuda,
          "expert_ffn": expert_ffn_cuda,
-         "grouped_ffn": grouped_ffn_cuda}
+         "grouped_ffn": grouped_ffn_cuda,
+         "quant_ffn": quant_ffn_cuda}
 
 
 def _on_cuda(t: torch.Tensor, name: str) -> bool:
@@ -52,6 +54,12 @@ def grouped_ffn(x, w1, w3, w2, quant=None, counts=None):
     if _on_cuda(x, "grouped_ffn"):
         return grouped_ffn_cuda(x, w1, w3, w2, quant, counts)
     return grouped_ffn_plain(x, w1, w3, w2, quant, counts)
+
+
+def quant_ffn(x, w1_q, w1_s, w3_q, w3_s, w2_q, w2_s, counts=None):
+    if _on_cuda(x, "quant_ffn"):
+        return quant_ffn_cuda(x, w1_q, w1_s, w3_q, w3_s, w2_q, w2_s, counts)
+    return quant_ffn_plain(x, w1_q, w1_s, w3_q, w3_s, w2_q, w2_s, counts)
 
 
 def launch_counts() -> dict:

@@ -9,10 +9,14 @@ the card by default.
     # the same on the CPU, through the kernels' plain versions
     PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu
 
-Counterpart of ``repro/launch/serve.py`` for batch mode. Flags of the
-subsystems that are not ported yet (continuous mode, the quant tier, the
-mesh, paged KV and the prefix cache, live placement, telemetry and traces)
-stop with "not ported yet".
+    # with the int8 replica tier covering the top half of each layer
+    PYTHONPATH=src python -m repro_torch.launch.serve --layers 8 \
+        --quant-tier int8 --tier-coverage 0.5 --fused-dispatch
+
+Counterpart of ``repro/launch/serve.py`` for batch mode, quant tier
+included. Flags of the subsystems that are not ported yet (continuous mode,
+the mesh, paged KV and the prefix cache, live placement, telemetry and
+traces) stop with "not ported yet".
 """
 from __future__ import annotations
 
@@ -28,11 +32,13 @@ from repro_torch.configs.base import get_config, get_reduced
 from repro_torch.core.buddies import build_buddy_lists
 from repro_torch.core.coactivation import CoactivationRecorder
 from repro_torch.core.policy import BuddyPolicy
+from repro_torch.core.quantize import TIER_BITS
 from repro_torch.models import transformer
 from repro_torch.models.common import resolve_device
 from repro_torch.runtime.cache import ExpertCache
 from repro_torch.runtime.prefetch import (CrossLayerPredictor,
                                           PrevStepPredictor, TopFreqPredictor)
+from repro_torch.runtime.tiers import TieredExpertStore
 from repro_torch.serving.engine import ServeEngine
 from repro_torch.training.data import MarkovLM
 
@@ -97,11 +103,28 @@ def parse_args(argv=None):
     ap.add_argument("--fused-dispatch", action="store_true",
                     help="single-dispatch hot path: every slot in ONE "
                          "grouped expert launch (kernels/grouped_ffn.py)")
+    # -- tiered expert store (compressed resident replicas) -------------
+    ap.add_argument("--quant-tier", choices=["off", "int8", "int4"],
+                    default="off",
+                    help="keep a low-precision replica of the experts "
+                         "resident so a buddy-less miss computes degraded "
+                         "instead of stalling; the tier displaces full-"
+                         "precision cache slots from the --cache-rate budget")
+    ap.add_argument("--tier-stall-per-fidelity", type=float, default=0.05,
+                    help="seconds of expected stall that justify one unit "
+                         "of relative quantization error (precedence mode)")
+    ap.add_argument("--tier-coverage", type=float, default=1.0,
+                    help="fraction of experts per layer holding a resident "
+                         "replica (top-P(use) from the profiling activity); "
+                         "the freed bytes become full cache slots")
+    ap.add_argument("--upgrade-degraded", choices=["auto", "on", "off"],
+                    default="auto",
+                    help="background-fetch the true expert after serving "
+                         "its slot from the quant tier (auto: on exactly "
+                         "with --miss-policy cost and a tier)")
     # subsystems that are not ported yet: present so that they fail loudly
     ap.add_argument("--mode", choices=["batch", "continuous"],
                     default="batch")
-    ap.add_argument("--quant-tier", choices=["off", "int8", "int4"],
-                    default="off")
     ap.add_argument("--n-devices", type=int, default=1)
     ap.add_argument("--paged-kv", action="store_true")
     ap.add_argument("--prefix-cache", action="store_true")
@@ -111,7 +134,6 @@ def parse_args(argv=None):
     ap.add_argument("--trace", default=None)
     args = ap.parse_args(argv)
     for flag, on in (("--mode continuous", args.mode != "batch"),
-                     ("--quant-tier", args.quant_tier != "off"),
                      ("--n-devices > 1", args.n_devices != 1),
                      ("--paged-kv", args.paged_kv),
                      ("--prefix-cache", args.prefix_cache),
@@ -125,6 +147,8 @@ def parse_args(argv=None):
         ap.error("--lookahead must be >= 1 (layers ahead to prefetch)")
     if args.layers < 0:
         ap.error("--layers must be >= 0")
+    if not 0.0 < args.tier_coverage <= 1.0:
+        ap.error("--tier-coverage must be in (0, 1]")
     return args
 
 
@@ -148,18 +172,36 @@ def build_engine(args, params=None):
         params = transformer.init_params(
             cfg, torch.Generator(device=dev).manual_seed(0), dev)
     lm = MarkovLM(cfg.vocab_size, seed=0)
-    tables, _ = profile_buddies(cfg, params, lm, alpha=args.alpha)
+    tables, rec = profile_buddies(cfg, params, lm, alpha=args.alpha)
     n_moe = sum(r for k, r in cfg.stack() if k == "attn_moe")
     policy = BuddyPolicy(tau=args.tau, beta=args.beta, rho=args.rho,
-                         mode=args.policy, miss_policy=args.miss_policy,
+                         mode=args.policy, quant_tier=args.quant_tier,
+                         miss_policy=args.miss_policy,
                          stall_per_quality=args.stall_per_quality,
                          drop_loss=args.drop_loss,
                          use_fused_dispatch=args.fused_dispatch)
-    cache = ExpertCache(n_moe, cfg.moe.num_experts, args.cache_rate)
+    tier = None
+    if args.quant_tier != "off":
+        tier = TieredExpertStore(
+            n_moe, cfg.moe.num_experts, args.cache_rate,
+            bits=TIER_BITS[args.quant_tier], d_model=cfg.d_model,
+            d_ff=cfg.moe.d_ff,
+            stall_per_fidelity=args.tier_stall_per_fidelity,
+            coverage=args.tier_coverage)
+        if args.tier_coverage < 1.0:
+            # partial coverage: replicate the top-P(use) experts per layer,
+            # ranked by the profiling run's activation counts
+            tier.set_coverage(rec.A)
+        cache = tier.cache
+    else:
+        cache = ExpertCache(n_moe, cfg.moe.num_experts, args.cache_rate)
     prefetch_k = (max(1, cache.capacity // 2) if args.prefetch_k < 0
                   else args.prefetch_k)
     predictor = PREDICTORS[args.predictor](n_moe, cfg.moe.num_experts)
-    eng = ServeEngine(cfg, params, tables=tables, policy=policy, cache=cache,
+    upgrade = {"auto": None, "on": True, "off": False}[args.upgrade_degraded]
+    eng = ServeEngine(cfg, params, tables=tables, policy=policy,
+                      cache=None if tier is not None else cache, tier=tier,
+                      upgrade_degraded=upgrade,
                       predictor=predictor, prefetch_k=prefetch_k,
                       lookahead=args.lookahead,
                       prefetch_min_saving=(None if args.prefetch_min_saving
@@ -177,6 +219,12 @@ def main(argv=None):
     print(f"stalls: demand {bd['demand_stall_s']*1e3:.2f}ms  "
           f"late-prefetch {bd['late_prefetch_stall_s']*1e3:.2f}ms  "
           f"overlapped {bd['overlapped_s']*1e3:.2f}ms")
+    if "tier" in s:
+        t = s["tier"]
+        print(f"tier: {t['degraded_tokens']} degraded slots at "
+              f"{t['bits']}-bit, {t['quant_bytes']/1e6:.1f}MB resident, "
+              f"{t['tier_budget_split']['cache_slots_per_layer']} full "
+              f"slots/layer left")
     print("sample output tokens:", out[0, -16:].tolist())
 
 

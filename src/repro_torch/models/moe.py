@@ -7,9 +7,13 @@ hand-written kernels, on CPU tensors their plain versions. Differences from
 the reference:
   * the fused path always bins slots into the ``[2E, cap, D]`` grouped
     buffer (the reference's kernel arm); at decode cap = T*K, so nothing is
-    dropped and the outputs equal the reference's jnp megastep;
-  * the quant tier (degraded outcome) waits for the tier slice: a policy
-    with ``quant_tier != 'off'`` raises;
+    dropped and the outputs equal the reference's jnp megastep (which
+    dequantizes degraded slots before the matmul: at f32 the two differ by
+    rounding only);
+  * with the quant tier on, the gather and capacity branches compute only
+    the degraded slots against the replicas (``quant_ffn``), where the
+    reference computes every slot and keeps the degraded ones: the values
+    on degraded slots are equal;
   * on CUDA only precedence mode with Psi = q, temperature 1 and no margin
     co-gate runs (the kernels' contract); other policies raise there and run
     through the plain ``core.substitute`` on the CPU.
@@ -27,6 +31,7 @@ from repro_torch.core.policy import BuddyPolicy
 from repro_torch.core.substitute import (SubstituteResult, split_degraded,
                                          split_peer, substitute)
 from repro_torch.kernels import ops
+from repro_torch.kernels.quant_ffn import quant_operands
 from repro_torch.models.common import dense_init, normal, swiglu
 
 
@@ -110,11 +115,13 @@ def kernel_policy(policy: BuddyPolicy) -> bool:
 
 
 def substitute_precedence(idx, allow, buddy: BuddyState,
-                          policy: BuddyPolicy) -> SubstituteResult:
+                          policy: BuddyPolicy,
+                          quant_ok=None) -> SubstituteResult:
     """Algorithm 1 in precedence mode through the buddy_substitute kernel.
     The batch-level distribution gate is a reduction computed here; the
     degraded and peer splits are applied to the kernel's miss mask, which
-    is exact because they never feed back into later slots."""
+    is exact because they never feed back into later slots. ``quant_ok``
+    is the tier's mask as gated by the caller (None: no degraded outcome)."""
     dist_ok = gates.distribution_gate(idx, buddy.resident, policy.beta)
     if policy.mode == "none":
         new_idx = idx
@@ -125,16 +132,16 @@ def substitute_precedence(idx, allow, buddy: BuddyState,
         new_idx, substituted, missed = ops.buddy_substitute(
             idx, allow & dist_ok, buddy.resident, buddy.table, buddy.q,
             h=policy.H, rho=policy.rho)
-    missed, degraded = split_degraded(missed, new_idx, buddy.quant_ok)
+    missed, degraded = split_degraded(missed, new_idx, quant_ok)
     missed, peered = split_peer(missed, new_idx, buddy.peer_ok)
     return SubstituteResult(new_idx, substituted, missed, allow, dist_ok,
                             degraded, torch.zeros_like(missed), peered)
 
 
 def _substitute(idx, topk_logits, allow, logits, buddy: BuddyState,
-                policy: BuddyPolicy) -> SubstituteResult:
+                policy: BuddyPolicy, quant_ok, fid_cost) -> SubstituteResult:
     if kernel_policy(policy):
-        return substitute_precedence(idx, allow, buddy, policy)
+        return substitute_precedence(idx, allow, buddy, policy, quant_ok)
     if idx.device.type != "cpu":
         raise NotImplementedError(
             "on CUDA only precedence mode with eta = kappa = 0, temperature "
@@ -142,6 +149,7 @@ def _substitute(idx, topk_logits, allow, logits, buddy: BuddyState,
             "substitution modes run on the CPU")
     return substitute(idx, topk_logits, buddy.resident, buddy.table,
                       buddy.q, policy, router_logits=logits, hop=buddy.hop,
+                      quant_ok=quant_ok, fid_cost=fid_cost,
                       fetch_cost=buddy.fetch_cost, peer_ok=buddy.peer_ok,
                       peer_cost=buddy.peer_cost)
 
@@ -149,6 +157,20 @@ def _substitute(idx, topk_logits, allow, logits, buddy: BuddyState,
 def _capacity(t_n: int, k_n: int, e_n: int, factor: float) -> int:
     cap = int(max(k_n, t_n * k_n / e_n * factor))
     return min(t_n * k_n, -(-cap // 8) * 8)
+
+
+def _bin_slots(grp, n_groups: int, cap: int):
+    """Positions of slots binned by group ``grp`` [N] (index n_groups =
+    never binned) into an [n_groups, cap] grid in slot order. Returns (flat
+    [N] row of the grid or n_groups*cap for the sink, kept [N], counts
+    [n_groups] int32 filled rows, n_capacity_dropped [] int32)."""
+    onehot = F.one_hot(grp, n_groups + 1)[:, :n_groups]      # [N, G]
+    pos = (onehot.cumsum(0) * onehot).sum(-1) - 1
+    kept = (pos >= 0) & (pos < cap)
+    n_cap_dropped = (pos >= cap).sum().to(torch.int32)
+    counts = onehot.sum(0).clamp(max=cap).to(torch.int32)
+    flat = torch.where(kept, grp * cap + pos, n_groups * cap)
+    return flat, kept, counts, n_cap_dropped
 
 
 def _bin(x_rows, flat, n_slots: int):
@@ -167,28 +189,44 @@ def _unbin(out_rows, flat, kept):
                                                        device=got.device))
 
 
-def _fused_dispatch(params: dict, x_flat, new_idx, skip, cap: int):
-    """The single-dispatch path: bin slots by resolved expert into the
-    [2E, cap, D] grouped buffer (skipped slots are never binned), one
-    grouped_ffn call, one gather. The degraded half of the buffer stays
-    empty until the quant tier is ported. Returns (y_rep [T*K, D],
+def _fused_dispatch(params: dict, x_flat, new_idx, degraded, skip,
+                    run_degraded: bool, cap: int):
+    """The single-dispatch path: bin slots by (resolved expert, class) into
+    the [2E, cap, D] grouped buffer — degraded slots at e + E, their true
+    id, when the tier runs; skipped slots are never binned — one
+    grouped_ffn call, one gather. Returns (y_rep [T*K, D],
     n_capacity_dropped [])."""
     d = x_flat.shape[1]
     k_n = new_idx.shape[1]
     e_n = params["w1"].shape[0]
     grp = new_idx.reshape(-1).long()
+    if run_degraded:
+        grp = torch.where(degraded.reshape(-1), grp + e_n, grp)
     grp = torch.where(skip.reshape(-1), 2 * e_n, grp)        # out of range
-    onehot = F.one_hot(grp, 2 * e_n + 1)[:, :2 * e_n]       # [N, 2E]
-    pos = (onehot.cumsum(0) * onehot).sum(-1) - 1
-    kept = (pos >= 0) & (pos < cap)
-    n_cap_dropped = (pos >= cap).sum().to(torch.int32)
-    counts = onehot.sum(0).clamp(max=cap).to(torch.int32)
-    flat = torch.where(kept, grp * cap + pos, 2 * e_n * cap)
+    flat, kept, counts, n_cap_dropped = _bin_slots(grp, 2 * e_n, cap)
     xr = x_flat.repeat_interleave(k_n, 0)                    # [N, D]
     buf = _bin(xr, flat, 2 * e_n * cap).view(2 * e_n, cap, d)
+    quant = quant_operands(params["quant"]) if run_degraded else None
     out = ops.grouped_ffn(buf, params["w1"], params["w3"], params["w2"],
-                          None, counts)
+                          quant, counts)
     return _unbin(out.reshape(-1, d), flat, kept), n_cap_dropped
+
+
+def _degraded_outputs(params: dict, x_flat, e_flat, deg_flat):
+    """Per-slot SwiGLU against the resident replica tier, [T*K, D] in
+    x.dtype, through the quant_ffn kernel: only the degraded slots are
+    binned, by their true expert (``e_flat``; a degraded slot is never
+    substituted), into [E, T*K, D] with row counts; other slots read zero.
+    No host branch on whether any slot is degraded: an expert with no row
+    reads no weight bytes, so a step without one costs the empty launch."""
+    n, d = e_flat.shape[0], x_flat.shape[1]
+    e_n = params["w1"].shape[0]
+    grp = torch.where(deg_flat, e_flat.long(), e_n)
+    flat, kept, counts, _ = _bin_slots(grp, e_n, n)
+    xr = x_flat.repeat_interleave(n // x_flat.shape[0], 0)  # [N, D]
+    buf = _bin(xr, flat, e_n * n).view(e_n, n, d)
+    out = ops.quant_ffn(buf, *quant_operands(params["quant"]), counts=counts)
+    return _unbin(out.reshape(-1, d), flat, kept)
 
 
 def _load_balance(logits, new_idx, e_n: int):
@@ -205,10 +243,13 @@ def moe_forward(params: dict, x: torch.Tensor, cfg: MoEConfig, *,
                 capacity_factor: float = 1.25,
                 dropless: bool = False) -> tuple:
     """x: [B, S, D] (or [T, D]). Returns (y, MoEAux). Same branches and
-    contract as the reference (see the module note for the differences)."""
-    if policy is not None and policy.quant_tier != "off":
-        raise NotImplementedError("the quant tier (degraded outcome) is not "
-                                  "ported yet")
+    contract as the reference (see the module note for the differences).
+
+    The quant tier runs when ``policy.quant_tier`` is on and the params
+    carry a ``quant`` sub-dict: a miss the tier's ``buddy.quant_ok`` mask
+    (precedence) or ``buddy.fid_cost`` argmin (cost mode) sends there is
+    computed against the resident replica. Otherwise the graph is the
+    pre-tier one."""
     if cfg.router_jitter > 0:
         raise NotImplementedError("router jitter is not ported yet")
     orig_shape = x.shape
@@ -217,6 +258,11 @@ def moe_forward(params: dict, x: torch.Tensor, cfg: MoEConfig, *,
     t_n = x_flat.shape[0]
     e_n, k_n = cfg.num_experts, cfg.top_k
     dev = x.device
+    use_tier = (policy is not None and policy.quant_tier != "off"
+                and "quant" in params)
+    quant_ok = buddy.quant_ok if (use_tier and buddy is not None) else None
+    tier_fid_cost = (buddy.fid_cost if (use_tier and buddy is not None)
+                     else None)
 
     logits, idx, topk_logits, probs, allow = router_topk(
         params["router"], x_flat, k_n, policy.tau if policy is not None
@@ -224,7 +270,8 @@ def moe_forward(params: dict, x: torch.Tensor, cfg: MoEConfig, *,
 
     zeros = torch.zeros(idx.shape, dtype=torch.bool, device=dev)
     if policy is not None and buddy is not None:
-        res = _substitute(idx, topk_logits, allow, logits, buddy, policy)
+        res = _substitute(idx, topk_logits, allow, logits, buddy, policy,
+                          quant_ok, tier_fid_cost)
         new_idx, substituted, missed = res.indices, res.substituted, res.missed
         degraded, dropped, peered = res.degraded, res.dropped, res.peered
     elif buddy is not None:         # no policy: raw residency miss count
@@ -233,6 +280,8 @@ def moe_forward(params: dict, x: torch.Tensor, cfg: MoEConfig, *,
     else:
         new_idx = idx
         substituted, missed, degraded, dropped, peered = (zeros,) * 5
+    run_degraded = use_tier and (quant_ok is not None
+                                 or tier_fid_cost is not None)
 
     weights = probs
     if policy is not None and policy.fallback == "drop":
@@ -249,7 +298,8 @@ def moe_forward(params: dict, x: torch.Tensor, cfg: MoEConfig, *,
         skip = dropped | missed if policy.fallback == "drop" else dropped
         cap = t_n * k_n if (dropless or decode) \
             else _capacity(t_n, k_n, e_n, capacity_factor)
-        y_rep, n_dropped = _fused_dispatch(params, x_flat, new_idx, skip, cap)
+        y_rep, n_dropped = _fused_dispatch(params, x_flat, new_idx, degraded,
+                                           skip, run_degraded, cap)
         yk = y_rep.reshape(t_n, k_n, d)
     elif not dropless and decode and t_n * k_n < e_n:
         # ---- active-expert gather (tiny-batch decode) ---------------------
@@ -260,7 +310,11 @@ def moe_forward(params: dict, x: torch.Tensor, cfg: MoEConfig, *,
         h = F.silu(torch.bmm(xr, params["w1"][e_flat].float()))
         g = torch.bmm(xr, params["w3"][e_flat].float())
         hg = (h * g).to(x.dtype).float()
-        y_rep = torch.bmm(hg, params["w2"][e_flat].float()).to(x.dtype)
+        y_rep = torch.bmm(hg, params["w2"][e_flat].float()).to(x.dtype)[:, 0]
+        if run_degraded:
+            deg_f = degraded.reshape(-1)
+            y_deg = _degraded_outputs(params, x_flat, e_flat, deg_f)
+            y_rep = torch.where(deg_f[:, None], y_deg, y_rep)
         yk = y_rep.reshape(t_n, k_n, d)
     else:
         # ---- capacity-based dispatch (row-local) --------------------------
@@ -282,6 +336,12 @@ def moe_forward(params: dict, x: torch.Tensor, cfg: MoEConfig, *,
         out = ops.expert_ffn(buf, params["w1"], params["w3"], params["w2"])
         yk = _unbin(out.reshape(-1, d), flat, kept.reshape(-1)) \
             .reshape(t_n, k_n, d)
+        if run_degraded:
+            deg_f = degraded.reshape(-1)
+            y_deg = _degraded_outputs(params, x_flat, new_idx.reshape(-1),
+                                      deg_f)
+            yk = torch.where(deg_f.reshape(t_n, k_n, 1),
+                             y_deg.reshape(t_n, k_n, d), yk)
 
     y = (yk * weights[..., None].to(x.dtype)).sum(1)
     if cfg.num_shared_experts and "shared" in params:

@@ -16,9 +16,13 @@ Stall attribution: demand (cold miss, full fetch wait), late-prefetch
 compute). The recorded per-slot masks come back to the host once per step
 (one device-to-host copy, plus the sampled tokens).
 
-Not ported yet (they raise NotImplementedError): the quant tier, telemetry,
-the multi-device mesh, paged KV, the prefix cache, live placement, chunked
-prefill and the continuous scheduler's row hooks.
+The quant tier (``tier=``, a runtime.tiers.TieredExpertStore) is ported:
+the engine quantizes every MoE expert on the params' device, calibrates
+the fidelity, uses the tier's displaced-budget cache, and serves a miss
+the tier takes as a degraded slot. Not ported yet (they raise
+NotImplementedError): telemetry, the multi-device mesh, paged KV, the
+prefix cache, live placement, chunked prefill and the continuous
+scheduler's row hooks.
 """
 from __future__ import annotations
 
@@ -29,6 +33,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import quantize
 from repro_torch.core.buddies import BuddyTables
 from repro_torch.core.policy import BuddyPolicy
 from repro_torch.models import transformer
@@ -81,25 +86,45 @@ class ServeEngine:
                  window: int = -1,
                  seed: int = 0,
                  prefetch_min_saving: Optional[float] = None,
-                 tier=None, telemetry=None, n_devices: int = 1,
+                 tier=None, upgrade_degraded: Optional[bool] = None,
+                 telemetry=None, n_devices: int = 1,
                  paged_kv: bool = False, prefix_cache: bool = False,
                  placement=None):
         """Same knobs as the reference engine for what is ported. The
         params live on the device the engine runs on (their ``embed``
-        tensor's device)."""
+        tensor's device).
+
+        tier: a TieredExpertStore; ``policy.quant_tier`` must name its
+        precision. upgrade_degraded: background-fetch the true expert of
+        every degraded slot (None: on exactly in cost mode with a tier)."""
         if not cfg.is_moe:
             raise ValueError("ServeEngine's expert cache applies to MoE archs")
         if lookahead < 1:
             raise ValueError("lookahead: layers ahead to prefetch (>= 1)")
-        for what, on in (("the quant tier", tier is not None
-                          or policy.quant_tier != "off"),
-                         ("telemetry", telemetry is not None),
+        for what, on in (("telemetry", telemetry is not None),
                          ("the multi-device mesh", int(n_devices) != 1),
                          ("paged KV", paged_kv),
                          ("the prefix cache", prefix_cache),
                          ("live placement", placement is not None)):
             if on:
                 _not_ported(what)
+        self.tier = tier
+        if tier is not None:
+            if policy.quant_tier == "off":
+                raise ValueError("a TieredExpertStore needs "
+                                 "policy.quant_tier='int8'/'int4'")
+            if quantize.TIER_BITS[policy.quant_tier] != tier.bits:
+                raise ValueError(f"policy tier {policy.quant_tier} != store "
+                                 f"bits {tier.bits}")
+            if cache is not None and cache is not tier.cache:
+                raise ValueError("pass the cache through the tier (it owns "
+                                 "the budget split)")
+            params, fid = quantize.attach_quant_tier(cfg, params, tier.bits)
+            tier.attach_fidelity(fid)
+            cache = tier.cache
+        elif policy.quant_tier != "off":
+            raise ValueError("policy.quant_tier is on but no "
+                             "TieredExpertStore was given")
         self.cfg = cfg
         self.policy = policy
         self.params = params
@@ -128,6 +153,11 @@ class ServeEngine:
         # residency commits and byte counts are driven by the same timeline
         self.scheduler.add_listener(self.cache.on_transfer_event)
         self.ledger.attach(self.scheduler)
+        if tier is not None:
+            self.ledger.tier_upload(tier.quant_bytes)
+        self.upgrade_degraded = (self._cost_mode and tier is not None
+                                 if upgrade_degraded is None
+                                 else bool(upgrade_degraded))
         self.stats = EngineStats()
         self._last_used: dict = {}
         self.last_prefetch_worthwhile: Optional[int] = None
@@ -153,22 +183,30 @@ class ServeEngine:
         res = self.cache.residency_mask()
         hop = np.stack([self.cache.hop_vector(l)
                         for l in range(self.num_moe_layers)])
-        fid_cost = fetch_cost = None
+        quant_ok = fid_cost = fetch_cost = None
         if self._cost_mode:
             # unified cost mode: the in-model argmin consumes per-expert
             # stall-equivalent costs (no tier: the degraded option is inf)
             # expected stall of fetching each expert on a miss THIS step
             # (cold: the full modeled transfer; in flight: its tail)
             eta = self.costs.fetch_eta(self.scheduler)
+            fid = (None if self.tier is None
+                   else self.tier.effective_fidelity())
             fid_cost = torch.as_tensor(self.costs.degraded_cost(
-                None, shape=eta.shape), dtype=torch.float32).to(self.device)
+                fid, shape=eta.shape), dtype=torch.float32).to(self.device)
             fetch_cost = torch.as_tensor(eta, dtype=torch.float32) \
                 .to(self.device)
+        elif self.tier is not None:
+            # precedence mode: degrade a miss whose expected stall buys
+            # the replica's fidelity loss
+            quant_ok = torch.from_numpy(self.tier.degraded_ok(
+                res, self.costs.fetch_eta(self.scheduler))).to(self.device)
         return BuddyState(resident=torch.from_numpy(res).to(self.device),
                           table=self._table_dev, q=self._q_dev,
                           hop=torch.from_numpy(hop.astype(np.int32))
                           .to(self.device),
-                          fid_cost=fid_cost, fetch_cost=fetch_cost)
+                          quant_ok=quant_ok, fid_cost=fid_cost,
+                          fetch_cost=fetch_cost)
 
     def init_caches(self, batch: int, seq_len: int):
         return transformer.init_caches(
@@ -232,7 +270,14 @@ class ServeEngine:
                 self.ledger.buddy_hit(n_sub)
                 n_deg = int(deg_sl[li][active].sum())
                 if n_deg:
+                    # misses served by the resident quant tier: no
+                    # transfer, no stall — only the degraded accounting
                     self.ledger.degraded(n_deg)
+                    if self.tier is not None:
+                        self.tier.note_degraded(n_deg)
+                    if self.upgrade_degraded:
+                        self._upgrade_degraded(
+                            layer, rows[deg_sl[li][active]])
                 n_dr = int(drop_sl[li][active].sum())
                 if n_dr:
                     # misses the cost argmin dropped: renormalized in the
@@ -304,6 +349,20 @@ class ServeEngine:
             self.stats.n_miss_fetch += 1
         return cursor, stall
 
+    def _upgrade_degraded(self, layer: int, experts: np.ndarray) -> None:
+        """Degraded-then-upgrade: background-fetch the true experts the
+        quant tier just served ('upgrade' cause: prefetch priority, exempt
+        from stale-prediction cancels). This step's outputs stay degraded;
+        a duplicate submission returns the in-flight transfer, so an expert
+        pays its bytes once."""
+        for e_up in np.unique(np.asarray(experts, np.int64)):
+            e_up = int(e_up)
+            if self.cache.resident[layer, e_up] or \
+                    self.scheduler.in_flight(layer, e_up) is not None:
+                continue
+            self.scheduler.submit(layer, e_up, self._expert_bytes, "upgrade")
+            self.stats.n_upgrade_issued += 1
+
     def _rank_prefetch(self, tgt: int, used: np.ndarray):
         """Expected-stall-saved prefetch ranking (cost mode): score[e] =
         P(use e at the target layer) x the miss cost without it. Returns
@@ -312,10 +371,12 @@ class ServeEngine:
             tgt, lookahead=self.lookahead, context=used), np.float64)
         eta = np.full(self.cfg.moe.num_experts,
                       self.hw.transfer_time(self._expert_bytes))
+        fid_row = (None if self.tier is None
+                   else self.tier.effective_fidelity(tgt))
         best_q = (None if self.policy.mode == "none" else
                   best_resident_q(self._table[tgt], self._q[tgt],
                                   self.cache.resident[tgt]))
-        risk = self.costs.miss_cost(eta, None, best_q)
+        risk = self.costs.miss_cost(eta, fid_row, best_q)
         score = self.costs.prefetch_scores(p_use, risk,
                                            self.cache.resident[tgt])
         new_score = np.where(self.cache.inflight[tgt], 0.0, score)
@@ -348,6 +409,43 @@ class ServeEngine:
                 continue
             self.scheduler.submit(tgt, e, self._expert_bytes, "prefetch")
             self.stats.n_prefetch_issued += 1
+
+    # ------------------------------------------------------------------
+    def reset_runtime(self, cache: Optional[ExpertCache] = None,
+                      predictor=None) -> None:
+        """Fresh serving state (clock, ledger, cache, predictor, stats) on
+        the same model, e.g. to reuse one engine across runs. The tier's
+        replicas are static: it is repointed at the fresh cache and its
+        one-time upload is paid again."""
+        e = self.cfg.moe.num_experts
+        if cache is None:
+            old = self.cache
+            cache = ExpertCache(self.num_moe_layers, e, old.capacity / e,
+                                policy=old.policy,
+                                num_partitions=old.num_partitions,
+                                buddy_table=old.buddy_table,
+                                buddy_candidates=old.buddy_candidates)
+        self.cache = cache
+        if self.tier is not None:
+            self.tier.cache = cache
+            self.tier.reset_counters()
+        if predictor is None and self.predictor is not None:
+            # carry the predictor's configuration into the fresh instance
+            if hasattr(self.predictor, "clone_fresh"):
+                predictor = self.predictor.clone_fresh()
+            else:
+                predictor = type(self.predictor)(self.num_moe_layers, e)
+        self.predictor = predictor
+        self.ledger = TransferLedger(self.hw)
+        self.scheduler = TransferScheduler(self.hw)
+        self.scheduler.add_listener(self.cache.on_transfer_event)
+        self.ledger.attach(self.scheduler)
+        if self.tier is not None:
+            self.ledger.tier_upload(self.tier.quant_bytes)
+        self.stats = EngineStats()
+        self._last_used = {}
+        self.last_prefetch_worthwhile = None
+        self._step_worthwhile = None
 
     # ------------------------------------------------------------------
     def sample_tokens(self, logits, greedy: bool, temperature: float = 1.0):
@@ -387,6 +485,25 @@ class ServeEngine:
                 tok = self._tokens(nxt)
         return out
 
+    def teacher_forced_nll(self, tokens: np.ndarray,
+                           row_mask: Optional[np.ndarray] = None) -> float:
+        """Mean next-token NLL under the engine's policy (the tier's
+        accuracy measure). ``row_mask`` [B] excludes pad rows."""
+        b, s = tokens.shape
+        mask = (np.ones(b, bool) if row_mask is None
+                else np.asarray(row_mask, bool))
+        caches = self.init_caches(b, s)
+        nll, n = 0.0, 0
+        for pos in range(s - 1):
+            logits, caches = self.step(self._tokens(tokens[:, pos]), caches,
+                                       pos, active=mask)
+            logp = torch.log_softmax(logits.float(), dim=-1)
+            tgt = self._tokens(tokens[:, pos + 1])
+            row_nll = -logp.gather(1, tgt[:, None])[:, 0].cpu().numpy()
+            nll += float(row_nll[mask].sum())
+            n += int(mask.sum())
+        return nll / n
+
     def stall_breakdown(self) -> dict:
         return {
             "demand_stall_s": self.ledger.demand_stall_s,
@@ -403,13 +520,15 @@ class ServeEngine:
             "stall_breakdown": self.stall_breakdown(),
             "ledger": self.ledger.summary(),
         }
+        if self.tier is not None:
+            s["tier"] = self.tier.summary()
         if self._cost_mode:
             s["cost_policy"] = {
                 "stall_per_quality": self.policy.stall_per_quality,
                 "drop_loss": self.policy.drop_loss,
                 "n_miss_drop": self.stats.n_miss_drop,
                 "n_upgrade_issued": self.stats.n_upgrade_issued,
-                "upgrade_degraded": False,
+                "upgrade_degraded": self.upgrade_degraded,
                 "prefetch_worthwhile_last": self.last_prefetch_worthwhile,
             }
         return s

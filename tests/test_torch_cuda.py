@@ -11,6 +11,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.configs.base import MoEConfig  # noqa: E402
+from repro_torch.core import quantize  # noqa: E402
 from repro_torch.core.policy import BuddyPolicy  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels.buddy_substitute import (  # noqa: E402
@@ -19,6 +20,8 @@ from repro_torch.kernels.expert_ffn import (expert_ffn_cuda,  # noqa: E402
                                             expert_ffn_plain)
 from repro_torch.kernels.grouped_ffn import (grouped_ffn_cuda,  # noqa: E402
                                              grouped_ffn_plain)
+from repro_torch.kernels.quant_ffn import (quant_ffn_cuda,  # noqa: E402
+                                           quant_ffn_plain, quant_operands)
 from repro_torch.kernels.topk_gate import (topk_gate_cuda,  # noqa: E402
                                            topk_gate_plain)
 from repro_torch.models import moe as M  # noqa: E402
@@ -101,9 +104,9 @@ def test_expert_ffn(dev, e, c, d, f, dtype):
                                rtol=TOL[dtype], atol=TOL[dtype])
 
 
-def _quantize(w):
-    s = w.abs().amax(1).clamp(min=1e-8) / 127.0
-    return torch.round(w / s[:, None, :]).clamp(-127, 127).to(torch.int8), s
+def _replicas(ws):
+    return quant_operands(
+        quantize.quantize_expert_ffn(*(w.float() for w in ws), 8))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -121,14 +124,42 @@ def test_grouped_ffn(dev, dtype, replicas):
     x, counts = x.to(dtype).to(dev), counts.to(dev)
     quant = None
     if replicas:
-        (q1, s1), (q3, s3), (q2, s2) = (_quantize(w.float()) for w in ws)
-        quant = (q1, s1, q3, s3, q2, s2)
+        quant = _replicas(ws)
     for cnt in (None, counts):
         got = grouped_ffn_cuda(x, *ws, quant, cnt)
         want = grouped_ffn_plain(x, *ws, quant, cnt)
         torch.testing.assert_close(got.float(), want.float(),
                                    rtol=TOL[dtype], atol=TOL[dtype])
         assert torch.all(got[1] == 0)
+
+
+@pytest.mark.parametrize("e,c,d,f,binned", [
+    (64, 24, 2048, 1408, True),      # gather-branch decode: 24 slots binned
+    (64, 32, 2048, 1408, False),     # every row filled
+    (3, 37, 200, 136, True), (2, 1, 40, 24, False), (5, 70, 64, 33, True)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_quant_ffn(dev, e, c, d, f, binned, dtype):
+    g = _gen(e * 10 + c)
+    quant = _replicas(_weights(g, e, d, f, torch.float32, dev))
+    counts = None
+    x = torch.randn(e, c, d, generator=g)
+    if binned:
+        # c slots over e experts, as the binning step lays them out
+        counts = torch.bincount(torch.randint(0, e, (c,), generator=g),
+                                minlength=e).to(torch.int32)
+        x[torch.arange(c)[None, :] >= counts[:, None]] = 0.0
+        counts = counts.to(dev)
+    x = x.to(dtype).to(dev)
+    before = quant_ffn_cuda.launches
+    got = quant_ffn_cuda(x, *quant, counts)
+    assert quant_ffn_cuda.launches == before + 1
+    want = quant_ffn_plain(x, *quant, counts)
+    assert got.dtype == dtype
+    torch.testing.assert_close(got.float(), want.float(), rtol=TOL[dtype],
+                               atol=TOL[dtype])
+    if binned:
+        empty = (counts == 0).nonzero()[:, 0]
+        assert torch.all(got[empty] == 0)
 
 
 def test_wrappers_check_their_operands(dev):
@@ -145,11 +176,21 @@ def test_wrappers_check_their_operands(dev):
         expert_ffn_cuda(x.half(), *ws)
     with pytest.raises(ValueError):
         grouped_ffn_cuda(x, *ws)                   # needs 2E groups
+    quant = _replicas(ws)
+    with pytest.raises(ValueError):
+        quant_ffn_cuda(torch.randn(3, 3, 8, device=dev), *quant)  # E 3 != 2
+    with pytest.raises(ValueError):
+        quant_ffn_cuda(x[:2], quant[0].float(), *quant[1:])   # not int8
+    with pytest.raises(ValueError):
+        quant_ffn_cuda(x[:2], *quant, torch.zeros(2, device=dev))  # counts
 
 
-def _moe_case(devices, e, k, shape, policy, seed=0):
+def _moe_case(devices, e, k, shape, policy, seed=0, tier=False):
     cfg = MoEConfig(num_experts=e, top_k=k, d_ff=48, num_shared_experts=1)
     p = M.init_moe(_gen(seed), 64, cfg, torch.float32, "cpu")
+    if tier:
+        p["quant"] = quantize.quantize_expert_ffn(p["w1"], p["w3"], p["w2"],
+                                                  8)
     g = _gen(seed + 1)
     x = torch.randn(*shape, 64, generator=g) * 0.5
     table = torch.stack([torch.roll(torch.arange(e), -i - 1)[:4]
@@ -157,15 +198,18 @@ def _moe_case(devices, e, k, shape, policy, seed=0):
     buddy = M.BuddyState((torch.rand(e, generator=g) < 0.5), table,
                          torch.rand(e, 4, generator=g).sort(
                              -1, descending=True).values,
-                         torch.zeros(e, dtype=torch.int32))
+                         torch.zeros(e, dtype=torch.int32),
+                         quant_ok=(torch.rand(e, generator=g) < 0.7)
+                         if tier else None)
     out = []
     for d in devices:
         pd = {name: (v.to(d) if torch.is_tensor(v) else
                      {kk: vv.to(d) for kk, vv in v.items()})
               for name, v in p.items()}
         out.append(M.moe_forward(pd, x.to(d), cfg, policy=policy,
-                                 buddy=M.BuddyState(*[a.to(d)
-                                                      for a in buddy[:4]])))
+                                 buddy=M.BuddyState(*[
+                                     None if a is None else a.to(d)
+                                     for a in buddy])))
     return out
 
 
@@ -184,6 +228,26 @@ def test_moe_forward_on_card_matches_cpu(dev, fused, shape):
                  "miss_per_expert"):
         assert torch.equal(getattr(ga, name).cpu(), getattr(ca, name)), name
     assert int(ga.n_dropped) == int(ca.n_dropped)
+
+
+@pytest.mark.parametrize("fused,shape", [(True, (4, 1)), (False, (4, 1)),
+                                         (False, (2, 16))])
+def test_moe_forward_with_tier_on_card_matches_cpu(dev, fused, shape):
+    """The degraded outcome on the card: the grouped kernel's int8 half
+    (fused) or quant_ffn (gather, capacity) against the CPU."""
+    pol = BuddyPolicy(tau=0.0, beta=1.1, rho=1, H=2, quant_tier="int8",
+                      use_fused_dispatch=fused)
+    before = ops.launch_counts()
+    (cy, ca), (gy, ga) = _moe_case(("cpu", dev), 16, 3, shape, pol, seed=3,
+                                   tier=True)
+    after = ops.launch_counts()
+    kernel = "grouped_ffn" if fused else "quant_ffn"
+    assert after[kernel] == before[kernel] + 1
+    assert int(ca.n_degraded) > 0
+    torch.testing.assert_close(gy.cpu(), cy, rtol=1e-4, atol=1e-4)
+    for name in ("indices", "sub_slots", "miss_slots", "deg_slots",
+                 "miss_per_expert"):
+        assert torch.equal(getattr(ga, name).cpu(), getattr(ca, name)), name
 
 
 @pytest.mark.parametrize("kw", [dict(miss_policy="cost"), dict(eta=0.3),

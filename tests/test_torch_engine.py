@@ -3,7 +3,8 @@
 PrevStepPredictor, batch 4, 8 prompt + 8 greedy new tokens): the same tokens
 and the same counters on the simulated clock; float clock values allclose
 (rtol 1e-9: the host-side timeline replays the same decisions). Also the
-serve launcher's batch mode and its refusals."""
+serve launcher's batch mode and its refusals. The quant tier's engine
+tests are in tests/test_torch_tier_engine.py."""
 import math
 from pathlib import Path
 
@@ -111,19 +112,19 @@ def test_temperature_sampling_is_seeded():
         run(greedy=False, temperature=0.0)
 
 
-@pytest.mark.parametrize("kw", [dict(tier=object()), dict(telemetry=object()),
+@pytest.mark.parametrize("kw", [dict(telemetry=object()),
                                 dict(n_devices=2), dict(paged_kv=True),
                                 dict(prefix_cache=True),
-                                dict(placement=object()),
-                                dict(policy=BuddyPolicy(quant_tier="int8"))])
+                                dict(placement=object())])
 def test_unported_subsystems_raise(kw):
+    """The quant tier is ported: its configuration errors are held against
+    the reference's in tests/test_torch_tier_engine.py."""
     params = load_npz(str(FIXTURE / "model.npz"), "cpu")
     with pytest.raises(NotImplementedError):
         ServeEngine(profiling(), params, **kw)
 
 
 @pytest.mark.parametrize("flag", [["--mode", "continuous"],
-                                  ["--quant-tier", "int8"],
                                   ["--n-devices", "2"], ["--paged-kv"],
                                   ["--prefix-cache"],
                                   ["--placement", "live"],

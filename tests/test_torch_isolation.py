@@ -18,13 +18,15 @@ PORT = ROOT / "src" / "repro_torch"
 _PROBE = r"""
 import importlib, pkgutil, sys
 import repro_torch
+NEW = ("repro_torch.core.quantize", "repro_torch.runtime.tiers",
+       "repro_torch.kernels.quant_ffn")
 names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                 "repro_torch.")]
 for n in names:
     importlib.import_module(n)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
-print(len(names), bad)
+print(len(names), int(all(m in names for m in NEW)), bad)
 """
 
 
@@ -33,8 +35,9 @@ def test_importing_every_module_loads_no_jax():
     out = subprocess.run([sys.executable, "-c", _PROBE], env=env, cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    n, bad = out.stdout.strip().split(" ", 1)
-    assert int(n) >= 25, out.stdout          # the walk found the package
+    n, tier, bad = out.stdout.strip().split(" ", 2)
+    assert int(n) >= 28, out.stdout          # the walk found the package
+    assert tier == "1", out.stdout           # ... the tier's modules too
     assert bad == "[]", f"modules loaded by repro_torch: {bad}"
 
 

@@ -152,7 +152,7 @@ def test_kernel_path_equals_full_substitute():
         pol = BuddyPolicy(tau=0.1, beta=1.1, rho=2, H=5, mode=mode)
         _, idx, topk_logits, _, allow = M.router_topk(
             torch.eye(e), logits, k, tau=pol.tau)
-        a = M.substitute_precedence(idx, allow, tb, pol)
+        a = M.substitute_precedence(idx, allow, tb, pol, quant_ok=tb.quant_ok)
         b = substitute(idx, topk_logits, tb.resident, tb.table, tb.q, pol,
                        quant_ok=tb.quant_ok, peer_ok=tb.peer_ok)
         for name in ("indices", "substituted", "missed", "allowed",
@@ -162,10 +162,15 @@ def test_kernel_path_equals_full_substitute():
 
 
 def test_quant_tier_waits_for_its_slice():
+    """A quant_tier policy on params with no replicas runs the pre-tier
+    path, as the reference does (the tier itself: tests/test_torch_tier.py)."""
     _, cfg, _, tp = _params(8, 2, 0, seed=0)
-    with pytest.raises(NotImplementedError):
-        M.moe_forward(tp, torch.zeros(2, 1, D), cfg,
-                      policy=BuddyPolicy(quant_tier="int8"))
+    x = torch.from_numpy(np.random.default_rng(0).normal(
+        size=(2, 1, D)).astype(np.float32))
+    on = M.moe_forward(tp, x, cfg, policy=BuddyPolicy(quant_tier="int8"))
+    off = M.moe_forward(tp, x, cfg, policy=BuddyPolicy())
+    assert torch.equal(on[0], off[0])
+    assert int(on[1].n_degraded) == 0
 
 
 def test_init_moe_shapes_and_scales():

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Where a decode step of the PyTorch/CUDA port spends its time on the card.
 
-    PYTHONPATH=src python tools/profile_torch_decode.py [--layers 8] [--steps 6]
+    PYTHONPATH=src python tools/profile_torch_decode.py [--layers 8] [--steps 6] \
+        [--quant-tier int8]
 
 Builds the same engine as chip_smoke.py's serve phase (deepseek-v2-lite-buddy
 at full width, cut to --layers layers, random weights from seed 0, buddy
@@ -9,7 +10,11 @@ profiling, cache-rate 0.5, prev-step predictor), warms it up, then for the
 fused and the gather dispatch times --steps decode steps three ways: wall
 clock (synchronized), the host-side timeline replay inside the engine
 (``ServeEngine._account``), and torch.profiler's device time per kernel.
-Prints one JSON object per dispatch and, with --out, writes them to a file.
+With --quant-tier the engines carry the replica tier at coverage 0.5
+(chip_smoke.py's tier path: 15 full slots and 32 replicas per layer at
+full width), so degraded slots run through the grouped kernel's int8 half (fused)
+or quant_ffn (gather). Prints one JSON object per dispatch and, with --out,
+writes them to a file.
 Needs a CUDA device; it exits nonzero without one.
 """
 from __future__ import annotations
@@ -32,14 +37,16 @@ def _device_us(evt) -> float:
     return 0.0
 
 
-def profile_dispatch(serve, params, layers: int, steps: int, fused: bool):
+def profile_dispatch(serve, params, layers: int, steps: int, fused: bool,
+                     tier_flags=()):
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     flags = ["--layers", str(layers), "--cache-rate", "0.5", "--policy",
              "buddy", "--predictor", "prev-step", "--batch", "4"]
     eng, lm = serve.build_engine(
-        serve.parse_args(flags + (["--fused-dispatch"] if fused else [])),
+        serve.parse_args(flags + list(tier_flags)
+                         + (["--fused-dispatch"] if fused else [])),
         params=params)
     account_s = [0.0]
     account = eng._account
@@ -80,7 +87,9 @@ def profile_dispatch(serve, params, layers: int, steps: int, fused: bool):
     rows.sort(key=lambda r: -r[1])
     return {
         "dispatch": "fused" if fused else "gather", "layers": layers,
-        "steps": steps,
+        "steps": steps, "tier": " ".join(tier_flags) or "off",
+        "degraded_slots_all_steps": (eng.tier.degraded_tokens
+                                     if eng.tier is not None else 0),
         "wall_ms_per_step": wall / steps * 1e3,
         "host_account_ms_per_step": acc / steps * 1e3,
         "profiled_wall_ms_per_step": wall_prof / steps * 1e3,
@@ -98,8 +107,12 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--layers", type=int, default=8)
     ap.add_argument("--steps", type=int, default=6)
+    ap.add_argument("--quant-tier", choices=["off", "int8", "int4"],
+                    default="off")
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
+    tier_flags = () if args.quant_tier == "off" else (
+        "--quant-tier", args.quant_tier, "--tier-coverage", "0.5")
     import torch
     if not torch.cuda.is_available():
         print("profile_torch_decode: no CUDA device", file=sys.stderr)
@@ -118,7 +131,8 @@ def main() -> int:
     out = {"device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
            "results": []}
     for fused in (True, False):
-        res = profile_dispatch(serve, params, args.layers, args.steps, fused)
+        res = profile_dispatch(serve, params, args.layers, args.steps, fused,
+                               tier_flags)
         print(json.dumps(res), flush=True)
         out["results"].append(res)
     if args.out:
