@@ -7,9 +7,11 @@ Run from the root of a checkout (it imports ``src/repro_torch`` and reads the
 committed fixture under ``results/bench``). Phases, one JSON line each:
 
   device   the card's name, power limit and compute capability (must be 9.0)
-  build    nvcc builds of the five kernels (csrc/*.cu), all at once
+  build    nvcc builds of the six kernels (csrc/*.cu), all at once
   kernels  each kernel against its plain PyTorch version on the card, at the
-           shapes of the main path, with times (CUDA events) and bounds
+           shapes of the main path, with times (CUDA events) and bounds;
+           wkv_chunk also at head dim 128 (dynamic shared memory), and its
+           autograd backward on the card against the same on the CPU
   parity   the committed profiling fixture (results/bench/model.npz with
            tables_a0.95_k16.npz) served on the CPU through the plain versions
            and on the card through the kernels, without and with the int8
@@ -22,6 +24,18 @@ committed fixture under ``results/bench``). Phases, one JSON line each:
            same with --quant-tier int8 --tier-coverage 0.5: fused, then 3
            gather steps, both serving degraded slots. Every kernel of a path
            must have launched in that path's window
+  train_parity  the reduced rwkv6 config, weights from seed 0 made on the
+           CPU: one train step on the CPU (plain) and one on the card
+           (kernel); loss, grad norm and every gradient agree
+  train    rwkv6-1.6b at full width and depth (24 layers, d_model 2048,
+           vocab 65536, f32), random weights from seed 0, through
+           launch/train.py's entry points: --batch 4 --seq 512 --steps 3 in
+           its own launch-count window; finite loss and grad norm at every
+           step, 24 wkv_chunk launches per forward; per-step wall time and
+           its forward / backward / optimizer split, tokens/s, peak memory
+  decode   the trained full-width weights: forward_train (chunked, through
+           the kernel) against 31 decode_steps (per-token recurrence) on 2 x
+           32 tokens
 
 Then the kernels table line, the card's name and power limit as nvidia-smi
 prints them, and the result line. Without a CUDA card, or outside a checkout,
@@ -48,6 +62,18 @@ LOGIT_TOL = 1e-3               # CPU vs card logits on the fixture (f32
 #                                matmuls in another order, two layers)
 FID_RTOL = 1e-5                # CPU vs card mean fidelity loss (f32 sums)
 FIXTURE = ROOT / "results" / "bench"
+GRAD_RTOL = 1e-4               # CPU vs card gradients, of each leaf's (or
+#                                WKV input's) largest entry: f32 sums in
+#                                another order; the embedding's backward
+#                                accumulates with atomics on the card
+LOSS_RTOL = 1e-5               # CPU vs card loss and grad norm
+DECODE_TOL = 5e-4              # chunked forward vs step-by-step decode,
+#                                |diff| <= tol * (1 + |logit|): the tolerance
+#                                the reference holds its own chunked form to
+#                                (tests/test_ssm_chunked.py), both f32 forms
+#                                summing in another order through exp(+-la)
+SERVE_KERNELS = ("topk_gate", "buddy_substitute", "expert_ffn",
+                 "grouped_ffn", "quant_ffn")
 
 
 def emit(obj) -> None:
@@ -341,6 +367,53 @@ def kernel_grouped_ffn(dev, gen):
     return rows["decode"]
 
 
+def kernel_wkv(dev, gen):
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.wkv_chunk import wkv_chunk_cuda, wkv_chunk_plain
+    from repro_torch.models.rwkv import random_chunk_operands
+    rows = {}
+    # the train phase's shape (B 4 x H 32 lanes, 512 tokens = 16 chunks of
+    # 32, head dim 64), and head dim 128 (74.9 KB of dynamic shared memory)
+    for name, (b, h, n, c, d) in (("train", (4, 32, 16, 32, 64)),
+                                  ("d128", (2, 32, 8, 32, 128))):
+        args = random_chunk_operands(gen, b, h, n, c, d, dev)
+        got, want = wkv_chunk_cuda(*args), wkv_chunk_plain(*args)
+        err = max(max_err(g, w) for g, w in zip(got, want))
+        scale = 1 + max(float(w.abs().max()) for w in want)
+        require(err <= TOL_F32 * scale, f"wkv_chunk {name}: err {err}")
+        bh = b * h
+        # per lane and chunk: r~ S and the state's k_end^T v (2 C D^2 each),
+        # the strictly lower scores and their product with v (C(C-1) D
+        # each), the diagonal term (2 C D) and the decay (2 D^2)
+        flops = bh * n * (4 * c * d * d + 2 * c * (c - 1) * d + 2 * c * d
+                          + 2 * d * d)
+        b_ms, b_by = bound(nbytes(*args) + nbytes(*got), flops)
+        rows[name] = {"shape": [bh, n, c, d], "max_abs_err": err,
+                      "max_abs_plain": scale - 1,
+                      "ms": time_ms(lambda: wkv_chunk_cuda(*args), inner=10),
+                      "plain_ms": time_ms(lambda: wkv_chunk_plain(*args)),
+                      "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
+    # the autograd backward (torch ops) on the card against the CPU's
+    args = random_chunk_operands(gen, 4, 32, 16, 32, 64, "cpu")
+    w_o = torch.randn(args[0].shape, generator=gen)
+    w_s = torch.randn(args[-1].shape, generator=gen)
+    grads = []
+    for d in ("cpu", dev):
+        a = [t.detach().to(d).requires_grad_(True) for t in args]
+        o, s = ops.wkv_chunk(*a)
+        (torch.sum(o * w_o.to(d)) + torch.sum(s * w_s.to(d))).backward()
+        grads.append([t.grad.cpu() for t in a])
+    bwd = {nm: max_err(gg, gc) / float(gc.abs().max())
+           for nm, gc, gg in zip(("rt", "kt", "v", "ke", "lae", "dg", "s0"),
+                                 *grads)}
+    require(max(bwd.values()) <= GRAD_RTOL,
+            f"wkv_chunk backward: card vs CPU {bwd}")
+    emit({"phase": "kernels", "kernel": "wkv_chunk", "by_shape": rows,
+          "backward_rel_err": bwd, "backward_rtol": GRAD_RTOL})
+    return rows["train"]
+
+
 # ---------------------------------------------------------------------------
 def _fixture_run(device, fused: bool, tier: bool = False):
     """Serve the committed profiling fixture, with the int8 tier when asked
@@ -479,6 +552,7 @@ def phase_serve():
     import torch
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
+    from repro_torch.models.common import tree_leaves
     torch.cuda.reset_peak_memory_stats()
     flags = ["--arch", "deepseek-v2-lite-buddy", "--layers", "8",
              "--cache-rate", "0.5", "--policy", "buddy", "--predictor",
@@ -497,7 +571,7 @@ def phase_serve():
            "d_model": cfg.d_model, "experts": cfg.moe.num_experts,
            "d_ff_expert": cfg.moe.d_ff, "top_k": cfg.moe.top_k,
            "vocab": cfg.vocab_size,
-           "params": sum(t.numel() for t in _leaves(params)),
+           "params": sum(t.numel() for t in tree_leaves(params)),
            "base": dict(_path_row(base), launches=counts_base),
            "int8_tier": dict(_path_row(tier), launches=counts_tier),
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
@@ -513,9 +587,10 @@ def phase_serve():
         st = eng.stats
         require(st.n_hit + st.n_sub + st.n_miss_fetch > 0,
                 "no expert slot was served")
-    require(all(n > 0 for k, n in counts_base.items() if k != "quant_ffn"),
+    require(all(counts_base[k] > 0 for k in SERVE_KERNELS
+                if k != "quant_ffn"),
             f"a kernel was not launched on the serve path: {counts_base}")
-    require(all(n > 0 for n in counts_tier.values()),
+    require(all(counts_tier[k] > 0 for k in SERVE_KERNELS),
             f"a kernel was not launched on the tier path: {counts_tier}")
     require(out["int8_tier"]["degraded_fused"] > 0
             and out["int8_tier"]["degraded_gather"] > 0,
@@ -523,15 +598,143 @@ def phase_serve():
     return counts
 
 
-def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    elif isinstance(tree, (tuple, list)):
-        for v in tree:
-            yield from _leaves(v)
-    else:
-        yield tree
+# ---------------------------------------------------------------------------
+def phase_train_parity():
+    """One reduced rwkv6 train step on the CPU (plain) and on the card."""
+    import torch
+    from repro_torch.configs.rwkv6_1p6b import reduced
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer
+    from repro_torch.training.data import MarkovLM
+    from repro_torch.models.common import tree_leaves, tree_map
+    from repro_torch.training.optimizer import AdamWConfig, init_opt_state
+    from repro_torch.training.train_loop import (loss_and_grads,
+                                                 make_train_step)
+    cfg = reduced()
+    params = transformer.init_params(cfg, torch.Generator().manual_seed(0),
+                                     "cpu")
+    toks = torch.from_numpy(MarkovLM(cfg.vocab_size, seed=0).sample(2, 65))
+    step_fn = make_train_step(cfg, AdamWConfig(total_steps=3,
+                                               warmup_steps=10))
+    res = {}
+    for d in ("cpu", "cuda"):
+        before = ops.launch_counts()["wkv_chunk"]
+        p = tree_map(lambda t: t.to(d, copy=True), params)
+        x, y = toks[:, :-1].to(d), toks[:, 1:].to(d)
+        _, _, grads = loss_and_grads(p, cfg, x, y)
+        _, _, m = step_fn(p, init_opt_state(p), x, y)
+        res[d] = (float(m["loss"]), float(m["grad_norm"]),
+                  [g.cpu() for g in tree_leaves(grads)],
+                  ops.launch_counts()["wkv_chunk"] - before)
+    (lc, nc, gc, kc), (lg, ng, gg, kg) = res["cpu"], res["cuda"]
+    grad_rel = max(max_err(b, a) / max(float(a.abs().max()), 1e-30)
+                   for a, b in zip(gc, gg))
+    out = {"phase": "train_parity", "arch": cfg.arch_id,
+           "layers": cfg.num_layers, "d_model": cfg.d_model,
+           "loss_cpu": lc, "loss_cuda": lg, "grad_norm_cpu": nc,
+           "grad_norm_cuda": ng, "grad_max_rel_err": grad_rel,
+           "grad_rtol": GRAD_RTOL, "loss_rtol": LOSS_RTOL,
+           "wkv_launches_cpu": kc, "wkv_launches_cuda": kg}
+    emit(out)
+    require(kc == 0 and kg == 2 * cfg.num_layers,
+            f"train parity: wkv_chunk launches {kc} / {kg}")
+    require(abs(lg - lc) <= LOSS_RTOL * abs(lc)
+            and abs(ng - nc) <= LOSS_RTOL * abs(nc),
+            f"train parity: loss or grad norm differ: {out}")
+    require(grad_rel <= GRAD_RTOL, f"train parity: gradients differ: {out}")
+
+
+def phase_train(wkv_ms: float):
+    """rwkv6-1.6b at full width and depth through launch/train.py."""
+    import gc
+    import math
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as launch
+    from repro_torch.models.common import tree_leaves
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    args = launch.parse_args(["--arch", "rwkv6-1.6b", "--batch", "4",
+                              "--seq", "512", "--steps", "3"])
+    t0 = time.perf_counter()
+    trainer = launch.build_trainer(args)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    cfg = trainer.cfg
+    n_params = sum(t.numel() for t in tree_leaves(trainer.params))
+    ops.reset_launch_counts()                  # the train path starts here
+    params, hist = trainer.run(log_every=1, log_fn=lambda _: None)
+    counts = ops.launch_counts()               # ... and ends here
+    steps = []
+    for h in hist:
+        # wall_s: the host's wall time of the whole loop pass (taking and
+        # copying the batch, the step, reading the metrics back); the
+        # three phases are spans between CUDA events inside the step
+        phases = h["forward_s"] + h["backward_s"] + h["optimizer_s"]
+        steps.append({"step": h["step"], "loss": h["loss"],
+                      "grad_norm": h["grad_norm"], "lr": h["lr"],
+                      "wall_s": h["step_s"], "forward_s": h["forward_s"],
+                      "backward_s": h["backward_s"],
+                      "optimizer_s": h["optimizer_s"],
+                      "device_phases_s": phases,
+                      "host_gap_s": h["step_s"] - phases,
+                      "tokens_per_s": args.batch * args.seq / h["step_s"]})
+    steady = steps[1:] or steps
+    step_s = statistics.median(s["wall_s"] for s in steady)
+    fwd_s = statistics.median(s["forward_s"] for s in steady)
+    out = {"phase": "train", "arch": cfg.arch_id, "layers": cfg.num_layers,
+           "d_model": cfg.d_model, "heads": cfg.ssm.num_heads,
+           "head_dim": cfg.ssm.head_dim, "d_ff": cfg.d_ff,
+           "vocab": cfg.vocab_size, "params": n_params,
+           "batch": args.batch, "seq": args.seq, "setup_s": setup_s,
+           "steps": steps, "median_step_s": step_s,
+           "median_tokens_per_s": args.batch * args.seq / step_s,
+           "wkv_launches_per_forward": counts["wkv_chunk"] / len(hist),
+           "wkv_share_of_forward": cfg.num_layers * wkv_ms / 1e3 / fwd_s,
+           "wkv_share_of_step": cfg.num_layers * wkv_ms / 1e3 / step_s,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "launches": counts}
+    emit(out)
+    require(len(hist) == 3, f"train: {len(hist)} steps")
+    require(all(math.isfinite(s["loss"]) and math.isfinite(s["grad_norm"])
+                for s in steps), "train: non-finite loss or grad norm")
+    require(counts["wkv_chunk"] == cfg.num_layers * len(hist),
+            f"train: wkv_chunk launched {counts['wkv_chunk']} times, "
+            f"want {cfg.num_layers} per forward")
+    return counts["wkv_chunk"], params, cfg
+
+
+def phase_decode(params, cfg):
+    """Chunked full-sequence forward against per-token decode, full width."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer
+    from repro_torch.training.data import MarkovLM
+    b, s = 2, 32
+    toks = torch.from_numpy(MarkovLM(cfg.vocab_size, seed=1).sample(b, s)) \
+        .to("cuda")
+    with torch.no_grad():
+        before = ops.launch_counts()["wkv_chunk"]
+        full, _ = transformer.forward_train(params, cfg, toks)
+        launches = ops.launch_counts()["wkv_chunk"] - before
+        caches = transformer.init_caches(cfg, b, s, device="cuda")
+        err, worst = 0.0, 0.0
+        for pos in range(s - 1):
+            lg, caches, _ = transformer.decode_step(params, cfg, toks[:, pos],
+                                                    caches, pos)
+            diff = (lg - full[:, pos]).abs()
+            err = max(err, float(diff.max()))
+            worst = max(worst, float((diff / (1 + full[:, pos].abs()))
+                                     .max()))
+    out = {"phase": "decode", "batch": b, "tokens": s,
+           "wkv_launches_forward": launches, "max_abs_err": err,
+           "max_err_over_1_plus_abs": worst, "tol": DECODE_TOL,
+           "max_abs_logit": float(full.abs().max())}
+    emit(out)
+    require(launches == cfg.num_layers, f"decode: {launches} wkv launches")
+    require(bool(torch.isfinite(full).all()), "decode: non-finite logits")
+    require(worst <= DECODE_TOL, f"decode: chunked vs step differ: {out}")
 
 
 # ---------------------------------------------------------------------------
@@ -546,6 +749,8 @@ KERNELS = (  # name, source, TPU kernel it replaces (file:line of pallas_call)
      "src/repro/kernels/grouped_ffn.py:146"),
     ("quant_ffn", "src/repro_torch/csrc/quant_ffn.cu",
      "src/repro/kernels/quant_ffn.py:83"),
+    ("wkv_chunk", "src/repro_torch/csrc/wkv_chunk.cu",
+     "src/repro/kernels/wkv_chunk.py:58"),
 )
 
 
@@ -565,9 +770,13 @@ def main() -> int:
             "buddy_substitute": kernel_buddy(dev, gen),
             "expert_ffn": kernel_expert_ffn(dev, gen),
             "grouped_ffn": kernel_grouped_ffn(dev, gen),
-            "quant_ffn": kernel_quant_ffn(dev, gen)}
+            "quant_ffn": kernel_quant_ffn(dev, gen),
+            "wkv_chunk": kernel_wkv(dev, gen)}
     phase_parity()
     counts = phase_serve()
+    phase_train_parity()
+    counts["wkv_chunk"], params, cfg = phase_train(rows["wkv_chunk"]["ms"])
+    phase_decode(params, cfg)
     table = []
     for name, src, replaces in KERNELS:
         r = rows[name]

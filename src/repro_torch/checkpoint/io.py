@@ -7,6 +7,7 @@ Each group's arrays keep their stacked ``[L, ...]`` layout.
 """
 from __future__ import annotations
 
+import os
 from typing import Any
 
 import numpy as np
@@ -19,13 +20,13 @@ def params_from_numpy(flat: dict, device, dtype=None) -> dict:
     """{'groups/0/moe/w1': ndarray, ...} -> nested params on ``device``.
 
     ``dtype`` (optional) casts the floating-point leaves; integer leaves
-    keep their type."""
+    keep their type. The tensors own copies of the arrays, so training in
+    place never writes into the caller's arrays."""
     dev = resolve_device(device)
     dt = None if dtype is None else torch_dtype(dtype)
     tree: dict = {}
     for key in sorted(flat):
-        arr = np.asarray(flat[key])
-        t = torch.from_numpy(np.ascontiguousarray(arr))
+        t = torch.from_numpy(np.array(flat[key]))
         if dt is not None and t.is_floating_point():
             t = t.to(dt)
         node = tree
@@ -51,6 +52,13 @@ def params_to_numpy(tree: Any, prefix: str = "") -> dict:
     for k, v in items:
         flat.update(params_to_numpy(v, f"{prefix}/{k}" if prefix else k))
     return flat
+
+
+def save_npz(path: str, params) -> None:
+    """Write params in the reference's ``save_pytree`` format (a
+    compressed npz under the same keys)."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    np.savez_compressed(path, **params_to_numpy(params))
 
 
 def load_npz(path: str, device) -> dict:

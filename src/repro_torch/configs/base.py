@@ -192,15 +192,17 @@ SHAPES = {
     "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
 }
 
-# Only the attention-MoE family runs in this package so far; the other
-# families' configs arrive with their model code.
+# The families with model code in this package; the others' configs arrive
+# with theirs.
 ARCH_IDS = [
     # the paper's own evaluation model family
     "deepseek-v2-lite-buddy",
+    "rwkv6-1.6b",
 ]
 
 _MODULES = {
     "deepseek-v2-lite-buddy": "deepseek_v2_lite_buddy",
+    "rwkv6-1.6b": "rwkv6_1p6b",
 }
 
 

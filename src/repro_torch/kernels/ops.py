@@ -14,12 +14,15 @@ from repro_torch.kernels.grouped_ffn import (grouped_ffn_cuda,
                                              grouped_ffn_plain)
 from repro_torch.kernels.quant_ffn import quant_ffn_cuda, quant_ffn_plain
 from repro_torch.kernels.topk_gate import topk_gate_cuda, topk_gate_plain
+from repro_torch.kernels.wkv_chunk import (WKVChunk, wkv_chunk_cuda,
+                                           wkv_chunk_plain)
 
 _CUDA = {"topk_gate": topk_gate_cuda,
          "buddy_substitute": buddy_substitute_cuda,
          "expert_ffn": expert_ffn_cuda,
          "grouped_ffn": grouped_ffn_cuda,
-         "quant_ffn": quant_ffn_cuda}
+         "quant_ffn": quant_ffn_cuda,
+         "wkv_chunk": wkv_chunk_cuda}
 
 
 def _on_cuda(t: torch.Tensor, name: str) -> bool:
@@ -60,6 +63,13 @@ def quant_ffn(x, w1_q, w1_s, w3_q, w3_s, w2_q, w2_s, counts=None):
     if _on_cuda(x, "quant_ffn"):
         return quant_ffn_cuda(x, w1_q, w1_s, w3_q, w3_s, w2_q, w2_s, counts)
     return quant_ffn_plain(x, w1_q, w1_s, w3_q, w3_s, w2_q, w2_s, counts)
+
+
+def wkv_chunk(rt, kt, v, ke, lae, dg, s0):
+    """Differentiable: the forward is the kernel or the plain version, the
+    backward the chunked gradient in torch ops on either device."""
+    fwd = wkv_chunk_cuda if _on_cuda(rt, "wkv_chunk") else wkv_chunk_plain
+    return WKVChunk.apply(fwd, rt, kt, v, ke, lae, dg, s0)
 
 
 def launch_counts() -> dict:

@@ -37,6 +37,29 @@ def shard(x: torch.Tensor, *names: Optional[str]) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# Parameter trees (nested dicts / tuples / lists of tensors)
+# ---------------------------------------------------------------------------
+def tree_leaves(tree) -> list:
+    """The leaves of a nested dict / tuple / list tree. Dicts are walked in
+    sorted key order, as ``tree_map`` walks them, so two trees with the same
+    keys give their leaves in the same order however they were built."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
+    if isinstance(tree, (tuple, list)):
+        return [x for v in tree for x in tree_leaves(v)]
+    return [tree]
+
+
+def tree_map(fn, tree):
+    """The tree with ``fn`` applied to every leaf (dict keys sorted)."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, tree[k]) for k in sorted(tree)}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(tree_map(fn, v) for v in tree)
+    return fn(tree)
+
+
+# ---------------------------------------------------------------------------
 # Initializers (torch.Generator streams; they do not reproduce jax.random)
 # ---------------------------------------------------------------------------
 def normal(gen: torch.Generator, shape, device) -> torch.Tensor:

@@ -1,4 +1,4 @@
-"""Decoder stack for attention stacks (ATTN_MOE / ATTN_DENSE).
+"""Decoder stack for attention stacks (ATTN_MOE / ATTN_DENSE) and RWKV6.
 
 Counterpart of ``repro/models/transformer.py``. Parameters are a nested dict
 with the reference's keys and each group's layers stacked on a leading
@@ -9,8 +9,9 @@ axis. Entry points:
   decode_step(params, cfg, token, caches, pos, ...)  -> logits [B, V], caches, aux
 
 Serving state for MoE stacks: ``buddies`` is a BuddyState whose leaves carry
-a leading MoE-layer axis [L_moe, ...]. The SSM, hybrid, VLM and audio
-families, chunked prefill and paged caches arrive with later slices.
+a leading MoE-layer axis [L_moe, ...]. Decode caches (ring KV, RWKV states)
+are updated in place. The Mamba2, hybrid, VLM and audio families, chunked
+prefill and paged caches arrive with later slices.
 """
 from __future__ import annotations
 
@@ -18,12 +19,14 @@ from typing import Any, NamedTuple, Optional
 
 import torch
 
-from repro_torch.configs.base import ATTN_DENSE, ATTN_MOE, ModelConfig
+from repro_torch.configs.base import ATTN_DENSE, ATTN_MOE, RWKV, ModelConfig
 from repro_torch.core.policy import BuddyPolicy
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import rwkv as rw
 from repro_torch.models.common import (dense_init, embed_init, resolve_device,
-                                       rmsnorm, swiglu, torch_dtype)
+                                       rmsnorm, swiglu, torch_dtype,
+                                       tree_leaves, tree_map)
 
 _COUNTERS = ("lb", "n_sub", "n_miss", "n_drop", "n_degraded", "n_miss_drop",
              "n_peer", "miss_per_expert")
@@ -33,15 +36,9 @@ _RECORDED = ("indices", "probs", "n_sub", "n_miss", "miss_per_expert",
 
 def _check_stack(cfg: ModelConfig):
     kinds = {k for k, _ in cfg.stack()}
-    if not kinds <= {ATTN_DENSE, ATTN_MOE}:
+    if not kinds <= {ATTN_DENSE, ATTN_MOE, RWKV}:
         raise NotImplementedError(
-            f"only attention stacks are ported, got {cfg.stack()}")
-
-
-def _tree_map(fn, tree):
-    if isinstance(tree, dict):
-        return {k: _tree_map(fn, v) for k, v in tree.items()}
-    return fn(tree)
+            f"only attention and RWKV6 stacks are ported, got {cfg.stack()}")
 
 
 def _tree_assign(dst, i: int, src):
@@ -69,6 +66,17 @@ def _init_attn_block(gen, cfg: ModelConfig, dtype, device, moe: bool):
     return p
 
 
+def _init_block(gen, kind: str, cfg: ModelConfig, dtype, device):
+    if kind == RWKV:
+        s = cfg.ssm
+        p = rw.init_rwkv(gen, cfg.d_model, s.num_heads, s.head_dim, cfg.d_ff,
+                         dtype, device)
+        p["ln1"] = torch.ones(cfg.d_model, dtype=torch.float32, device=device)
+        p["ln2"] = torch.ones(cfg.d_model, dtype=torch.float32, device=device)
+        return p
+    return _init_attn_block(gen, cfg, dtype, device, kind == ATTN_MOE)
+
+
 def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
                 device="cuda") -> dict:
     """Random weights from a torch.Generator (seed 0 when none is given),
@@ -82,16 +90,14 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
                                         dtype, dev)}
     groups = []
     for kind, repeat in cfg.stack():
-        moe = kind == ATTN_MOE
-        first = _init_attn_block(gen, cfg, dtype, dev, moe)
-        stacked = _tree_map(lambda a: torch.empty((repeat, *a.shape),
-                                                  dtype=a.dtype, device=dev),
-                            first)
+        first = _init_block(gen, kind, cfg, dtype, dev)
+        stacked = tree_map(lambda a: torch.empty((repeat, *a.shape),
+                                                 dtype=a.dtype, device=dev),
+                           first)
         _tree_assign(stacked, 0, first)
         del first
         for i in range(1, repeat):
-            _tree_assign(stacked, i, _init_attn_block(gen, cfg, dtype, dev,
-                                                      moe))
+            _tree_assign(stacked, i, _init_block(gen, kind, cfg, dtype, dev))
         groups.append(stacked)
     params["groups"] = tuple(groups)
     params["final_norm"] = torch.ones(cfg.d_model, dtype=torch.float32,
@@ -135,9 +141,33 @@ def _moe_aux_dict(aux: moe_mod.MoEAux, record: bool) -> dict:
     return d
 
 
+def _rwkv_block(p, x, cache, ctx: StepCtx):
+    """RWKV6 time mix + channel mix. "full" starts from zero state and
+    drops the final one; "step" reads the layer's state from ``cache`` and
+    writes the new state back into it in place."""
+    cfg = ctx.cfg
+    st = cache if cache is not None else rw.init_rwkv_state(
+        x.shape[0], cfg.ssm.num_heads, cfg.ssm.head_dim, cfg.d_model,
+        x.device)
+    h, wkv, x_tm = rw.rwkv_time_mix(
+        p, rmsnorm(x, p["ln1"], cfg.norm_eps), st["wkv"],
+        st["x_tm"].to(x.dtype), num_heads=cfg.ssm.num_heads,
+        head_dim=cfg.ssm.head_dim)
+    x = x + h
+    h, x_cm = rw.rwkv_channel_mix(p, rmsnorm(x, p["ln2"], cfg.norm_eps),
+                                  st["x_cm"].to(x.dtype))
+    if cache is not None:
+        cache["wkv"].copy_(wkv)
+        cache["x_tm"].copy_(x_tm)
+        cache["x_cm"].copy_(x_cm)
+    return x + h, cache, None
+
+
 def block_forward(kind: str, p, x, cache, ctx: StepCtx, buddy=None):
     """Returns (x_out, cache, aux_dict_or_None)."""
     cfg = ctx.cfg
+    if kind == RWKV:
+        return _rwkv_block(p, x, cache, ctx)
     xn = rmsnorm(x, p["ln1"], cfg.norm_eps)
     if ctx.mode == "full":
         h = attn.attn_forward(p["attn"], xn, ctx.positions, window=ctx.window,
@@ -171,10 +201,14 @@ def _run_group(kind: str, gparams, x, gcache, ctx: StepCtx, gbuddy=None):
     """One homogeneous group, layer by layer over the stacked [R, ...]
     params. Returns (x, cache, reduced aux)."""
     r = gparams["ln1"].shape[0]
+    # one unbind per stacked leaf: its backward stacks the layers' gradients
+    # once, where indexing would scatter each into a zero [R, ...] tensor
+    layers = [a.unbind(0) for a in tree_leaves(gparams)]
     auxs = []
     for i in range(r):
-        lp = _tree_map(lambda a: a[i], gparams)
-        lc = _tree_map(lambda a: a[i], gcache) if gcache is not None else None
+        ith = iter([a[i] for a in layers])
+        lp = tree_map(lambda _: next(ith), gparams)
+        lc = tree_map(lambda a: a[i], gcache) if gcache is not None else None
         lb = (moe_mod.BuddyState(*[None if a is None else a[i]
                                    for a in gbuddy])
               if gbuddy is not None else None)
@@ -193,17 +227,28 @@ def _run_group(kind: str, gparams, x, gcache, ctx: StepCtx, gbuddy=None):
 # ===========================================================================
 def init_caches(cfg: ModelConfig, batch: int, seq_len: int, *,
                 window: int = 0, device="cuda"):
-    """Ring KV caches for every group, stacked [L, B, C, KV, hd]."""
+    """Decode caches for every group, stacked on the group's layers: ring
+    KV caches [L, B, C, KV, hd] for attention, RWKV6 states (wkv
+    [L, B, H, dk, dv], x_tm and x_cm [L, B, 1, D], f32)."""
     _check_stack(cfg)
     dev = resolve_device(device)
     dtype = torch_dtype(cfg.dtype)
     cap = min(seq_len, window) if window else seq_len
     shape = (cap, cfg.num_kv_heads, cfg.head_dim)
-    return tuple({"kv": {"k": torch.zeros((r, batch, *shape), dtype=dtype,
-                                          device=dev),
-                         "v": torch.zeros((r, batch, *shape), dtype=dtype,
-                                          device=dev)}}
-                 for _, r in cfg.stack())
+    caches = []
+    for kind, r in cfg.stack():
+        if kind == RWKV:
+            st = rw.init_rwkv_state(batch, cfg.ssm.num_heads,
+                                    cfg.ssm.head_dim, cfg.d_model, dev)
+            caches.append({k: torch.zeros((r, *a.shape), dtype=a.dtype,
+                                          device=dev)
+                           for k, a in st.items()})
+        else:
+            caches.append({"kv": {
+                "k": torch.zeros((r, batch, *shape), dtype=dtype, device=dev),
+                "v": torch.zeros((r, batch, *shape), dtype=dtype,
+                                 device=dev)}})
+    return tuple(caches)
 
 
 # ===========================================================================
@@ -219,7 +264,9 @@ def _iter_groups(params, cfg, caches, buddies):
     """Yields (kind, gparams, gcache, gbuddy) with MoE buddy slices."""
     moe_off = 0
     for gi, (kind, repeat) in enumerate(cfg.stack()):
-        gc = caches[gi]["kv"] if caches is not None else None
+        gc = None
+        if caches is not None:
+            gc = caches[gi] if kind == RWKV else caches[gi]["kv"]
         gb = None
         if kind == ATTN_MOE and buddies is not None:
             gb = moe_mod.BuddyState(*[None if a is None

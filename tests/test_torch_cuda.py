@@ -24,7 +24,10 @@ from repro_torch.kernels.quant_ffn import (quant_ffn_cuda,  # noqa: E402
                                            quant_ffn_plain, quant_operands)
 from repro_torch.kernels.topk_gate import (topk_gate_cuda,  # noqa: E402
                                            topk_gate_plain)
+from repro_torch.kernels.wkv_chunk import (wkv_chunk_cuda,  # noqa: E402
+                                           wkv_chunk_plain)
 from repro_torch.models import moe as M  # noqa: E402
+from repro_torch.models import rwkv as R  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 # f32 sums over D or F in another order; bf16 hidden products may round one
@@ -256,3 +259,76 @@ def test_moe_forward_with_tier_on_card_matches_cpu(dev, fused, shape):
 def test_policies_outside_the_kernels_raise_on_card(dev, kw):
     with pytest.raises(NotImplementedError):
         _moe_case((dev,), 16, 3, (4, 1), BuddyPolicy(**kw))
+
+
+def _wkv_close(got, want):
+    # f32 sums over C and D in another order, carried across N chunks
+    scale = 1.0 + float(want.abs().max())
+    assert float((got - want).abs().max()) <= 1e-4 * scale
+
+
+@pytest.mark.parametrize("b,h,n,c,d", [(4, 32, 16, 32, 64),
+                                       (2, 32, 8, 32, 128),
+                                       (3, 1, 4, 16, 32), (1, 2, 1, 16, 128),
+                                       (2, 3, 5, 32, 32)])
+def test_wkv_chunk(dev, b, h, n, c, d):
+    args = R.random_chunk_operands(_gen(b + n), b, h, n, c, d, dev)
+    before = wkv_chunk_cuda.launches
+    got = wkv_chunk_cuda(*args)
+    assert wkv_chunk_cuda.launches == before + 1
+    want = wkv_chunk_plain(*args)
+    for g_, w_ in zip(got, want):
+        _wkv_close(g_, w_)
+
+
+def test_wkv_chunk_backward_on_card_matches_cpu(dev):
+    args = R.random_chunk_operands(_gen(5), 2, 4, 4, 32, 64, "cpu")
+    g = _gen(6)
+    w_o = torch.randn(args[0].shape, generator=g)
+    w_s = torch.randn(args[-1].shape, generator=g)
+    grads = []
+    for d in ("cpu", dev):
+        a = [t.detach().to(d).requires_grad_(True) for t in args]
+        o, s = ops.wkv_chunk(*a)
+        (torch.sum(o * w_o.to(d)) + torch.sum(s * w_s.to(d))).backward()
+        grads.append([t.grad.cpu() for t in a])
+    for gc, gg in zip(*grads):
+        assert float((gg - gc).abs().max()) <= 1e-4 * float(gc.abs().max())
+
+
+def test_wkv_chunk_checks_its_operands(dev):
+    args = R.random_chunk_operands(_gen(0), 1, 2, 2, 16, 32, dev)
+    with pytest.raises(ValueError):
+        wkv_chunk_cuda(args[0].double(), *args[1:])
+    with pytest.raises(ValueError):
+        wkv_chunk_cuda(args[0].transpose(2, 3).contiguous().transpose(2, 3),
+                       *args[1:])                  # not contiguous
+    with pytest.raises(ValueError):
+        wkv_chunk_cuda(*[t[..., :24].contiguous() if t.ndim == 4 else t
+                         for t in args])           # head dim 24
+    shifted = torch.empty(args[0].numel() + 1, device=dev)[1:] \
+        .view(args[0].shape)
+    with pytest.raises(ValueError):
+        wkv_chunk_cuda(shifted, *args[1:])         # not 16-byte aligned
+
+
+def test_rwkv_loss_and_grads_on_card_match_cpu(dev):
+    from repro_torch.configs.rwkv6_1p6b import reduced
+    from repro_torch.models import transformer as T
+    from repro_torch.models.common import tree_leaves, tree_map
+    from repro_torch.training.train_loop import loss_and_grads
+    cfg = reduced()
+    params = T.init_params(cfg, _gen(0), "cpu")
+    toks = torch.randint(0, cfg.vocab_size, (2, 65), generator=_gen(1))
+    out = []
+    for d in ("cpu", dev):
+        before = wkv_chunk_cuda.launches
+        p = tree_map(lambda t: t.to(d), params)
+        t = toks.to(d)
+        out.append(loss_and_grads(p, cfg, t[:, :-1], t[:, 1:]))
+        assert wkv_chunk_cuda.launches == before + (
+            cfg.num_layers if d == dev else 0)
+    (lc, _, gc), (lg, _, gg) = out
+    assert abs(float(lg) - float(lc)) <= 1e-5 * abs(float(lc))
+    for a, b in zip(tree_leaves(gc), tree_leaves(gg)):
+        assert float((b.cpu() - a).abs().max()) <= 1e-4 * float(a.abs().max())
