@@ -10,8 +10,12 @@ committed fixture under ``results/bench``). Phases, one JSON line each:
   build    nvcc builds of the six kernels (csrc/*.cu), all at once
   kernels  each kernel against its plain PyTorch version on the card, at the
            shapes of the main path, with times (CUDA events) and bounds;
-           wkv_chunk also at head dim 128 (dynamic shared memory), and its
-           autograd backward on the card against the same on the CPU
+           the three FFN kernels also print the instance of the shared tile
+           that ran (vec16 or elem; the path shapes must run vec16) and the
+           achieved TB/s, and grouped_ffn a row sweep (every live group at
+           1, 3 and 8 rows); wkv_chunk also at head dim 128 (dynamic shared
+           memory), and its autograd backward on the card against the same
+           on the CPU
   parity   the committed profiling fixture (results/bench/model.npz with
            tables_a0.95_k16.npz) served on the CPU through the plain versions
            and on the card through the kernels, without and with the int8
@@ -108,6 +112,25 @@ def time_ms(fn, reps: int = 20, inner: int = 1) -> float:
 def bound(nbytes: float, flops: float):
     tb, to = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def ffn_rate(moved: float, ms: float, b_ms: float) -> dict:
+    """Achieved rate of an FFN call: the bound's bytes over its time."""
+    return {"bytes": moved, "tb_per_s": moved / ms / 1e9,
+            "share_of_bound": b_ms / ms}
+
+
+def ffn_instance(x, groups: int, f_n: int, tensors, fp=True,
+                 int8=False) -> str:
+    """The shared FFN tile's instance a call on these operands runs; the
+    path shapes must run the 16-byte-copy one."""
+    from repro_torch.kernels.expert_ffn import launch_plan
+    _, c_n, d_n = x.shape
+    plan = launch_plan(x.element_size(), groups, c_n, d_n, f_n, fp=fp,
+                       int8=int8, ptrs=[t.data_ptr() for t in tensors])
+    require(plan["instance"] == "vec16",
+            f"FFN path shape {tuple(x.shape)} x {f_n} ran {plan}")
+    return plan["instance"]
 
 
 def max_err(a, b) -> float:
@@ -241,11 +264,14 @@ def kernel_expert_ffn(dev, gen):
         e2 = max_err(expert_ffn_cuda(xs, *ws), expert_ffn_plain(xs, *ws))
         require(e2 <= tol, f"expert_ffn {dt} {(e, c, d, f)}: err {e2}")
     flops = 2 * e_n * c_n * d_n * f_n * 3
-    b_ms, b_by = bound(nbytes(x, w1, w3, w2, got), flops)
+    moved = nbytes(x, w1, w3, w2, got)
+    b_ms, b_by = bound(moved, flops)
     row = {"max_abs_err": err, "max_abs_plain": float(want.abs().max()),
+           "instance": ffn_instance(x, e_n, f_n, (x, w1, w3, w2)),
            "ms": time_ms(lambda: expert_ffn_cuda(x, w1, w3, w2)),
            "plain_ms": time_ms(lambda: expert_ffn_plain(x, w1, w3, w2)),
            "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
+    row.update(ffn_rate(moved, row["ms"], b_ms))
     emit({"phase": "kernels", "kernel": "expert_ffn",
           "shape": [e_n, c_n, d_n, f_n], **row})
     return row
@@ -283,11 +309,15 @@ def kernel_quant_ffn(dev, gen):
         rows[name] = {"max_abs_err": err,
                       "max_abs_plain": float(want.abs().max()),
                       "live_experts": n_live, "filled_rows": filled,
+                      "instance": ffn_instance(buf, e_n, f_n,
+                                               (buf, *quant[::2]), fp=False,
+                                               int8=True),
                       "ms": time_ms(lambda: quant_ffn_cuda(buf, *quant,
                                                            counts)),
                       "plain_ms": time_ms(lambda: quant_ffn_plain(
                           buf, *quant, counts)),
                       "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
+        rows[name].update(ffn_rate(moved, rows[name]["ms"], b_ms))
     # bf16 activations and ragged shapes: correctness only
     for (e, c, d, f) in ((3, 37, 200, 136), (2, 1, 40, 24)):
         qs = _replicas(*_ffn_weights(gen, e, d, f, dev, torch.float32))
@@ -354,16 +384,39 @@ def kernel_grouped_ffn(dev, gen):
                  + n_deg * (3 * d_n * f_n + (2 * f_n + d_n) * 4)
                  + filled * d_n * 4 + nbytes(got, counts))
         b_ms, b_by = bound(moved, 2 * filled * d_n * f_n * 3)
+        copied = (buf, w1, w3, w2) + (quant[::2] if quant else ())
         rows[name] = {"max_abs_err": err,
                       "max_abs_plain": float(want.abs().max()),
                       "live_fp": n_fp, "live_deg": n_deg,
+                      "instance": ffn_instance(buf, 2 * e_n, f_n, copied,
+                                               int8=quant is not None),
                       "ms": time_ms(lambda: grouped_ffn_cuda(buf, w1, w3, w2,
                                                              quant, counts)),
                       "plain_ms": time_ms(lambda: grouped_ffn_plain(
                           buf, w1, w3, w2, quant, counts)),
                       "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
+        rows[name].update(ffn_rate(moved, rows[name]["ms"], b_ms))
+    # the row sweep: 22 live fp groups (the decode case's count) with the
+    # same rows each; the weight bytes stay, the FMA work follows the rows
+    sweep = {}
+    for r in (1, 3, 8):
+        counts = torch.zeros(2 * e_n, dtype=torch.int32)
+        counts[:22] = r
+        buf = torch.zeros(2 * e_n, c_n, d_n)
+        buf[:22, :r] = torch.randn(22, r, d_n, generator=gen)
+        buf, counts = buf.to(dev), counts.to(dev)
+        want = grouped_ffn_plain(buf, w1, w3, w2, None, counts)
+        err = max_err(grouped_ffn_cuda(buf, w1, w3, w2, None, counts), want)
+        require(err <= TOL_F32 * (1 + float(want.abs().max())),
+                f"grouped_ffn sweep {r} rows: err {err}")
+        moved = 22 * (3 * d_n * f_n + r * d_n) * 4 + nbytes(buf, counts)
+        b_ms, b_by = bound(moved, 2 * 22 * r * d_n * f_n * 3)
+        ms = time_ms(lambda: grouped_ffn_cuda(buf, w1, w3, w2, None, counts))
+        sweep[r] = {"max_abs_err": err, "ms": ms, "bound_ms": b_ms,
+                    "bound_by": b_by, **ffn_rate(moved, ms, b_ms)}
     emit({"phase": "kernels", "kernel": "grouped_ffn",
-          "shape": [2 * e_n, c_n, d_n, f_n], "by_case": rows})
+          "shape": [2 * e_n, c_n, d_n, f_n], "by_case": rows,
+          "row_sweep_22_live_groups": sweep})
     return rows["decode"]
 
 

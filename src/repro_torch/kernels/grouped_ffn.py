@@ -22,7 +22,8 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.expert_ffn import (DTYPE_CODES, check_counts,
                                             check_ffn_operands,
-                                            expert_ffn_plain)
+                                            expert_ffn_plain, launch_plan,
+                                            plan_args)
 from repro_torch.kernels.quant_ffn import (check_quant, dequant_swiglu,
                                            mask_unfilled)
 
@@ -49,7 +50,7 @@ def _lib():
     if not fn.argtypes:
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [i, p, p, p, p, p, p, p, p, p, p, p, p, p, i, i, i, i,
-                       i, p]
+                       i, i, i, i, p]
         fn.restype = ctypes.c_int
     return lib
 
@@ -68,13 +69,18 @@ def grouped_ffn_cuda(x, w1, w3, w2, quant=None, counts=None):
     if c_n == 0:
         return out
     h = torch.empty((groups, c_n, f_n), dtype=torch.float32, device=dev)
+    copied = [x, w1, w3, w2, h] + ([] if quant is None else list(quant[::2]))
+    plan = launch_plan(x.element_size(), groups, c_n, d_n, f_n,
+                       int8=quant is not None,
+                       ptrs=[t.data_ptr() for t in copied])
     p = _build.ptr
     null = ctypes.c_void_p(None)
     qp = [null] * 6 if quant is None else [p(t) for t in quant]
     err = _lib().grouped_ffn_launch(
         DTYPE_CODES[x.dtype], p(x), p(w1), p(w3), p(w2), *qp,
         null if counts is None else p(counts), p(h), p(out),
-        e_n, groups, c_n, d_n, f_n, _build.stream_ptr(dev))
+        e_n, groups, c_n, d_n, f_n, *plan_args(plan),
+        _build.stream_ptr(dev))
     _build.check(err, "grouped_ffn")
     grouped_ffn_cuda.launches += 1
     return out

@@ -20,7 +20,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.expert_ffn import DTYPE_CODES, check_counts
+from repro_torch.kernels.expert_ffn import (DTYPE_CODES, check_counts,
+                                            launch_plan, plan_args)
 
 QUANT_NAMES = ("w1_q", "w1_s", "w3_q", "w3_s", "w2_q", "w2_s")
 
@@ -62,7 +63,8 @@ def _lib():
     fn = lib.quant_ffn_launch
     if not fn.argtypes:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [i, p, p, p, p, p, p, p, p, p, p, i, i, i, i, p]
+        fn.argtypes = [i, p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i,
+                       p]
         fn.restype = ctypes.c_int
     return lib
 
@@ -100,11 +102,14 @@ def quant_ffn_cuda(x, w1_q, w1_s, w3_q, w3_s, w2_q, w2_s, counts=None):
     if c_n == 0 or e_n == 0:
         return out
     h = torch.empty((e_n, c_n, f_n), dtype=torch.float32, device=dev)
+    plan = launch_plan(x.element_size(), e_n, c_n, d_n, f_n, fp=False,
+                       int8=True, ptrs=[t.data_ptr() for t in
+                                        (x, w1_q, w3_q, w2_q, h)])
     p = _build.ptr
     err = _lib().quant_ffn_launch(
         DTYPE_CODES[x.dtype], p(x), *[p(t) for t in quant],
         ctypes.c_void_p(None) if counts is None else p(counts), p(h), p(out),
-        e_n, c_n, d_n, f_n, _build.stream_ptr(dev))
+        e_n, c_n, d_n, f_n, *plan_args(plan), _build.stream_ptr(dev))
     _build.check(err, "quant_ffn")
     quant_ffn_cuda.launches += 1
     return out

@@ -17,7 +17,7 @@ from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels.buddy_substitute import (  # noqa: E402
     buddy_substitute_cuda, buddy_substitute_plain)
 from repro_torch.kernels.expert_ffn import (expert_ffn_cuda,  # noqa: E402
-                                            expert_ffn_plain)
+                                            expert_ffn_plain, launch_plan)
 from repro_torch.kernels.grouped_ffn import (grouped_ffn_cuda,  # noqa: E402
                                              grouped_ffn_plain)
 from repro_torch.kernels.quant_ffn import (quant_ffn_cuda,  # noqa: E402
@@ -134,6 +134,89 @@ def test_grouped_ffn(dev, dtype, replicas):
         torch.testing.assert_close(got.float(), want.float(),
                                    rtol=TOL[dtype], atol=TOL[dtype])
         assert torch.all(got[1] == 0)
+
+
+# the shared FFN tile's row sub-tiles cover 1, 2, 4, 8, 16 and 32 rows: one
+# group on each side of every edge, C = 33 (two row tiles)
+ROW_EDGES = (0, 1, 7, 8, 9, 16, 17, 24, 32, 33)
+
+
+@pytest.mark.parametrize("c", [n for n in ROW_EDGES if n])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_expert_ffn_row_buckets(dev, c, dtype):
+    g = _gen(c)
+    e, d, f = 2, 64, 136
+    assert launch_plan(dtype.itemsize, e, c, d, f)["instance"] == "vec16"
+    x = torch.randn(e, c, d, generator=g).to(dtype).to(dev)
+    ws = _weights(g, e, d, f, dtype, dev)
+    torch.testing.assert_close(expert_ffn_cuda(x, *ws).float(),
+                               expert_ffn_plain(x, *ws).float(),
+                               rtol=TOL[dtype], atol=TOL[dtype])
+
+
+def _grouped_case(g, e, c, d, f, counts, dtype, dev):
+    ws = _weights(g, e, d, f, dtype, dev)
+    counts = torch.tensor(counts, dtype=torch.int32)
+    x = torch.randn(2 * e, c, d, generator=g)
+    x[torch.arange(c)[None, :] >= counts[:, None]] = 0.0
+    return x.to(dtype).to(dev), ws, _replicas(ws), counts.to(dev)
+
+
+@pytest.mark.parametrize("count", ROW_EDGES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_grouped_ffn_row_buckets(dev, count, dtype):
+    """An fp group and an int8 group with ``count`` rows side by side in
+    one launch, beside a full fp group, an empty one and a 5-row int8
+    group."""
+    x, ws, quant, counts = _grouped_case(_gen(count), 3, 33, 96, 80,
+                                         [count, 33, 0, count, 0, 5], dtype,
+                                         dev)
+    got = grouped_ffn_cuda(x, *ws, quant, counts)
+    want = grouped_ffn_plain(x, *ws, quant, counts)
+    torch.testing.assert_close(got.float(), want.float(), rtol=TOL[dtype],
+                               atol=TOL[dtype])
+    assert torch.all(got[2] == 0) and torch.all(got[4] == 0)
+
+
+@pytest.mark.parametrize("d,f", [(64, 33), (200, 64), (64, 24)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_grouped_ffn_ragged_strides(dev, d, f, dtype):
+    """Rows that are not a multiple of 16 bytes (F = 33; int8 rows of D =
+    200 or F = 24 bytes) take the element-copy instance of the same tile."""
+    assert launch_plan(dtype.itemsize, 4, 11, d, f, int8=True)[
+        "instance"] == "elem"
+    x, ws, quant, counts = _grouped_case(_gen(d + f), 2, 11, d, f,
+                                         [11, 3, 1, 9], dtype, dev)
+    got = grouped_ffn_cuda(x, *ws, quant, counts)
+    want = grouped_ffn_plain(x, *ws, quant, counts)
+    torch.testing.assert_close(got.float(), want.float(), rtol=TOL[dtype],
+                               atol=TOL[dtype])
+
+
+def test_ffn_kernels_refuse_misaligned_operands(dev):
+    """A view 4 bytes into its storage is not 16-byte aligned: the FFN
+    wrappers raise instead of launching."""
+    e, c, d, f = 2, 8, 64, 48
+    ws = _weights(_gen(1), e, d, f, torch.float32, dev)
+    quant = _replicas(ws)
+
+    def shifted(t):
+        return torch.empty(t.numel() + 1, dtype=t.dtype,
+                           device=dev)[1:].view(t.shape).copy_(t)
+
+    x = torch.randn(2 * e, c, d, device=dev)
+    before = ops.launch_counts()
+    with pytest.raises(ValueError):
+        expert_ffn_cuda(shifted(x[:e]), *ws)
+    with pytest.raises(ValueError):
+        expert_ffn_cuda(x[:e].contiguous(), shifted(ws[0]), *ws[1:])
+    with pytest.raises(ValueError):
+        grouped_ffn_cuda(shifted(x), *ws, quant)
+    with pytest.raises(ValueError):
+        grouped_ffn_cuda(x, *ws, (shifted(quant[0]),) + quant[1:])
+    with pytest.raises(ValueError):
+        quant_ffn_cuda(shifted(x[:e]), *quant)
+    assert ops.launch_counts() == before
 
 
 @pytest.mark.parametrize("e,c,d,f,binned", [

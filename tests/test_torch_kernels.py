@@ -16,7 +16,7 @@ from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels.buddy_substitute import (  # noqa: E402
     buddy_substitute_cuda, buddy_substitute_plain)
 from repro_torch.kernels.expert_ffn import (expert_ffn_cuda,  # noqa: E402
-                                            expert_ffn_plain)
+                                            expert_ffn_plain, launch_plan)
 from repro_torch.kernels.grouped_ffn import (grouped_ffn_cuda,  # noqa: E402
                                              grouped_ffn_plain)
 from repro_torch.kernels.quant_ffn import quant_ffn_cuda  # noqa: E402
@@ -253,6 +253,64 @@ def test_grouped_ffn_counts_and_no_replicas():
         got = grouped_ffn_plain(_t(x), *map(_t, ws), None, cnt).numpy()
         np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-4)
         np.testing.assert_array_equal(got[e:], 0.0)
+
+
+# ------------------------------------------------- the shared FFN tile's plan
+# (t_size, groups, C, D, F, fp class, int8 class): the main path's shapes
+PATH_SHAPES = [(4, 64, 32, 2048, 1408, True, False),    # expert_ffn capacity
+               (4, 128, 24, 2048, 1408, True, True),    # grouped_ffn decode
+               (4, 128, 24, 2048, 1408, True, False),   # ... without a tier
+               (4, 64, 24, 2048, 1408, False, True),    # quant_ffn gather
+               (2, 64, 32, 2048, 1408, True, False)]    # bf16 activations
+
+
+@pytest.mark.parametrize("shape", PATH_SHAPES)
+def test_launch_plan_path_shapes_take_16_byte_copies(shape):
+    t, g, c, d, f, fp, q = shape
+    plan = launch_plan(t, g, c, d, f, fp=fp, int8=q, ptrs=[0, 4096, 1 << 20])
+    assert plan["instance"] == "vec16" and plan["stages"] >= 3
+    assert plan["grid_gate_up"] == (-(-f // 128), -(-c // 32), g)
+    assert plan["grid_down"] == (-(-d // 128), -(-c // 32), g)
+    assert max(plan["smem_gate_up"], plan["smem_down"]) <= 227 * 1024
+
+
+# the card tests' shapes (tests/test_torch_cuda.py): (t_size, groups, C, D,
+# F, fp, int8, instance)
+CARD_SHAPES = [(4, 1, 8, 32, 64, True, False, "vec16"),
+               (4, 4, 37, 200, 136, True, False, "vec16"),
+               (2, 4, 37, 200, 136, True, False, "vec16"),
+               (4, 2, 70, 64, 33, True, False, "elem"),
+               (2, 2, 70, 64, 33, True, False, "elem"),
+               (4, 3, 1, 40, 24, True, False, "vec16"),
+               (2, 3, 1, 40, 24, True, False, "vec16"),
+               (4, 12, 12, 96, 80, True, True, "vec16"),
+               (2, 12, 12, 96, 80, True, True, "vec16"),
+               (4, 6, 33, 96, 80, True, True, "vec16"),
+               (4, 4, 11, 64, 33, True, True, "elem"),
+               (4, 4, 11, 200, 64, True, True, "elem"),
+               (4, 4, 11, 64, 24, True, True, "elem"),
+               (4, 3, 37, 200, 136, False, True, "elem"),
+               (2, 2, 1, 40, 24, False, True, "elem"),
+               (4, 5, 70, 64, 33, False, True, "elem")]
+
+
+@pytest.mark.parametrize("shape", CARD_SHAPES)
+def test_launch_plan_ragged_shapes(shape):
+    """Rows that are not a multiple of 16 bytes take the element-copy
+    instance of the same tile; the shared memory fits either way."""
+    t, g, c, d, f, fp, q, instance = shape
+    plan = launch_plan(t, g, c, d, f, fp=fp, int8=q)
+    assert plan["instance"] == instance
+    w = t if fp else 1
+    assert plan["smem_gate_up"] == 4 * (32 * 16 * t + 2 * 16 * 128 * w)
+    assert plan["smem_down"] == 4 * (32 * 16 * 4 + 16 * 128 * w)
+    assert max(plan["smem_gate_up"], plan["smem_down"]) <= 227 * 1024
+
+
+@pytest.mark.parametrize("ptr", [4, 8, 12, 4096 + 2])
+def test_launch_plan_refuses_misaligned_pointers(ptr):
+    with pytest.raises(ValueError, match="16-byte"):
+        launch_plan(4, 64, 32, 2048, 1408, ptrs=[0, ptr])
 
 
 # ----------------------------------------------------------------- dispatch
