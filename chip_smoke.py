@@ -7,9 +7,15 @@ Run from the root of a checkout (it imports ``src/repro_torch`` and reads the
 committed fixture under ``results/bench``). Phases, one JSON line each:
 
   device   the card's name, power limit and compute capability (must be 9.0)
-  build    nvcc builds of the six kernels (csrc/*.cu), all at once
+  build    nvcc builds of the seven kernels (csrc/*.cu), all at once
   kernels  each kernel against its plain PyTorch version on the card, at the
            shapes of the main path, with times (CUDA events) and bounds;
+           the routing kernels also with their device time (torch.profiler)
+           and device ops per call: route at T = 4, 32, 256 and 4096 (one
+           launch up to 256 tokens, two above) with and without the tier
+           and peer masks and with substitution off, beside the path it
+           replaced (topk_gate, the distribution gate in torch ops,
+           buddy_substitute, the splits) timed in the same run;
            the three FFN kernels also print the instance of the shared tile
            that ran (vec16 or elem; the path shapes must run vec16) and the
            achieved TB/s, and grouped_ffn a row sweep (every live group at
@@ -27,7 +33,9 @@ committed fixture under ``results/bench``). Phases, one JSON line each:
            + 8 new tokens), then 2 steps through the gather branch; (2) the
            same with --quant-tier int8 --tier-coverage 0.5: fused, then 3
            gather steps, both serving degraded slots. Every kernel of a path
-           must have launched in that path's window
+           must have launched in that path's window; every serve step must
+           have launched route once per MoE layer and neither standalone
+           routing kernel
   train_parity  the reduced rwkv6 config, weights from seed 0 made on the
            CPU: one train step on the CPU (plain) and one on the card
            (kernel); loss, grad norm and every gradient agree
@@ -76,8 +84,8 @@ DECODE_TOL = 5e-4              # chunked forward vs step-by-step decode,
 #                                the reference holds its own chunked form to
 #                                (tests/test_ssm_chunked.py), both f32 forms
 #                                summing in another order through exp(+-la)
-SERVE_KERNELS = ("topk_gate", "buddy_substitute", "expert_ffn",
-                 "grouped_ffn", "quant_ffn")
+SERVE_KERNELS = ("topk_gate", "expert_ffn", "grouped_ffn", "quant_ffn",
+                 "route")
 
 
 def emit(obj) -> None:
@@ -107,6 +115,43 @@ def time_ms(fn, reps: int = 20, inner: int = 1) -> float:
         e.synchronize()
         out.append(s.elapsed_time(e) / inner)
     return statistics.median(out)
+
+
+def _self_device_us(evt) -> float:
+    for name in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(evt, name):
+            return float(getattr(evt, name))
+    return 0.0
+
+
+def device_us(fn, n: int = 10) -> dict:
+    """The device's own time per call of ``fn`` and the device ops (kernels
+    and copies) per call, from torch.profiler over ``n`` back-to-back
+    calls: what the card spends apart from waiting for the host. Two spin
+    kernels (torch.cuda._sleep) open and close the window and are left out:
+    the profiler can drop a window's first or last device event. A window
+    with no device event (seen once) is taken again, up to three times;
+    then the numbers are None, "not measured"."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(1000)
+            for _ in range(n):
+                fn()
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+        evts = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA
+                and _self_device_us(e) > 0 and "spin" not in e.key.lower()]
+        if evts:
+            return {"device_us": sum(_self_device_us(e) for e in evts) / n,
+                    "device_ops_per_call": sum(e.count for e in evts) / n}
+    return {"device_us": None, "device_ops_per_call": None}
 
 
 def bound(nbytes: float, flops: float):
@@ -195,7 +240,8 @@ def kernel_topk(dev, gen):
                                          inner=10),
                      "library_ms": time_ms(lambda: torch.topk(z, k_n, dim=-1),
                                            inner=10),
-                     "bound_ms": b_ms, "bound_by": b_by}
+                     "bound_ms": b_ms, "bound_by": b_by,
+                     **device_us(lambda: topk_gate_cuda(z, tau, k=k_n))}
     # ties on purpose: logits on a coarse grid
     z = (torch.randn(256, e_n, generator=gen) * 2).round().to(dev)
     got, want = topk_gate_cuda(z, tau, k=k_n), topk_gate_plain(z, tau, k=k_n)
@@ -203,6 +249,18 @@ def kernel_topk(dev, gen):
     emit({"phase": "kernels", "kernel": "topk_gate", "E": e_n, "K": k_n,
           "by_T": rows, "ties_equal": True})
     return rows[4]
+
+
+def _buddy_tables(gen, e_n, r_n, dev):
+    """A buddy table [E, R] int32 (rank order, a share of the lower ranks
+    -1 padded) and its q values, descending per row."""
+    import torch
+    table = torch.stack([torch.randperm(e_n, generator=gen)[:r_n]
+                         for _ in range(e_n)]).to(torch.int32)
+    table[:, r_n // 2:][torch.rand(e_n, r_n - r_n // 2,
+                                   generator=gen) < 0.3] = -1
+    q = torch.rand(e_n, r_n, generator=gen).sort(-1, descending=True).values
+    return table.to(dev), q.to(dev)
 
 
 def kernel_buddy(dev, gen):
@@ -215,12 +273,7 @@ def kernel_buddy(dev, gen):
         s = _route_slots(gen, t_n, e_n, k_n, dev)
         gate = (torch.rand(t_n, generator=gen) < 0.8).to(dev)
         resident = (torch.rand(e_n, generator=gen) < 0.5).to(dev)
-        table = torch.stack([torch.randperm(e_n, generator=gen)[:r_n]
-                             for _ in range(e_n)]).to(torch.int32)
-        table[:, r_n // 2:][torch.rand(e_n, r_n - r_n // 2,
-                                       generator=gen) < 0.3] = -1
-        q = torch.rand(e_n, r_n, generator=gen).sort(-1, descending=True).values
-        table, q = table.to(dev), q.to(dev)
+        table, q = _buddy_tables(gen, e_n, r_n, dev)
         args = (s, gate, resident, table, q)
         got = buddy_substitute_cuda(*args, h=h, rho=rho)
         want = buddy_substitute_plain(*args, h=h, rho=rho)
@@ -233,7 +286,9 @@ def kernel_buddy(dev, gen):
                                   inner=10),
                     "plain_ms": time_ms(lambda: buddy_substitute_plain(
                         *args, h=h, rho=rho), inner=10),
-                    "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
+                    "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+                    **device_us(lambda: buddy_substitute_cuda(*args, h=h,
+                                                              rho=rho))}
     emit({"phase": "kernels", "kernel": "buddy_substitute", "E": e_n,
           "K": k_n, "R": r_n, "by_T": res})
     return res[4]
@@ -467,6 +522,106 @@ def kernel_wkv(dev, gen):
     return rows["train"]
 
 
+ROUTE_EXACT = ("idx", "allow", "dist_ok", "new_idx", "substituted", "missed",
+               "degraded", "peered", "dropped")
+# (case, tier and peer masks, substitution on, beta): beta 1.1 opens the
+# distribution gate; 0.5 lets the batch decide (at T = 4096 every expert is
+# requested, so delta is the non-resident share itself)
+ROUTE_CASES = (("masks", True, True, 1.1), ("no_masks", False, True, 0.5),
+               ("subst_off", True, False, 1.1))
+
+
+def _route_bound(args, kw, got):
+    """Bytes: logits, tables and masks read once, the outputs written once.
+    Operations: the top-k's T*E*K compares and Algorithm 1's H*K scan of
+    each slot that searched (non-resident, its token past both gates)."""
+    z, _, _, resident, table, q = args
+    masks = [kw[m] for m in ("quant_ok", "peer_ok") if kw[m] is not None]
+    t_n, e_n = z.shape
+    k_n = got.idx.shape[1]
+    searched = 0
+    if kw["substitute"]:
+        searched = int((~resident[got.idx.long()]
+                        & (got.allow & got.dist_ok)[:, None]).sum())
+    return bound(nbytes(z, resident, table, q, *masks) + nbytes(*got),
+                 t_n * e_n * k_n + searched * kw["h"] * k_n)
+
+
+def kernel_route(dev, gen):
+    """The routing kernel against route_plain, and at T = 4 against the
+    path it replaced, timed in the same run."""
+    import torch
+    from repro_torch.core.gates import distribution_gate
+    from repro_torch.core.substitute import split_degraded, split_peer
+    from repro_torch.kernels.buddy_substitute import buddy_substitute_cuda
+    from repro_torch.kernels.route import (Route, launch_plan, route_cuda,
+                                           route_plain)
+    from repro_torch.kernels.topk_gate import topk_gate_cuda
+
+    def composed(z, tau, beta, resident, table, q, *, k, h, rho, substitute,
+                 quant_ok, peer_ok):
+        # models/moe.py before route: two launches, the distribution gate
+        # and the splits in torch ops between and after them
+        idx, vals, probs, tae, allow = topk_gate_cuda(z, tau, k=k)
+        dist_ok = distribution_gate(idx, resident, beta)
+        new_idx, sub, miss = buddy_substitute_cuda(
+            idx, allow & dist_ok, resident, table, q, h=h, rho=rho)
+        miss, deg = split_degraded(miss, new_idx, quant_ok)
+        miss, peer = split_peer(miss, new_idx, peer_ok)
+        return Route(idx, vals, probs, tae, allow, dist_ok, new_idx, sub,
+                     miss, deg, peer, torch.zeros_like(miss))
+
+    e_n, k_n, r_n, h, rho, tau = 64, 6, 8, 8, 3, 0.2
+    by_t, old_path = {}, None
+    for t_n in (4, 32, 256, 4096):
+        z = torch.randn(t_n, e_n, generator=gen).to(dev)
+        resident = (torch.rand(e_n, generator=gen) < 0.5).to(dev)
+        table, q = _buddy_tables(gen, e_n, r_n, dev)
+        masks = {m: (torch.rand(e_n, generator=gen) < 0.4).to(dev)
+                 for m in ("quant_ok", "peer_ok")}
+        cases = {}
+        for name, with_masks, sub, beta in ROUTE_CASES:
+            args = (z, tau, beta, resident, table, q)
+            kw = dict(k=k_n, h=h, rho=rho, substitute=sub,
+                      **{m: v if with_masks else None
+                         for m, v in masks.items()})
+            got, want = route_cuda(*args, **kw), route_plain(*args, **kw)
+            equal = all(torch.equal(getattr(got, f), getattr(want, f))
+                        for f in ROUTE_EXACT)
+            err = max(max_err(getattr(got, f), getattr(want, f))
+                      for f in ("topk_logits", "probs", "tae"))
+            require(equal, f"route T={t_n} {name}: an int or bool output "
+                           "differs from route_plain")
+            require(err <= TOL_GATE, f"route T={t_n} {name}: err {err}")
+            b_ms, b_by = _route_bound(args, kw, got)
+            cases[name] = {
+                "max_abs_err": err, "ints_and_masks_equal": equal,
+                "dist_ok": bool(got.dist_ok),
+                "n_sub": int(got.substituted.sum()),
+                "n_degraded": int(got.degraded.sum()),
+                "n_peered": int(got.peered.sum()),
+                "n_missed": int(got.missed.sum()),
+                "launches_per_call": launch_plan(t_n, k_n).launches,
+                "ms": time_ms(lambda: route_cuda(*args, **kw), inner=10),
+                "plain_ms": time_ms(lambda: route_plain(*args, **kw),
+                                    inner=10),
+                "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+                **device_us(lambda: route_cuda(*args, **kw))}
+            if t_n == 4 and name == "masks":
+                old = composed(*args, **kw)
+                require(all(torch.equal(getattr(old, f), getattr(got, f))
+                            for f in ROUTE_EXACT + ("probs", "tae")),
+                        "route T=4: the replaced path gives other outputs")
+                old_path = {"ms": time_ms(lambda: composed(*args, **kw),
+                                          inner=10),
+                            **device_us(lambda: composed(*args, **kw))}
+        by_t[t_n] = cases
+    emit({"phase": "kernels", "kernel": "route", "E": e_n, "K": k_n,
+          "R": r_n, "H": h, "rho": rho, "tau": tau, "by_T": by_t,
+          "replaced_path_T4": old_path})
+    return by_t[4]["masks"]
+
+
 # ---------------------------------------------------------------------------
 def _fixture_run(device, fused: bool, tier: bool = False):
     """Serve the committed profiling fixture, with the int8 tier when asked
@@ -559,25 +714,34 @@ def _serve_path(serve, flags, params, gather_steps: int) -> dict:
     profiling and a fused-dispatch batch, then ``gather_steps`` steps
     through the gather branch on the same weights."""
     import torch
+    from repro_torch.kernels import ops
     args = serve.parse_args(flags + ["--fused-dispatch"])
     t0 = time.perf_counter()
     eng, lm = serve.build_engine(args, params=params)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     prompts = lm.sample(args.batch, 8)
+    before = ops.launch_counts()
     t0 = time.perf_counter()
     toks = eng.generate(prompts, args.steps)
     torch.cuda.synchronize()
     fused_s = time.perf_counter() - t0
+    mid = ops.launch_counts()
     eng2, _ = serve.build_engine(serve.parse_args(flags),
                                  params=eng.params if params is None
                                  else params)
+    start = ops.launch_counts()
     t0 = time.perf_counter()
     toks2 = eng2.generate(prompts[:, :1], gather_steps)
     torch.cuda.synchronize()
     gather_s = time.perf_counter() - t0
+    end = ops.launch_counts()
+    # the serve steps' own launches (set-up and buddy profiling excluded)
+    steps = [{k: b[k] - a[k] for k in a} for a, b in ((before, mid),
+                                                       (start, end))]
     return {"engines": (eng, eng2), "tokens": (toks, toks2),
-            "setup_s": setup_s, "fused_s": fused_s, "gather_s": gather_s}
+            "setup_s": setup_s, "fused_s": fused_s, "gather_s": gather_s,
+            "step_launches": steps}
 
 
 def _path_row(run) -> dict:
@@ -591,7 +755,9 @@ def _path_row(run) -> dict:
                run["gather_s"] / eng2.stats.steps * 1e3,
            "n_sub": st["n_sub"], "n_hit": st["n_hit"],
            "n_miss_fetch": st["n_miss_fetch"],
-           "simulated_tokens_per_s": s["tokens_per_s"]}
+           "simulated_tokens_per_s": s["tokens_per_s"],
+           "step_launches_fused": run["step_launches"][0],
+           "step_launches_gather": run["step_launches"][1]}
     if eng.tier is not None:
         row["degraded_fused"] = eng.tier.degraded_tokens
         row["degraded_gather"] = eng2.tier.degraded_tokens
@@ -640,6 +806,11 @@ def phase_serve():
         st = eng.stats
         require(st.n_hit + st.n_sub + st.n_miss_fetch > 0,
                 "no expert slot was served")
+        for e, d in zip(run["engines"], run["step_launches"]):
+            require(d["route"] == e.num_moe_layers * e.stats.steps
+                    and d["topk_gate"] == 0 and d["buddy_substitute"] == 0,
+                    f"serve steps: want route once per MoE layer and step "
+                    f"and no standalone routing kernel, got {d}")
     require(all(counts_base[k] > 0 for k in SERVE_KERNELS
                 if k != "quant_ffn"),
             f"a kernel was not launched on the serve path: {counts_base}")
@@ -804,7 +975,16 @@ KERNELS = (  # name, source, TPU kernel it replaces (file:line of pallas_call)
      "src/repro/kernels/quant_ffn.py:83"),
     ("wkv_chunk", "src/repro_torch/csrc/wkv_chunk.cu",
      "src/repro/kernels/wkv_chunk.py:58"),
+    ("route", "src/repro_torch/csrc/route.cu",
+     "src/repro/kernels/topk_gate.py:75, "
+     "src/repro/kernels/buddy_substitute.py:110"),
 )
+# buddy_substitute has no launch on the serve path: there Algorithm 1 runs
+# inside route
+NOTES = {"buddy_substitute": "no launch on the serve path (Algorithm 1 runs "
+                             "inside route there); it runs in the kernels "
+                             "phase, and its device code in route's "
+                             "two-launch form (T > 256)"}
 
 
 def main() -> int:
@@ -824,7 +1004,8 @@ def main() -> int:
             "expert_ffn": kernel_expert_ffn(dev, gen),
             "grouped_ffn": kernel_grouped_ffn(dev, gen),
             "quant_ffn": kernel_quant_ffn(dev, gen),
-            "wkv_chunk": kernel_wkv(dev, gen)}
+            "wkv_chunk": kernel_wkv(dev, gen),
+            "route": kernel_route(dev, gen)}
     phase_parity()
     counts = phase_serve()
     phase_train_parity()
@@ -838,7 +1019,9 @@ def main() -> int:
                       "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                       "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                       "bound_by": r["bound_by"],
-                      "library_ms": r["library_ms"]})
+                      "library_ms": r["library_ms"],
+                      **{k: r[k] for k in ("device_us",) if k in r},
+                      **({"note": NOTES[name]} if name in NOTES else {})})
     emit({"kernels": table})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

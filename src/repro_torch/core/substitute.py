@@ -14,9 +14,9 @@ Psi (Eq. 3):
     if no eligible buddy: degraded (quant_ok), then peer (peer_ok), then
     the caller's fetch/drop fallback.
 
-The model's hot path runs precedence mode through the buddy_substitute
-kernel (``models.moe.substitute_precedence``); this module is the reference
-for every mode and the CPU path for what that kernel does not cover.
+The model's hot path runs precedence mode through the route kernel
+(``models.moe.route_precedence``); this module is the reference for every
+mode and the CPU path for what that kernel does not cover.
 """
 from __future__ import annotations
 

@@ -13,6 +13,7 @@ from repro_torch.kernels.expert_ffn import expert_ffn_cuda, expert_ffn_plain
 from repro_torch.kernels.grouped_ffn import (grouped_ffn_cuda,
                                              grouped_ffn_plain)
 from repro_torch.kernels.quant_ffn import quant_ffn_cuda, quant_ffn_plain
+from repro_torch.kernels.route import route_cuda, route_plain
 from repro_torch.kernels.topk_gate import topk_gate_cuda, topk_gate_plain
 from repro_torch.kernels.wkv_chunk import (WKVChunk, wkv_chunk_cuda,
                                            wkv_chunk_plain)
@@ -22,7 +23,8 @@ _CUDA = {"topk_gate": topk_gate_cuda,
          "expert_ffn": expert_ffn_cuda,
          "grouped_ffn": grouped_ffn_cuda,
          "quant_ffn": quant_ffn_cuda,
-         "wkv_chunk": wkv_chunk_cuda}
+         "wkv_chunk": wkv_chunk_cuda,
+         "route": route_cuda}
 
 
 def _on_cuda(t: torch.Tensor, name: str) -> bool:
@@ -45,6 +47,14 @@ def buddy_substitute(s, gate, resident, table, q, *, h: int = 8,
         return buddy_substitute_cuda(s, gate, resident, table, q, h=h,
                                      rho=rho)
     return buddy_substitute_plain(s, gate, resident, table, q, h=h, rho=rho)
+
+
+def route(logits, tau, beta, resident, table, q, *, k: int, h: int = 8,
+          rho: int = 3, substitute: bool = True, quant_ok=None, peer_ok=None):
+    """One MoE layer's routing (``kernels.route.Route``)."""
+    fn = route_cuda if _on_cuda(logits, "route") else route_plain
+    return fn(logits, tau, beta, resident, table, q, k=k, h=h, rho=rho,
+              substitute=substitute, quant_ok=quant_ok, peer_ok=peer_ok)
 
 
 def expert_ffn(x, w1, w3, w2):

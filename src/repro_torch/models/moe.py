@@ -1,10 +1,12 @@
 """MoE layer: router top-k, BuddyMoE substitution, and expert SwiGLU
 dispatch (fused grouped, tiny-batch gather, row-local capacity).
 
-Counterpart of ``repro/models/moe.py``. The router gate, Algorithm 1 and both
-grouped expert FFNs go through ``kernels.ops``: on CUDA tensors they are the
-hand-written kernels, on CPU tensors their plain versions. Differences from
-the reference:
+Counterpart of ``repro/models/moe.py``. The routing and the expert FFNs go
+through ``kernels.ops``: on CUDA tensors they are the hand-written kernels,
+on CPU tensors their plain versions. Inside the kernels' contract a layer's
+routing (router gate, distribution gate, Algorithm 1, miss splits) is one
+``ops.route`` call; without a policy or buddy state the router gate alone
+runs (``ops.topk_gate``). Differences from the reference:
   * the fused path always bins slots into the ``[2E, cap, D]`` grouped
     buffer (the reference's kernel arm); at decode cap = T*K, so nothing is
     dropped and the outputs equal the reference's jnp megastep (which
@@ -26,10 +28,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import MoEConfig
-from repro_torch.core import gates
 from repro_torch.core.policy import BuddyPolicy
-from repro_torch.core.substitute import (SubstituteResult, split_degraded,
-                                         split_peer, substitute)
+from repro_torch.core.substitute import SubstituteResult, substitute
 from repro_torch.kernels import ops
 from repro_torch.kernels.quant_ffn import quant_operands
 from repro_torch.models.common import dense_init, normal, swiglu
@@ -96,16 +96,6 @@ class MoEAux(NamedTuple):
     peer_slots: torch.Tensor = None  # [T, K] bool
 
 
-def router_topk(router_w, x_flat, top_k: int, tau: float = 0.0):
-    """Returns logits [T, E], top-k indices [T, K] int32, top-k logits,
-    renormalized probs and the TAE gate ``allow`` [T] (TAE > tau), all from
-    one topk_gate call."""
-    logits = torch.matmul(x_flat.float(), router_w.float())
-    idx, topk_logits, probs, _, allow = ops.topk_gate(logits.contiguous(),
-                                                      tau, k=top_k)
-    return logits, idx, topk_logits, probs, allow
-
-
 def kernel_policy(policy: BuddyPolicy) -> bool:
     """True when the policy is inside the kernels' contract: precedence
     mode, Psi = q (eta = kappa = 0), temperature 1, no margin co-gate."""
@@ -114,34 +104,24 @@ def kernel_policy(policy: BuddyPolicy) -> bool:
             and policy.margin_gamma >= 1.0)
 
 
-def substitute_precedence(idx, allow, buddy: BuddyState,
-                          policy: BuddyPolicy,
-                          quant_ok=None) -> SubstituteResult:
-    """Algorithm 1 in precedence mode through the buddy_substitute kernel.
-    The batch-level distribution gate is a reduction computed here; the
-    degraded and peer splits are applied to the kernel's miss mask, which
-    is exact because they never feed back into later slots. ``quant_ok``
-    is the tier's mask as gated by the caller (None: no degraded outcome)."""
-    dist_ok = gates.distribution_gate(idx, buddy.resident, policy.beta)
-    if policy.mode == "none":
-        new_idx = idx
-        substituted = torch.zeros(idx.shape, dtype=torch.bool,
-                                  device=idx.device)
-        missed = ~buddy.resident[idx.long()]
-    else:
-        new_idx, substituted, missed = ops.buddy_substitute(
-            idx, allow & dist_ok, buddy.resident, buddy.table, buddy.q,
-            h=policy.H, rho=policy.rho)
-    missed, degraded = split_degraded(missed, new_idx, quant_ok)
-    missed, peered = split_peer(missed, new_idx, buddy.peer_ok)
-    return SubstituteResult(new_idx, substituted, missed, allow, dist_ok,
-                            degraded, torch.zeros_like(missed), peered)
+def route_precedence(logits, buddy: BuddyState, policy: BuddyPolicy, k: int,
+                     quant_ok=None):
+    """One layer's routing inside the kernels' contract, in one
+    ``ops.route`` call: the router gate, the batch distribution gate,
+    Algorithm 1 in precedence mode and the degraded and peer splits of its
+    misses (exact, because they never feed back into later slots).
+    ``quant_ok`` is the tier's mask as gated by the caller (None: no
+    degraded outcome). Returns a ``kernels.route.Route``."""
+    return ops.route(logits, policy.tau, policy.beta, buddy.resident,
+                     buddy.table, buddy.q, k=k, h=policy.H, rho=policy.rho,
+                     substitute=policy.mode != "none", quant_ok=quant_ok,
+                     peer_ok=buddy.peer_ok)
 
 
-def _substitute(idx, topk_logits, allow, logits, buddy: BuddyState,
+def _substitute(idx, topk_logits, logits, buddy: BuddyState,
                 policy: BuddyPolicy, quant_ok, fid_cost) -> SubstituteResult:
-    if kernel_policy(policy):
-        return substitute_precedence(idx, allow, buddy, policy, quant_ok)
+    """The policies outside the kernels' contract: the full plain
+    ``core.substitute``, on the CPU only."""
     if idx.device.type != "cpu":
         raise NotImplementedError(
             "on CUDA only precedence mode with eta = kappa = 0, temperature "
@@ -264,22 +244,28 @@ def moe_forward(params: dict, x: torch.Tensor, cfg: MoEConfig, *,
     tier_fid_cost = (buddy.fid_cost if (use_tier and buddy is not None)
                      else None)
 
-    logits, idx, topk_logits, probs, allow = router_topk(
-        params["router"], x_flat, k_n, policy.tau if policy is not None
-        else 0.0)
-
-    zeros = torch.zeros(idx.shape, dtype=torch.bool, device=dev)
-    if policy is not None and buddy is not None:
-        res = _substitute(idx, topk_logits, allow, logits, buddy, policy,
-                          quant_ok, tier_fid_cost)
-        new_idx, substituted, missed = res.indices, res.substituted, res.missed
-        degraded, dropped, peered = res.degraded, res.dropped, res.peered
-    elif buddy is not None:         # no policy: raw residency miss count
-        new_idx, missed = idx, ~buddy.resident[idx.long()]
-        substituted, degraded, dropped, peered = zeros, zeros, zeros, zeros
+    logits = torch.matmul(x_flat.float(), params["router"].float())
+    if policy is not None and buddy is not None and kernel_policy(policy):
+        res = route_precedence(logits, buddy, policy, k_n, quant_ok)
+        idx, probs, new_idx = res.idx, res.probs, res.new_idx
+        substituted, missed, degraded = res.substituted, res.missed, \
+            res.degraded
+        dropped, peered = res.dropped, res.peered
     else:
-        new_idx = idx
-        substituted, missed, degraded, dropped, peered = (zeros,) * 5
+        idx, topk_logits, probs, _, _ = ops.topk_gate(
+            logits, policy.tau if policy is not None else 0.0, k=k_n)
+        if policy is not None and buddy is not None:
+            res = _substitute(idx, topk_logits, logits, buddy, policy,
+                              quant_ok, tier_fid_cost)
+            new_idx, substituted, missed = (res.indices, res.substituted,
+                                            res.missed)
+            degraded, dropped, peered = res.degraded, res.dropped, res.peered
+        else:
+            zeros = torch.zeros(idx.shape, dtype=torch.bool, device=dev)
+            new_idx, substituted, degraded, dropped, peered = (idx,) + \
+                (zeros,) * 4
+            # no policy: the raw residency miss count
+            missed = zeros if buddy is None else ~buddy.resident[idx.long()]
     run_degraded = use_tier and (quant_ok is not None
                                  or tier_fid_cost is not None)
 

@@ -22,6 +22,8 @@ from repro_torch.kernels.grouped_ffn import (grouped_ffn_cuda,  # noqa: E402
                                              grouped_ffn_plain)
 from repro_torch.kernels.quant_ffn import (quant_ffn_cuda,  # noqa: E402
                                            quant_ffn_plain, quant_operands)
+from repro_torch.kernels.route import launch_plan as route_plan  # noqa
+from repro_torch.kernels.route import route_cuda, route_plain  # noqa: E402
 from repro_torch.kernels.topk_gate import (topk_gate_cuda,  # noqa: E402
                                            topk_gate_plain)
 from repro_torch.kernels.wkv_chunk import (wkv_chunk_cuda,  # noqa: E402
@@ -87,6 +89,78 @@ def test_buddy_substitute(dev, t, e, k, r, h, rho):
     want = buddy_substitute_plain(*args, h=h, rho=rho)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+ROUTE_INTS = ("idx", "allow", "dist_ok", "new_idx", "substituted", "missed",
+              "degraded", "peered", "dropped")
+
+
+def _route_check(args, kw):
+    """route_cuda against route_plain on the card: one launch count per
+    call, every int and bool output equal, probs and TAE within 1e-6."""
+    before = route_cuda.launches
+    got = route_cuda(*args, **kw)
+    assert route_cuda.launches == before + 1
+    want = route_plain(*args, **kw)
+    for name in ROUTE_INTS:
+        assert torch.equal(getattr(got, name), getattr(want, name)), name
+    for name in ("topk_logits", "probs", "tae"):
+        torch.testing.assert_close(getattr(got, name), getattr(want, name),
+                                   rtol=1e-6, atol=1e-6)
+    return got
+
+
+@pytest.mark.parametrize("t", [1, 4, 256, 257, 4096])
+@pytest.mark.parametrize("case", ["plain", "ties_masks", "none_masks",
+                                  "quant_only"])
+def test_route(dev, t, case):
+    e, k, r = 64, 6, 8
+    g = _gen(t * 13 + len(case))
+    z = torch.randn(t, e, generator=g)
+    if "ties" in case:
+        z = (z * 1.5).round() + 0.0
+    table = torch.stack([torch.randperm(e, generator=g)[:r]
+                         for _ in range(e)]).to(torch.int32)
+    table[:, r // 2:][torch.rand(e, r - r // 2, generator=g) < 0.3] = -1
+    q = torch.rand(e, r, generator=g).sort(-1, descending=True).values
+    resident = torch.rand(e, generator=g) < 0.5
+    masks = {}
+    if case != "plain":
+        masks["quant_ok"] = (torch.rand(e, generator=g) < 0.4).to(dev)
+    if case in ("ties_masks", "none_masks"):
+        masks["peer_ok"] = (torch.rand(e, generator=g) < 0.4).to(dev)
+    args = (z.to(dev), 0.2, 1.1, resident.to(dev), table.to(dev), q.to(dev))
+    got = _route_check(args, dict(k=k, h=8, rho=3,
+                                       substitute=case != "none_masks",
+                                       **masks))
+    assert route_plan(t, k).launches == (1 if t <= 256 else 2)
+    if case == "none_masks":
+        assert not got.substituted.any()
+
+
+@pytest.mark.parametrize("t", [2, 258])
+@pytest.mark.parametrize("above", [False, True])
+def test_route_distribution_gate_at_beta(dev, t, above):
+    """2 of 8 requested experts non-resident, delta = 0.25 exactly: the
+    gate is shut at beta = 0.25 and open one f32 ulp above, in the one-block
+    and in the two-launch form."""
+    e = 16
+    z = torch.full((t, e), -5.0)
+    z[0::2, :4] = torch.tensor([4.0, 3.0, 2.0, 1.0])
+    z[1::2, 4:8] = torch.tensor([4.0, 3.0, 2.0, 1.0])
+    resident = torch.ones(e, dtype=torch.bool)
+    resident[[0, 4]] = False
+    table = torch.stack([torch.roll(torch.arange(e), -i - 1)[:4]
+                         for i in range(e)]).to(torch.int32)
+    q = torch.full((e, 4), 0.5)
+    beta = 0.25
+    if above:
+        beta = float(torch.nextafter(torch.tensor(0.25),
+                                     torch.tensor(1.0)))
+    got = _route_check((z.to(dev), -1.0, beta, resident.to(dev),
+                             table.to(dev), q.to(dev)), dict(k=4, h=4))
+    assert bool(got.dist_ok) is above
+    assert bool(got.substituted.any()) is above
 
 
 def _weights(g, e, d, f, dtype, dev):
@@ -256,6 +330,19 @@ def test_wrappers_check_their_operands(dev):
         topk_gate_cuda(z.t(), 0.2, k=2)            # not contiguous
     with pytest.raises(ValueError):
         topk_gate_cuda(torch.randn(4, 300, device=dev), 0.2, k=2)
+    table = torch.zeros(8, 3, dtype=torch.int32, device=dev)
+    route = (torch.ones(8, dtype=torch.bool, device=dev), table,
+             torch.zeros(8, 3, device=dev))
+    before = route_cuda.launches
+    with pytest.raises(ValueError):
+        route_cuda(z.double(), 0.2, 1.1, *route, k=2)
+    with pytest.raises(ValueError):
+        route_cuda(z, 0.2, 1.1, route[0], table.long(), route[2], k=2)
+    with pytest.raises(ValueError):
+        route_cuda(z, 0.2, 1.1, *route, k=2, quant_ok=route[0][:4])
+    with pytest.raises(ValueError):
+        route_cuda(z, 0.2, 1.1, *route, k=17)
+    assert route_cuda.launches == before
     x = torch.randn(2, 3, 8, device=dev)
     ws = _weights(_gen(0), 2, 8, 4, torch.float32, dev)
     with pytest.raises(ValueError):
@@ -307,8 +394,10 @@ def test_moe_forward_on_card_matches_cpu(dev, fused, shape):
     before = ops.launch_counts()
     (cy, ca), (gy, ga) = _moe_case(("cpu", dev), 16, 3, shape, pol)
     after = ops.launch_counts()
-    assert after["topk_gate"] == before["topk_gate"] + 1
-    assert after["buddy_substitute"] == before["buddy_substitute"] + 1
+    # one routing launch per layer, and neither standalone routing kernel
+    assert after["route"] == before["route"] + 1
+    assert after["topk_gate"] == before["topk_gate"]
+    assert after["buddy_substitute"] == before["buddy_substitute"]
     torch.testing.assert_close(gy.cpu(), cy, rtol=1e-4, atol=1e-4)
     for name in ("indices", "orig_indices", "sub_slots", "miss_slots",
                  "miss_per_expert"):

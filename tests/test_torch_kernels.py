@@ -20,6 +20,7 @@ from repro_torch.kernels.expert_ffn import (expert_ffn_cuda,  # noqa: E402
 from repro_torch.kernels.grouped_ffn import (grouped_ffn_cuda,  # noqa: E402
                                              grouped_ffn_plain)
 from repro_torch.kernels.quant_ffn import quant_ffn_cuda  # noqa: E402
+from repro_torch.kernels.route import route_cuda  # noqa: E402
 from repro_torch.kernels.topk_gate import (topk_gate_cuda,  # noqa: E402
                                            topk_gate_plain)
 
@@ -335,7 +336,8 @@ def test_ops_cpu_tensors_take_the_plain_versions():
 
 
 @pytest.mark.parametrize("name", ["topk_gate", "buddy_substitute",
-                                  "expert_ffn", "grouped_ffn", "quant_ffn"])
+                                  "expert_ffn", "grouped_ffn", "quant_ffn",
+                                  "route"])
 def test_cuda_wrappers_refuse_cpu_tensors(name):
     """A CUDA wrapper launches or raises: given CPU tensors it raises before
     building anything, and never falls back to the plain version."""
@@ -352,6 +354,8 @@ def test_cuda_wrappers_refuse_cpu_tensors(name):
         "quant_ffn": lambda: quant_ffn_cuda(
             x[:2], ws[0].to(torch.int8), ws[0][:, 0], ws[1].to(torch.int8),
             ws[1][:, 0], ws[2].to(torch.int8), ws[2][:, 0]),
+        "route": lambda: route_cuda(
+            z, 0.2, 1.1, *map(_t, _buddy_setup(rng, 4, 8, 2, 3)[2:]), k=2),
     }
     before = ops.launch_counts()
     with pytest.raises(ValueError):

@@ -138,10 +138,11 @@ def test_moe_forward_matches_reference(case):
 
 
 def test_kernel_path_equals_full_substitute():
-    """substitute_precedence (the kernel's route) and the full plain
-    core.substitute agree in precedence mode, degraded/peer splits
-    included."""
+    """route_precedence (the route kernel's contract, here its plain
+    version) and the full plain core.substitute agree in precedence mode,
+    degraded/peer splits included."""
     from repro_torch.core.substitute import substitute
+    from repro_torch.kernels.topk_gate import topk_gate_plain
     rng = np.random.default_rng(4)
     e, k, t = 16, 4, 30
     _, tb = _buddy(e, rng, r=6)
@@ -150,15 +151,17 @@ def test_kernel_path_equals_full_substitute():
     logits = _t(rng.normal(size=(t, e)).astype(np.float32))
     for mode in ("buddy", "none"):
         pol = BuddyPolicy(tau=0.1, beta=1.1, rho=2, H=5, mode=mode)
-        _, idx, topk_logits, _, allow = M.router_topk(
-            torch.eye(e), logits, k, tau=pol.tau)
-        a = M.substitute_precedence(idx, allow, tb, pol, quant_ok=tb.quant_ok)
+        a = M.route_precedence(logits, tb, pol, k, quant_ok=tb.quant_ok)
+        idx, topk_logits, _, _, _ = topk_gate_plain(logits, pol.tau, k=k)
         b = substitute(idx, topk_logits, tb.resident, tb.table, tb.q, pol,
                        quant_ok=tb.quant_ok, peer_ok=tb.peer_ok)
-        for name in ("indices", "substituted", "missed", "allowed",
-                     "dist_ok", "degraded", "dropped", "peered"):
-            assert torch.equal(getattr(a, name), getattr(b, name)), \
-                f"{mode}: {name}"
+        assert torch.equal(a.idx, idx)
+        for got, name in ((a.new_idx, "indices"),
+                          (a.substituted, "substituted"),
+                          (a.missed, "missed"), (a.allow, "allowed"),
+                          (a.dist_ok, "dist_ok"), (a.degraded, "degraded"),
+                          (a.dropped, "dropped"), (a.peered, "peered")):
+            assert torch.equal(got, getattr(b, name)), f"{mode}: {name}"
 
 
 def test_quant_tier_waits_for_its_slice():
