@@ -13,8 +13,10 @@ committed fixture under ``results/bench``). Phases, one JSON line each:
            the routing kernels also with their device time (torch.profiler)
            and device ops per call: route at T = 4, 32, 256 and 4096 (one
            launch up to 256 tokens, two above) with and without the tier
-           and peer masks and with substitution off, beside the path it
-           replaced (topk_gate, the distribution gate in torch ops,
+           and peer masks and with substitution off, and at T = 4 and 4096
+           in cost mode (degraded and peer costs) and with Psi's eta and
+           kappa terms, the temperature and the margin co-gate, beside the
+           path it replaced (topk_gate, the distribution gate in torch ops,
            buddy_substitute, the splits) timed in the same run;
            the three FFN kernels also print the instance of the shared tile
            that ran (vec16 or elem; the path shapes must run vec16) and the
@@ -25,17 +27,19 @@ committed fixture under ``results/bench``). Phases, one JSON line each:
   parity   the committed profiling fixture (results/bench/model.npz with
            tables_a0.95_k16.npz) served on the CPU through the plain versions
            and on the card through the kernels, without and with the int8
-           quant tier: equal tokens and counters (tier counters included),
-           close logits
+           quant tier, and in cost mode (fused without the tier, gather
+           with it): equal tokens and counters (tier and cost-policy
+           counters included), close logits
   serve    deepseek-v2-lite-buddy at full width cut to 8 layers, random
            weights from seed 0, two paths, each in its own launch-count
            window: (1) buddy profiling, a fused-dispatch batch (4 x 8 prompt
            + 8 new tokens), then 2 steps through the gather branch; (2) the
            same with --quant-tier int8 --tier-coverage 0.5: fused, then 3
-           gather steps, both serving degraded slots. Every kernel of a path
-           must have launched in that path's window; every serve step must
-           have launched route once per MoE layer and neither standalone
-           routing kernel
+           gather steps, both serving degraded slots; (3) the tier path with
+           --miss-policy cost: the route kernel's cost argmin, upgrades of
+           degraded slots. Every kernel of a path must have launched in that
+           path's window; every serve step must have launched route once
+           per MoE layer and neither standalone routing kernel
   train_parity  the reduced rwkv6 config, weights from seed 0 made on the
            CPU: one train step on the CPU (plain) and one on the card
            (kernel); loss, grad norm and every gradient agree
@@ -529,22 +533,51 @@ ROUTE_EXACT = ("idx", "allow", "dist_ok", "new_idx", "substituted", "missed",
 # requested, so delta is the non-resident share itself)
 ROUTE_CASES = (("masks", True, True, 1.1), ("no_masks", False, True, 0.5),
                ("subst_off", True, False, 1.1))
+# at T = 4 and 4096 (name, policy): cost mode with the degraded and peer
+# costs (fetch stalls around the drop cost: every outcome occurs); Psi's
+# eta and kappa terms (hop with the -1 sentinel) with the token gate's
+# temperature 0.8 and margin 0.4
+ROUTE_POLICY_T = (4, 4096)
+ROUTE_POLICY_CASES = ("cost", "eta_kappa")
+VECTORS = ("quant_ok", "peer_ok", "hop", "fid_cost", "fetch_cost",
+           "peer_cost")
 
 
 def _route_bound(args, kw, got):
-    """Bytes: logits, tables and masks read once, the outputs written once.
-    Operations: the top-k's T*E*K compares and Algorithm 1's H*K scan of
-    each slot that searched (non-resident, its token past both gates)."""
+    """Bytes: logits, tables, masks and vectors read once, the outputs
+    written once. Operations: the top-k's T*E*K compares, with eta the rows'
+    mean and std (2*T*E), and Algorithm 1's H*K scan of each slot that
+    searched (non-resident, its token past both gates; in cost mode every
+    non-resident slot)."""
     z, _, _, resident, table, q = args
-    masks = [kw[m] for m in ("quant_ok", "peer_ok") if kw[m] is not None]
+    vecs = [kw[m] for m in VECTORS if kw.get(m) is not None]
     t_n, e_n = z.shape
     k_n = got.idx.shape[1]
     searched = 0
     if kw["substitute"]:
-        searched = int((~resident[got.idx.long()]
-                        & (got.allow & got.dist_ok)[:, None]).sum())
-    return bound(nbytes(z, resident, table, q, *masks) + nbytes(*got),
-                 t_n * e_n * k_n + searched * kw["h"] * k_n)
+        need = ~resident[got.idx.long()]
+        if not kw.get("cost"):
+            need &= (got.allow & got.dist_ok)[:, None]
+        searched = int(need.sum())
+    stats = 2 * t_n * e_n if kw.get("eta") else 0
+    return bound(nbytes(z, resident, table, q, *vecs) + nbytes(*got),
+                 t_n * e_n * k_n + stats + searched * kw["h"] * k_n)
+
+
+def _route_policy(name, gen, e_n, dev) -> dict:
+    """route's keyword arguments of ROUTE_POLICY_CASES entry ``name``."""
+    import torch
+    if name == "cost":
+        fetch, fid, peer = (torch.rand(e_n, generator=gen) * 0.08
+                            for _ in range(3))
+        for c in (fid, peer):
+            c[torch.rand(e_n, generator=gen) < 0.3] = float("inf")
+        return dict(cost=True, fetch_cost=fetch.to(dev),
+                    fid_cost=fid.to(dev), peer_cost=peer.to(dev),
+                    stall_per_quality=0.05)
+    hop = torch.randint(-1, 4, (e_n,), generator=gen, dtype=torch.int32)
+    return dict(eta=0.5, kappa=0.2, hop=hop.to(dev), temperature=0.8,
+                margin_gamma=0.4)
 
 
 def kernel_route(dev, gen):
@@ -573,6 +606,7 @@ def kernel_route(dev, gen):
 
     e_n, k_n, r_n, h, rho, tau = 64, 6, 8, 8, 3, 0.2
     by_t, old_path = {}, None
+    pgen = torch.Generator().manual_seed(1)   # the policy cases' vectors
     for t_n in (4, 32, 256, 4096):
         z = torch.randn(t_n, e_n, generator=gen).to(dev)
         resident = (torch.rand(e_n, generator=gen) < 0.5).to(dev)
@@ -580,11 +614,17 @@ def kernel_route(dev, gen):
         masks = {m: (torch.rand(e_n, generator=gen) < 0.4).to(dev)
                  for m in ("quant_ok", "peer_ok")}
         cases = {}
-        for name, with_masks, sub, beta in ROUTE_CASES:
+        todo = [(name, beta, dict(substitute=sub, **{
+                    m: v if with_masks else None for m, v in masks.items()}))
+                for name, with_masks, sub, beta in ROUTE_CASES]
+        if t_n in ROUTE_POLICY_T:
+            todo += [(name, 1.1, dict(masks, **_route_policy(name, pgen, e_n,
+                                                              dev)))
+                     for name in ROUTE_POLICY_CASES]
+        for name, beta, policy in todo:
             args = (z, tau, beta, resident, table, q)
-            kw = dict(k=k_n, h=h, rho=rho, substitute=sub,
-                      **{m: v if with_masks else None
-                         for m, v in masks.items()})
+            kw = dict(k=k_n, h=h, rho=rho, **policy)
+            kw.setdefault("substitute", True)
             got, want = route_cuda(*args, **kw), route_plain(*args, **kw)
             equal = all(torch.equal(getattr(got, f), getattr(want, f))
                         for f in ROUTE_EXACT)
@@ -601,6 +641,8 @@ def kernel_route(dev, gen):
                 "n_degraded": int(got.degraded.sum()),
                 "n_peered": int(got.peered.sum()),
                 "n_missed": int(got.missed.sum()),
+                "n_dropped": int(got.dropped.sum()),
+                "n_allowed": int(got.allow.sum()),
                 "launches_per_call": launch_plan(t_n, k_n).launches,
                 "ms": time_ms(lambda: route_cuda(*args, **kw), inner=10),
                 "plain_ms": time_ms(lambda: route_plain(*args, **kw),
@@ -615,6 +657,11 @@ def kernel_route(dev, gen):
                 old_path = {"ms": time_ms(lambda: composed(*args, **kw),
                                           inner=10),
                             **device_us(lambda: composed(*args, **kw))}
+        if t_n == ROUTE_POLICY_T[-1]:
+            c = cases["cost"]
+            require(c["n_sub"] and c["n_degraded"] and c["n_peered"]
+                    and c["n_dropped"], f"route T={t_n} cost: an outcome "
+                                        f"never won: {c}")
         by_t[t_n] = cases
     emit({"phase": "kernels", "kernel": "route", "E": e_n, "K": k_n,
           "R": r_n, "H": h, "rho": rho, "tau": tau, "by_T": by_t,
@@ -623,9 +670,10 @@ def kernel_route(dev, gen):
 
 
 # ---------------------------------------------------------------------------
-def _fixture_run(device, fused: bool, tier: bool = False):
+def _fixture_run(device, fused: bool, tier: bool = False, **policy):
     """Serve the committed profiling fixture, with the int8 tier when asked
-    for; returns (tokens, summary, per-step logits)."""
+    for and ``policy``'s further BuddyPolicy fields; returns (tokens,
+    summary, per-step logits)."""
     import numpy as np
     import torch
     from repro_torch.checkpoint.io import load_npz
@@ -651,7 +699,8 @@ def _fixture_run(device, fused: bool, tier: bool = False):
     eng = ServeEngine(cfg, load_npz(str(FIXTURE / "model.npz"), device),
                       tables=load_tables(str(FIXTURE / "tables_a0.95_k16.npz")),
                       policy=BuddyPolicy(use_fused_dispatch=fused,
-                                         quant_tier="int8" if tier else "off"),
+                                         quant_tier="int8" if tier else "off",
+                                         **policy),
                       cache=None if tier else cache, tier=store,
                       predictor=PrevStepPredictor(n_moe, e_n),
                       prefetch_k=max(1, cache.capacity // 2))
@@ -676,27 +725,42 @@ def _tier_counters_equal(a: dict, b: dict) -> bool:
     return a == b and abs(fa - fb) <= FID_RTOL * abs(fa)
 
 
+# (tag, fused, tier, policy): cost mode as tests/test_torch_engine.py
+# (cost_fused: a quality price low enough that buddies and drops beat
+# fetches) and tests/test_torch_tier_engine.py (cost_upgrade_gather, whose
+# engine upgrades degraded slots) configure it
+PARITY_CASES = (
+    ("fused", True, False, {}), ("gather", False, False, {}),
+    ("fused_int8", True, True, {}), ("gather_int8", False, True, {}),
+    ("cost_fused", True, False, dict(miss_policy="cost",
+                                     stall_per_quality=2e-4)),
+    ("cost_gather_int8", False, True, dict(miss_policy="cost",
+                                           stall_per_quality=0.05)))
+
+
 def phase_parity():
     import numpy as np
     from repro_torch.kernels import ops
     out = {"phase": "parity"}
-    for fused, tier in ((True, False), (False, False), (True, True),
-                        (False, True)):
+    for tag, fused, tier, policy in PARITY_CASES:
         before = ops.launch_counts()
-        t_cpu, s_cpu, l_cpu = _fixture_run("cpu", fused, tier)
+        t_cpu, s_cpu, l_cpu = _fixture_run("cpu", fused, tier, **policy)
         require(ops.launch_counts() == before, "CPU run launched a kernel")
-        t_gpu, s_gpu, l_gpu = _fixture_run("cuda", fused, tier)
+        t_gpu, s_gpu, l_gpu = _fixture_run("cuda", fused, tier, **policy)
         err = max_err(l_gpu, l_cpu)
-        tag = ("fused" if fused else "gather") + ("_int8" if tier else "")
+        st = s_gpu["stats"]
         out[tag] = {"tokens_equal": bool(np.array_equal(t_cpu, t_gpu)),
-                    "stats_equal": s_cpu["stats"] == s_gpu["stats"],
+                    "stats_equal": s_cpu["stats"] == st,
                     "ledger_equal": s_cpu["ledger"] == s_gpu["ledger"],
+                    "cost_policy_equal": s_cpu.get("cost_policy")
+                    == s_gpu.get("cost_policy"),
                     "logits_max_abs_err": err, "logits_tol": LOGIT_TOL,
-                    "n_sub": s_gpu["stats"]["n_sub"],
-                    "n_hit": s_gpu["stats"]["n_hit"],
-                    "n_miss_fetch": s_gpu["stats"]["n_miss_fetch"]}
-        ok = (out[tag]["tokens_equal"] and out[tag]["stats_equal"]
-              and out[tag]["ledger_equal"])
+                    "n_sub": st["n_sub"], "n_hit": st["n_hit"],
+                    "n_miss_fetch": st["n_miss_fetch"],
+                    "n_miss_drop": st["n_miss_drop"],
+                    "n_upgrade_issued": st["n_upgrade_issued"]}
+        ok = all(out[tag][k] for k in ("tokens_equal", "stats_equal",
+                                       "ledger_equal", "cost_policy_equal"))
         if tier:
             out[tag]["degraded_tokens"] = s_gpu["tier"]["degraded_tokens"]
             out[tag]["tier_equal"] = _tier_counters_equal(s_cpu["tier"],
@@ -704,6 +768,11 @@ def phase_parity():
             ok = ok and out[tag]["tier_equal"]
             require(out[tag]["degraded_tokens"] > 0,
                     f"parity ({tag}): the tier served no slot")
+        if policy:
+            require(st["n_miss_drop"] + st["n_miss_fetch"] > 0,
+                    f"parity ({tag}): no slot was dropped or fetched")
+            require(not tier or st["n_upgrade_issued"] > 0,
+                    f"parity ({tag}): no degraded slot was upgraded")
         require(ok, f"parity ({tag}): CPU and card disagree: {out[tag]}")
         require(err <= LOGIT_TOL, f"parity ({tag}): logits err {err}")
     emit(out)
@@ -755,6 +824,8 @@ def _path_row(run) -> dict:
                run["gather_s"] / eng2.stats.steps * 1e3,
            "n_sub": st["n_sub"], "n_hit": st["n_hit"],
            "n_miss_fetch": st["n_miss_fetch"],
+           "n_miss_drop": st["n_miss_drop"],
+           "n_upgrade_issued": st["n_upgrade_issued"],
            "simulated_tokens_per_s": s["tokens_per_s"],
            "step_launches_fused": run["step_launches"][0],
            "step_launches_gather": run["step_launches"][1]}
@@ -782,10 +853,15 @@ def phase_serve():
     counts_base = ops.launch_counts()          # ... and ends here
     params = base["engines"][0].params
     ops.reset_launch_counts()                  # path 2 (the tier) starts here
-    tier = _serve_path(serve, flags + ["--quant-tier", "int8",
-                                       "--tier-coverage", "0.5"], params, 3)
+    tier_flags = flags + ["--quant-tier", "int8", "--tier-coverage", "0.5"]
+    tier = _serve_path(serve, tier_flags, params, 3)
     counts_tier = ops.launch_counts()          # ... and ends here
-    counts = {k: counts_base[k] + counts_tier[k] for k in counts_base}
+    ops.reset_launch_counts()                  # path 3 (cost mode) starts here
+    cost = _serve_path(serve, tier_flags + ["--miss-policy", "cost"], params,
+                       3)
+    counts_cost = ops.launch_counts()          # ... and ends here
+    counts = {k: counts_base[k] + counts_tier[k] + counts_cost[k]
+              for k in counts_base}
     out = {"phase": "serve", "arch": cfg.arch_id, "layers": cfg.num_layers,
            "d_model": cfg.d_model, "experts": cfg.moe.num_experts,
            "d_ff_expert": cfg.moe.d_ff, "top_k": cfg.moe.top_k,
@@ -793,10 +869,11 @@ def phase_serve():
            "params": sum(t.numel() for t in tree_leaves(params)),
            "base": dict(_path_row(base), launches=counts_base),
            "int8_tier": dict(_path_row(tier), launches=counts_tier),
+           "cost_int8_tier": dict(_path_row(cost), launches=counts_cost),
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
            "launches": counts}
     emit(out)
-    for run, steps in ((base, 2), (tier, 3)):
+    for run, steps in ((base, 2), (tier, 3), (cost, 3)):
         eng, eng2 = run["engines"]
         require(eng.stats.steps == 15 and eng2.stats.steps == steps,
                 "wrong step count")
@@ -814,11 +891,15 @@ def phase_serve():
     require(all(counts_base[k] > 0 for k in SERVE_KERNELS
                 if k != "quant_ffn"),
             f"a kernel was not launched on the serve path: {counts_base}")
-    require(all(counts_tier[k] > 0 for k in SERVE_KERNELS),
-            f"a kernel was not launched on the tier path: {counts_tier}")
+    for name, c in (("tier", counts_tier), ("cost", counts_cost)):
+        require(all(c[k] > 0 for k in SERVE_KERNELS),
+                f"a kernel was not launched on the {name} path: {c}")
     require(out["int8_tier"]["degraded_fused"] > 0
             and out["int8_tier"]["degraded_gather"] > 0,
             f"a tier run served no degraded slot: {out['int8_tier']}")
+    require(all(e.policy.miss_policy == "cost" for e in cost["engines"])
+            and sum(e.stats.n_upgrade_issued for e in cost["engines"]) > 0,
+            f"the cost path issued no upgrade: {out['cost_int8_tier']}")
     return counts
 
 

@@ -14,9 +14,10 @@ Psi (Eq. 3):
     if no eligible buddy: degraded (quant_ok), then peer (peer_ok), then
     the caller's fetch/drop fallback.
 
-The model's hot path runs precedence mode through the route kernel
-(``models.moe.route_precedence``); this module is the reference for every
-mode and the CPU path for what that kernel does not cover.
+The model's path runs every mode through one route call per layer
+(``models.moe.route_layer``): on a CUDA tensor the route kernel, which
+computes this module's contract, on a CPU tensor ``kernels.route.
+route_plain``, which is this module on the router's top-k.
 """
 from __future__ import annotations
 

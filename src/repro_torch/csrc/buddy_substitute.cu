@@ -28,9 +28,10 @@ extern "C" int buddy_substitute_launch(const int* s, const uint8_t* gate, const 
   const int smem = tables_smem_bytes(E, R);
   if (K > MAX_K || H > R || smem > SMEM_LIMIT) return static_cast<int>(cudaErrorInvalidValue);
   if (T == 0) return static_cast<int>(cudaSuccess);
-  const Tables g{table, q, resident, nullptr, nullptr};
+  const Tables g{table, q, nullptr, nullptr, nullptr, nullptr, resident, nullptr, nullptr};
   const SubOut o{out, sub, miss, nullptr, nullptr, nullptr};
+  const SubParams p{K, R, H, rho, 1, 0, 0.f, 0.f, 0.f, 0.f, E, nullptr, nullptr};
   substitute_kernel<<<(T + SUB_THREADS - 1) / SUB_THREADS, SUB_THREADS, smem, stream>>>(
-      SubArgs{s, gate, T, K, E, R, H, rho, 1, 0, 0.f, g, o, nullptr});
+      SubArgs{s, gate, T, 0, 0.f, p, g, o, nullptr});
   return static_cast<int>(cudaGetLastError());
 }

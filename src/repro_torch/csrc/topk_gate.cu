@@ -4,7 +4,7 @@
 // Replaces the TPU kernel topk_gate_pallas (src/repro/kernels/topk_gate.py):
 // top-k by iterative max with ties to the smallest expert index, p =
 // softmax(top-k logits), TAE = entropy(p) / log K (0 when K = 1), allow =
-// TAE > tau. Implements temperature 1 and no margin co-gate.
+// TAE > tau. Temperature 1 and no margin co-gate (route.cu has both).
 //
 // Bound on the H100: it reads T*E*4 bytes and writes T*(3K+2) words, a few
 // KB at decode, so the launch itself bounds it, not bytes or FLOPs. The
@@ -23,7 +23,8 @@ extern "C" int topk_gate_launch(const float* logits, int T, int E, int K, float 
   if (E > MAX_E || K > MAX_K || K > E || K < 1) return static_cast<int>(cudaErrorInvalidValue);
   if (T == 0) return static_cast<int>(cudaSuccess);
   const int blocks = (T + GATE_ROWS - 1) / GATE_ROWS;
-  gate_kernel<<<blocks, GATE_ROWS * 32, 0, stream>>>(logits, T, E, K, tau, log_k,
-                                                     GateOut{idx, vals, probs, tae, allow});
+  gate_kernel<<<blocks, GATE_ROWS * 32, 0, stream>>>(
+      logits, T, E, K, TokenGate{tau, log_k, 1.f, 1.f},
+      GateOut{idx, vals, probs, tae, allow, nullptr});
   return static_cast<int>(cudaGetLastError());
 }

@@ -14,6 +14,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.route import SMEM_LIMIT
 
 MAX_K = 16
 
@@ -88,7 +89,7 @@ def buddy_substitute_cuda(s, gate, resident, table, q, *, h: int = 8,
     lib = _lib()
     if gate.shape[0] != t_n or resident.shape[0] != e_n \
             or q.shape != table.shape or k_n > MAX_K or h_n < 1 \
-            or lib.buddy_substitute_smem_bytes(e_n, r_n) > 48 * 1024:
+            or lib.buddy_substitute_smem_bytes(e_n, r_n) > SMEM_LIMIT:
         raise ValueError(
             f"buddy_substitute_cuda: shapes s{tuple(s.shape)} gate"
             f"{tuple(gate.shape)} resident{tuple(resident.shape)} table"

@@ -49,12 +49,13 @@ def buddy_substitute(s, gate, resident, table, q, *, h: int = 8,
     return buddy_substitute_plain(s, gate, resident, table, q, h=h, rho=rho)
 
 
-def route(logits, tau, beta, resident, table, q, *, k: int, h: int = 8,
-          rho: int = 3, substitute: bool = True, quant_ok=None, peer_ok=None):
-    """One MoE layer's routing (``kernels.route.Route``)."""
+def route(logits, tau, beta, resident, table, q, *, k: int, **policy):
+    """One MoE layer's routing (``kernels.route.Route``); ``policy`` takes
+    route_plain's keyword arguments (substitution mode, miss policy, miss
+    masks and costs, Psi's terms, the token gate's temperature and
+    margin)."""
     fn = route_cuda if _on_cuda(logits, "route") else route_plain
-    return fn(logits, tau, beta, resident, table, q, k=k, h=h, rho=rho,
-              substitute=substitute, quant_ok=quant_ok, peer_ok=peer_ok)
+    return fn(logits, tau, beta, resident, table, q, k=k, **policy)
 
 
 def expert_ffn(x, w1, w3, w2):

@@ -13,6 +13,10 @@ the card by default.
     PYTHONPATH=src python -m repro_torch.launch.serve --layers 8 \
         --quant-tier int8 --tier-coverage 0.5 --fused-dispatch
 
+    # the unified expected-cost miss policy (upgrades degraded slots)
+    PYTHONPATH=src python -m repro_torch.launch.serve --layers 8 \
+        --miss-policy cost --quant-tier int8 --tier-coverage 0.5
+
 Counterpart of ``repro/launch/serve.py`` for batch mode, quant tier
 included. Flags of the subsystems that are not ported yet (continuous mode,
 the mesh, paged KV and the prefix cache, live placement, telemetry and
@@ -96,7 +100,12 @@ def parse_args(argv=None):
                     help="issue layer l+k prefetches while layer l computes")
     ap.add_argument("--miss-policy", choices=["precedence", "cost"],
                     default="precedence",
-                    help="'cost' runs on the CPU only in this port")
+                    help="'precedence': fixed buddy->degraded->fetch/drop "
+                         "chain; 'cost': per-slot argmin of the unified "
+                         "expected-cost model (buddy Psi loss, replica "
+                         "fidelity, fetch ETA, drop loss on one "
+                         "stall-seconds scale); both run in the route "
+                         "kernel on the card")
     ap.add_argument("--stall-per-quality", type=float, default=0.05)
     ap.add_argument("--drop-loss", type=float, default=1.0)
     ap.add_argument("--prefetch-min-saving", type=float, default=-1.0)

@@ -3,10 +3,11 @@ dispatch (fused grouped, tiny-batch gather, row-local capacity).
 
 Counterpart of ``repro/models/moe.py``. The routing and the expert FFNs go
 through ``kernels.ops``: on CUDA tensors they are the hand-written kernels,
-on CPU tensors their plain versions. Inside the kernels' contract a layer's
-routing (router gate, distribution gate, Algorithm 1, miss splits) is one
-``ops.route`` call; without a policy or buddy state the router gate alone
-runs (``ops.topk_gate``). Differences from the reference:
+on CPU tensors their plain versions. With a policy and a buddy state a
+layer's routing (router gate, token and distribution gates, Algorithm 1
+and the miss outcomes, for every policy of ``BuddyPolicy``) is one
+``ops.route`` call; without them the router gate alone runs
+(``ops.topk_gate``). Differences from the reference:
   * the fused path always bins slots into the ``[2E, cap, D]`` grouped
     buffer (the reference's kernel arm); at decode cap = T*K, so nothing is
     dropped and the outputs equal the reference's jnp megastep (which
@@ -15,10 +16,7 @@ runs (``ops.topk_gate``). Differences from the reference:
   * with the quant tier on, the gather and capacity branches compute only
     the degraded slots against the replicas (``quant_ffn``), where the
     reference computes every slot and keeps the degraded ones: the values
-    on degraded slots are equal;
-  * on CUDA only precedence mode with Psi = q, temperature 1 and no margin
-    co-gate runs (the kernels' contract); other policies raise there and run
-    through the plain ``core.substitute`` on the CPU.
+    on degraded slots are equal.
 """
 from __future__ import annotations
 
@@ -29,7 +27,6 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import MoEConfig
 from repro_torch.core.policy import BuddyPolicy
-from repro_torch.core.substitute import SubstituteResult, substitute
 from repro_torch.kernels import ops
 from repro_torch.kernels.quant_ffn import quant_operands
 from repro_torch.models.common import dense_init, normal, swiglu
@@ -96,42 +93,25 @@ class MoEAux(NamedTuple):
     peer_slots: torch.Tensor = None  # [T, K] bool
 
 
-def kernel_policy(policy: BuddyPolicy) -> bool:
-    """True when the policy is inside the kernels' contract: precedence
-    mode, Psi = q (eta = kappa = 0), temperature 1, no margin co-gate."""
-    return (policy.miss_policy == "precedence" and policy.eta == 0.0
-            and policy.kappa == 0.0 and policy.temperature == 1.0
-            and policy.margin_gamma >= 1.0)
-
-
-def route_precedence(logits, buddy: BuddyState, policy: BuddyPolicy, k: int,
-                     quant_ok=None):
-    """One layer's routing inside the kernels' contract, in one
-    ``ops.route`` call: the router gate, the batch distribution gate,
-    Algorithm 1 in precedence mode and the degraded and peer splits of its
-    misses (exact, because they never feed back into later slots).
-    ``quant_ok`` is the tier's mask as gated by the caller (None: no
-    degraded outcome). Returns a ``kernels.route.Route``."""
+def route_layer(logits, buddy: BuddyState, policy: BuddyPolicy, k: int,
+                quant_ok=None, fid_cost=None):
+    """One layer's routing in one ``ops.route`` call: the router gate, the
+    token and distribution gates, Algorithm 1 and the miss outcomes, as the
+    reference's ``router_topk`` plus ``core.substitute`` compute them.
+    ``quant_ok`` / ``fid_cost`` are the tier's precedence mask and cost
+    vector as gated by the caller (None: no degraded outcome). Returns a
+    ``kernels.route.Route``."""
     return ops.route(logits, policy.tau, policy.beta, buddy.resident,
                      buddy.table, buddy.q, k=k, h=policy.H, rho=policy.rho,
                      substitute=policy.mode != "none", quant_ok=quant_ok,
-                     peer_ok=buddy.peer_ok)
-
-
-def _substitute(idx, topk_logits, logits, buddy: BuddyState,
-                policy: BuddyPolicy, quant_ok, fid_cost) -> SubstituteResult:
-    """The policies outside the kernels' contract: the full plain
-    ``core.substitute``, on the CPU only."""
-    if idx.device.type != "cpu":
-        raise NotImplementedError(
-            "on CUDA only precedence mode with eta = kappa = 0, temperature "
-            f"1 and margin_gamma >= 1 runs (got {policy}); the other "
-            "substitution modes run on the CPU")
-    return substitute(idx, topk_logits, buddy.resident, buddy.table,
-                      buddy.q, policy, router_logits=logits, hop=buddy.hop,
-                      quant_ok=quant_ok, fid_cost=fid_cost,
-                      fetch_cost=buddy.fetch_cost, peer_ok=buddy.peer_ok,
-                      peer_cost=buddy.peer_cost)
+                     peer_ok=buddy.peer_ok,
+                     cost=policy.miss_policy == "cost", fid_cost=fid_cost,
+                     fetch_cost=buddy.fetch_cost, peer_cost=buddy.peer_cost,
+                     stall_per_quality=policy.stall_per_quality,
+                     drop_loss=policy.drop_loss, eta=policy.eta,
+                     kappa=policy.kappa, hop=buddy.hop,
+                     temperature=policy.temperature,
+                     margin_gamma=policy.margin_gamma)
 
 
 def _capacity(t_n: int, k_n: int, e_n: int, factor: float) -> int:
@@ -245,27 +225,20 @@ def moe_forward(params: dict, x: torch.Tensor, cfg: MoEConfig, *,
                      else None)
 
     logits = torch.matmul(x_flat.float(), params["router"].float())
-    if policy is not None and buddy is not None and kernel_policy(policy):
-        res = route_precedence(logits, buddy, policy, k_n, quant_ok)
+    if policy is not None and buddy is not None:
+        res = route_layer(logits, buddy, policy, k_n, quant_ok, tier_fid_cost)
         idx, probs, new_idx = res.idx, res.probs, res.new_idx
         substituted, missed, degraded = res.substituted, res.missed, \
             res.degraded
         dropped, peered = res.dropped, res.peered
     else:
-        idx, topk_logits, probs, _, _ = ops.topk_gate(
+        idx, _, probs, _, _ = ops.topk_gate(
             logits, policy.tau if policy is not None else 0.0, k=k_n)
-        if policy is not None and buddy is not None:
-            res = _substitute(idx, topk_logits, logits, buddy, policy,
-                              quant_ok, tier_fid_cost)
-            new_idx, substituted, missed = (res.indices, res.substituted,
-                                            res.missed)
-            degraded, dropped, peered = res.degraded, res.dropped, res.peered
-        else:
-            zeros = torch.zeros(idx.shape, dtype=torch.bool, device=dev)
-            new_idx, substituted, degraded, dropped, peered = (idx,) + \
-                (zeros,) * 4
-            # no policy: the raw residency miss count
-            missed = zeros if buddy is None else ~buddy.resident[idx.long()]
+        zeros = torch.zeros(idx.shape, dtype=torch.bool, device=dev)
+        new_idx, substituted, degraded, dropped, peered = (idx,) + \
+            (zeros,) * 4
+        # no policy: the raw residency miss count
+        missed = zeros if buddy is None else ~buddy.resident[idx.long()]
     run_degraded = use_tier and (quant_ok is not None
                                  or tier_fid_cost is not None)
 

@@ -23,7 +23,8 @@ from repro_torch.kernels.grouped_ffn import (grouped_ffn_cuda,  # noqa: E402
 from repro_torch.kernels.quant_ffn import (quant_ffn_cuda,  # noqa: E402
                                            quant_ffn_plain, quant_operands)
 from repro_torch.kernels.route import launch_plan as route_plan  # noqa
-from repro_torch.kernels.route import route_cuda, route_plain  # noqa: E402
+from repro_torch.kernels.route import (Route, route_cuda,  # noqa: E402
+                                       route_plain)
 from repro_torch.kernels.topk_gate import (topk_gate_cuda,  # noqa: E402
                                            topk_gate_plain)
 from repro_torch.kernels.wkv_chunk import (wkv_chunk_cuda,  # noqa: E402
@@ -161,6 +162,87 @@ def test_route_distribution_gate_at_beta(dev, t, above):
                              table.to(dev), q.to(dev)), dict(k=4, h=4))
     assert bool(got.dist_ok) is above
     assert bool(got.substituted.any()) is above
+
+
+def _policy_inputs(g, e, dev):
+    """hop (with the -1 sentinel) and the three cost vectors, some +inf."""
+    hop = torch.randint(-1, 4, (e,), generator=g, dtype=torch.int32)
+    costs = [torch.rand(e, generator=g) * 0.08 for _ in range(3)]
+    for c in costs[1:]:
+        c[torch.rand(e, generator=g) < 0.3] = float("inf")
+    fetch, fid, peer = (c.to(dev) for c in costs)
+    return hop.to(dev), fetch, fid, peer
+
+
+ROUTE_POLICIES = {
+    "cost": dict(cost=True),
+    "cost_fid": dict(cost=True, fid=True),
+    "cost_fid_peer": dict(cost=True, fid=True, peer=True),
+    "cost_none": dict(cost=True, fid=True, peer=True, substitute=False),
+    "eta_kappa": dict(eta=0.5, kappa=0.2),
+    "temperature_margin": dict(temperature=0.8, margin_gamma=0.4),
+    "everything": dict(cost=True, fid=True, peer=True, eta=0.5, kappa=0.2,
+                       temperature=0.8, margin_gamma=0.4)}
+
+
+@pytest.mark.parametrize("t", [4, 32, 256, 4096])
+@pytest.mark.parametrize("policy", list(ROUTE_POLICIES))
+def test_route_policies(dev, t, policy):
+    """Cost mode (with and without the degraded and peer costs, and in mode
+    "none"), Psi's eta and kappa terms, the temperature and the margin
+    co-gate: every int and bool output equal to route_plain's."""
+    e, k, r = 64, 6, 8
+    g = _gen(t * 17 + len(policy))
+    # wider logits: margins spread on both sides of 0.4
+    z = torch.randn(t, e, generator=g) * 3
+    table = torch.stack([torch.randperm(e, generator=g)[:r]
+                         for _ in range(e)]).to(torch.int32)
+    table[:, r // 2:][torch.rand(e, r - r // 2, generator=g) < 0.3] = -1
+    q = torch.rand(e, r, generator=g).sort(-1, descending=True).values
+    resident = torch.rand(e, generator=g) < 0.5
+    hop, fetch, fid, peer = _policy_inputs(g, e, dev)
+    want = dict(ROUTE_POLICIES[policy])
+    kw = dict(k=k, h=8, rho=3, hop=hop,
+              substitute=want.pop("substitute", True))
+    if want.pop("cost", False):
+        kw.update(cost=True, fetch_cost=fetch, stall_per_quality=0.05)
+        if want.pop("fid", False):
+            kw["fid_cost"] = fid
+        if want.pop("peer", False):
+            kw["peer_cost"] = peer
+    kw.update(want)
+    args = (z.to(dev), 0.2, 1.1, resident.to(dev), table.to(dev), q.to(dev))
+    got = _route_check(args, kw)
+    if kw.get("cost") and t >= 32:
+        # the argmin picks among several outcomes
+        assert sum(bool(m.any()) for m in (
+            got.substituted, got.degraded, got.peered, got.missed,
+            got.dropped)) >= 3
+
+
+@pytest.mark.parametrize("t", [4, 4096])
+def test_route_neutral_policy_is_the_precedence_call(dev, t):
+    """eta = kappa = 0, temperature 1 and margin_gamma 1, with hop and the
+    cost vectors given but precedence mode: every output bit-equal to the
+    plain precedence call's (probs and TAE included)."""
+    e, k, r = 64, 6, 8
+    g = _gen(t)
+    z = torch.randn(t, e, generator=g).to(dev)
+    table = torch.stack([torch.randperm(e, generator=g)[:r]
+                         for _ in range(e)]).to(torch.int32).to(dev)
+    q = torch.rand(e, r, generator=g).sort(-1, descending=True).values \
+        .to(dev)
+    resident = (torch.rand(e, generator=g) < 0.5).to(dev)
+    quant_ok = (torch.rand(e, generator=g) < 0.4).to(dev)
+    hop, fetch, fid, peer = _policy_inputs(g, e, dev)
+    args = (z, 0.2, 1.1, resident, table, q)
+    base = route_cuda(*args, k=k, quant_ok=quant_ok)
+    neutral = route_cuda(*args, k=k, quant_ok=quant_ok, hop=hop,
+                         fetch_cost=fetch, fid_cost=fid, peer_cost=peer,
+                         eta=0.0, kappa=0.0, temperature=1.0,
+                         margin_gamma=1.0)
+    for name in Route._fields:
+        assert torch.equal(getattr(neutral, name), getattr(base, name)), name
 
 
 def _weights(g, e, d, f, dtype, dev):
@@ -342,6 +424,13 @@ def test_wrappers_check_their_operands(dev):
         route_cuda(z, 0.2, 1.1, *route, k=2, quant_ok=route[0][:4])
     with pytest.raises(ValueError):
         route_cuda(z, 0.2, 1.1, *route, k=17)
+    with pytest.raises(ValueError):                # cost mode, no fetch_cost
+        route_cuda(z, 0.2, 1.1, *route, k=2, cost=True)
+    with pytest.raises(ValueError):
+        route_cuda(z, 0.2, 1.1, *route, k=2, hop=table[:, 0].long())
+    with pytest.raises(ValueError):
+        route_cuda(z, 0.2, 1.1, *route, k=2, cost=True,
+                   fetch_cost=torch.zeros(8, device=dev).double())
     assert route_cuda.launches == before
     x = torch.randn(2, 3, 8, device=dev)
     ws = _weights(_gen(0), 2, 8, 4, torch.float32, dev)
@@ -374,6 +463,10 @@ def _moe_case(devices, e, k, shape, policy, seed=0, tier=False):
                          torch.zeros(e, dtype=torch.int32),
                          quant_ok=(torch.rand(e, generator=g) < 0.7)
                          if tier else None)
+    # Psi's hop term (with the -1 sentinel) and cost mode's fetch stalls
+    buddy = buddy._replace(
+        hop=torch.randint(-1, 3, (e,), generator=g, dtype=torch.int32),
+        fetch_cost=torch.rand(e, generator=g) * 0.01)
     out = []
     for d in devices:
         pd = {name: (v.to(d) if torch.is_tensor(v) else
@@ -428,9 +521,20 @@ def test_moe_forward_with_tier_on_card_matches_cpu(dev, fused, shape):
 @pytest.mark.parametrize("kw", [dict(miss_policy="cost"), dict(eta=0.3),
                                 dict(kappa=0.1), dict(temperature=0.9),
                                 dict(margin_gamma=0.5)])
-def test_policies_outside_the_kernels_raise_on_card(dev, kw):
-    with pytest.raises(NotImplementedError):
-        _moe_case((dev,), 16, 3, (4, 1), BuddyPolicy(**kw))
+def test_every_policy_on_card_matches_cpu(dev, kw):
+    """The policies beyond precedence with Psi = q run on the card through
+    the route kernel, one launch per layer, with the CPU's masks and
+    outputs."""
+    before = ops.launch_counts()
+    (cy, ca), (gy, ga) = _moe_case(("cpu", dev), 16, 3, (4, 1),
+                                   BuddyPolicy(tau=0.0, beta=1.1, **kw))
+    after = ops.launch_counts()
+    assert after["route"] == before["route"] + 1
+    assert after["topk_gate"] == before["topk_gate"]
+    torch.testing.assert_close(gy.cpu(), cy, rtol=1e-4, atol=1e-4)
+    for name in ("indices", "orig_indices", "sub_slots", "miss_slots",
+                 "drop_slots", "miss_per_expert"):
+        assert torch.equal(getattr(ga, name).cpu(), getattr(ca, name)), name
 
 
 def _wkv_close(got, want):

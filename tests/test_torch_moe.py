@@ -138,30 +138,45 @@ def test_moe_forward_matches_reference(case):
 
 
 def test_kernel_path_equals_full_substitute():
-    """route_precedence (the route kernel's contract, here its plain
-    version) and the full plain core.substitute agree in precedence mode,
-    degraded/peer splits included."""
+    """route_layer (the route kernel's contract, here its plain version)
+    and the full plain core.substitute on the router's top-k agree for
+    every policy: precedence with the degraded/peer splits, cost mode with
+    its cost vectors, Psi's eta/kappa terms and the token gate's
+    temperature and margin."""
     from repro_torch.core.substitute import substitute
     from repro_torch.kernels.topk_gate import topk_gate_plain
     rng = np.random.default_rng(4)
     e, k, t = 16, 4, 30
     _, tb = _buddy(e, rng, r=6)
     tb = tb._replace(quant_ok=_t(rng.random(e) < 0.3),
-                     peer_ok=_t(rng.random(e) < 0.3))
+                     peer_ok=_t(rng.random(e) < 0.3),
+                     hop=_t(rng.integers(-1, 3, e).astype(np.int32)),
+                     fetch_cost=_t((rng.random(e) * 0.01).astype(np.float32)),
+                     peer_cost=_t((rng.random(e) * 0.01).astype(np.float32)))
+    fid_cost = _t((rng.random(e) * 0.01).astype(np.float32))
     logits = _t(rng.normal(size=(t, e)).astype(np.float32))
-    for mode in ("buddy", "none"):
-        pol = BuddyPolicy(tau=0.1, beta=1.1, rho=2, H=5, mode=mode)
-        a = M.route_precedence(logits, tb, pol, k, quant_ok=tb.quant_ok)
+    for mode, kw in (("buddy", {}), ("none", {}),
+                     ("buddy", dict(miss_policy="cost",
+                                    stall_per_quality=0.01)),
+                     ("none", dict(miss_policy="cost")),
+                     ("buddy", dict(eta=0.5, kappa=0.2, temperature=0.8,
+                                    margin_gamma=0.4))):
+        pol = BuddyPolicy(tau=0.1, beta=1.1, rho=2, H=5, mode=mode, **kw)
+        a = M.route_layer(logits, tb, pol, k, quant_ok=tb.quant_ok,
+                          fid_cost=fid_cost)
         idx, topk_logits, _, _, _ = topk_gate_plain(logits, pol.tau, k=k)
         b = substitute(idx, topk_logits, tb.resident, tb.table, tb.q, pol,
-                       quant_ok=tb.quant_ok, peer_ok=tb.peer_ok)
+                       router_logits=logits, hop=tb.hop,
+                       quant_ok=tb.quant_ok, fid_cost=fid_cost,
+                       fetch_cost=tb.fetch_cost, peer_ok=tb.peer_ok,
+                       peer_cost=tb.peer_cost)
         assert torch.equal(a.idx, idx)
         for got, name in ((a.new_idx, "indices"),
                           (a.substituted, "substituted"),
                           (a.missed, "missed"), (a.allow, "allowed"),
                           (a.dist_ok, "dist_ok"), (a.degraded, "degraded"),
                           (a.dropped, "dropped"), (a.peered, "peered")):
-            assert torch.equal(got, getattr(b, name)), f"{mode}: {name}"
+            assert torch.equal(got, getattr(b, name)), f"{mode} {kw}: {name}"
 
 
 def test_quant_tier_waits_for_its_slice():
