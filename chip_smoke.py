@@ -11,8 +11,8 @@ committed fixture under ``results/bench``). Phases, one JSON line each:
   kernels  each kernel against its plain PyTorch version on the card, at the
            shapes of the main path, with times (CUDA events) and bounds;
            the routing kernels also with their device time (torch.profiler)
-           and device ops per call: route at T = 4, 32, 256 and 4096 (one
-           launch up to 256 tokens, two above) with and without the tier
+           and device ops per call: route at T = 4, 32, 256, 512 and 4096
+           (one launch up to 256 tokens, two above) with and without the tier
            and peer masks and with substitution off, and at T = 4 and 4096
            in cost mode (degraded and peer costs) and with Psi's eta and
            kappa terms, the temperature and the margin co-gate, beside the
@@ -21,7 +21,11 @@ committed fixture under ``results/bench``). Phases, one JSON line each:
            the three FFN kernels also print the instance of the shared tile
            that ran (vec16 or elem; the path shapes must run vec16) and the
            achieved TB/s, and grouped_ffn a row sweep (every live group at
-           1, 3 and 8 rows); wkv_chunk also at head dim 128 (dynamic shared
+           1, 3 and 8 rows); the FFN kernels also at the continuous
+           phase's chunk shapes: grouped_ffn on 32 and 512 tokens binned at
+           the dropless cap T*K (192, 3072), expert_ffn on the capacity
+           branch's [64, 4 x 48, 2048] buffer and quant_ffn on its degraded
+           slots [64, 192, 2048] with row counts; wkv_chunk also at head dim 128 (dynamic shared
            memory), and its autograd backward on the card against the same
            on the CPU
   parity   the committed profiling fixture (results/bench/model.npz with
@@ -40,6 +44,23 @@ committed fixture under ``results/bench``). Phases, one JSON line each:
            degraded slots. Every kernel of a path must have launched in that
            path's window; every serve step must have launched route once
            per MoE layer and neither standalone routing kernel
+  continuous  the serve phase's weights served to arriving requests through
+           the continuous scheduler, three runs, each in its own launch-count
+           window: (a) the launcher (serve.main --mode continuous, 4 slots,
+           8 requests of 4-8 prompt + 8 new tokens at the auto arrival rate,
+           --prefill-chunk 8 --fused-dispatch); (b) the same with --quant-tier
+           int8 --tier-coverage 0.5 and without --fused-dispatch (the
+           capacity branch through expert_ffn, degraded slots through
+           quant_ffn); (c) 8 queued requests of 256-token prompts and 8 new
+           tokens at --prefill-chunk 128 (chunk steps of 512 tokens, route's
+           two-launch form). Every request completes; every step launches
+           route once per MoE layer and no standalone routing kernel; wall
+           ms per chunk and decode step (synchronized host clock), step
+           counts, TTFT and goodput on the simulated clock, launches, peak
+           memory. Then, at 4 requests and without substitution, chunk 8
+           against token-by-token: each request's first-token logits agree
+           within LOGIT_TOL (the count of equal generated tokens is printed,
+           not required: a near tie at random weights may flip one)
   train_parity  the reduced rwkv6 config, weights from seed 0 made on the
            CPU: one train step on the CPU (plain) and one on the card
            (kernel); loss, grad norm and every gradient agree
@@ -305,16 +326,57 @@ def _ffn_weights(gen, e_n, d_n, f_n, dev, dtype):
     return [t.to(dtype).to(dev) for t in w]
 
 
+def _capacity_binned(gen, x_tok, rows: int, e_n: int, k_n: int, dev):
+    """Bin T = rows x S tokens' K routed slots like the capacity branch of
+    a dropless chunk step: per batch row, by expert, into the [E, rows *
+    S*K, D] buffer laid out [E, B, cap] with cap = S*K (no slot dropped)."""
+    import torch
+    t_n, d_n = x_tok.shape
+    cap = t_n // rows * k_n
+    s = _route_slots(gen, t_n, e_n, k_n, "cpu").long().reshape(rows, cap)
+    seen = torch.zeros(rows, e_n, dtype=torch.long)
+    flat = torch.empty(rows, cap, dtype=torch.long)
+    for b in range(rows):
+        for j, e in enumerate(s[b].tolist()):
+            flat[b, j] = e * rows * cap + b * cap + seen[b, e]
+            seen[b, e] += 1
+    buf = torch.zeros(e_n * rows * cap, d_n, dtype=x_tok.dtype, device=dev)
+    buf[flat.reshape(-1).to(dev)] = x_tok.to(dev).repeat_interleave(k_n, 0)
+    return buf.view(e_n, rows * cap, d_n)
+
+
 def kernel_expert_ffn(dev, gen):
     import torch
     from repro_torch.kernels.expert_ffn import expert_ffn_cuda, expert_ffn_plain
-    e_n, c_n, d_n, f_n = 64, 32, 2048, 1408
-    x = torch.randn(e_n, c_n, d_n, generator=gen).to(dev)
+    e_n, k_n, d_n, f_n = 64, 6, 2048, 1408
     w1, w3, w2 = _ffn_weights(gen, e_n, d_n, f_n, dev, torch.float32)
-    got, want = expert_ffn_cuda(x, w1, w3, w2), expert_ffn_plain(x, w1, w3, w2)
-    err = max_err(got, want)
-    require(err <= TOL_F32 * (1 + float(want.abs().max())),
-            f"expert_ffn: err {err}")
+    rows = {}
+    # "full_32": 32 rows in every expert; "chunk_capacity": the capacity
+    # branch of a continuous chunk step (4 slots x 8 tokens, dropless
+    # cap = 8 x K per slot), the buffer of the continuous phase's run (b)
+    for name in ("full_32", "chunk_capacity"):
+        if name == "full_32":
+            x = torch.randn(e_n, 32, d_n, generator=gen).to(dev)
+        else:
+            x = _capacity_binned(gen, torch.randn(32, d_n, generator=gen), 4,
+                                 e_n, k_n, dev)
+        got, want = expert_ffn_cuda(x, w1, w3, w2), expert_ffn_plain(x, w1,
+                                                                     w3, w2)
+        err = max_err(got, want)
+        require(err <= TOL_F32 * (1 + float(want.abs().max())),
+                f"expert_ffn {name}: err {err}")
+        # the kernel has no row counts: every row of every expert is work
+        flops = 2 * e_n * x.shape[1] * d_n * f_n * 3
+        moved = nbytes(x, w1, w3, w2, got)
+        b_ms, b_by = bound(moved, flops)
+        rows[name] = {"shape": list(x.shape) + [f_n], "max_abs_err": err,
+                      "max_abs_plain": float(want.abs().max()),
+                      "instance": ffn_instance(x, e_n, f_n, (x, w1, w3, w2)),
+                      "ms": time_ms(lambda: expert_ffn_cuda(x, w1, w3, w2)),
+                      "plain_ms": time_ms(lambda: expert_ffn_plain(x, w1, w3,
+                                                                   w2)),
+                      "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
+        rows[name].update(ffn_rate(moved, rows[name]["ms"], b_ms))
     # bf16 and ragged shapes: correctness only
     for (e, c, d, f), dt, tol in (((4, 37, 200, 136), torch.float32, TOL_F32),
                                   ((3, 33, 256, 320), torch.bfloat16, 5e-2)):
@@ -322,18 +384,9 @@ def kernel_expert_ffn(dev, gen):
         ws = _ffn_weights(gen, e, d, f, dev, dt)
         e2 = max_err(expert_ffn_cuda(xs, *ws), expert_ffn_plain(xs, *ws))
         require(e2 <= tol, f"expert_ffn {dt} {(e, c, d, f)}: err {e2}")
-    flops = 2 * e_n * c_n * d_n * f_n * 3
-    moved = nbytes(x, w1, w3, w2, got)
-    b_ms, b_by = bound(moved, flops)
-    row = {"max_abs_err": err, "max_abs_plain": float(want.abs().max()),
-           "instance": ffn_instance(x, e_n, f_n, (x, w1, w3, w2)),
-           "ms": time_ms(lambda: expert_ffn_cuda(x, w1, w3, w2)),
-           "plain_ms": time_ms(lambda: expert_ffn_plain(x, w1, w3, w2)),
-           "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
-    row.update(ffn_rate(moved, row["ms"], b_ms))
     emit({"phase": "kernels", "kernel": "expert_ffn",
-          "shape": [e_n, c_n, d_n, f_n], **row})
-    return row
+          "shape": [e_n, "C", d_n, f_n], "by_case": rows})
+    return rows["full_32"]
 
 
 def kernel_quant_ffn(dev, gen):
@@ -343,10 +396,17 @@ def kernel_quant_ffn(dev, gen):
     quant = _replicas(*_ffn_weights(gen, e_n, d_n, f_n, dev, torch.float32))
     x_tok = torch.randn(t_n, d_n, generator=gen)
     rows = {}
-    for name, c_n in (("decode", t_n * k_n), ("full", 32)):
-        if name == "decode":
-            # the gather branch's binning: 24 routed slots by expert
-            buf, counts = _binned(gen, x_tok, e_n, k_n, c_n, 1.0, dev)
+    # "chunk": the capacity branch of a continuous chunk step (run (b)):
+    # 4 slots x 8 tokens, half of the 192 routed slots degraded, binned by
+    # expert into [E, T*K, D] with counts
+    x_chunk = torch.randn(32, d_n, generator=gen)
+    for name, c_n in (("decode", t_n * k_n), ("full", 32),
+                      ("chunk", 32 * k_n)):
+        if name != "full":
+            # the degraded slots binned by expert, as _degraded_outputs does
+            buf, counts = _binned(gen, x_tok if name == "decode" else x_chunk,
+                                  e_n, k_n, c_n,
+                                  1.0 if name == "decode" else 0.5, dev)
             buf, counts = buf[e_n:], counts[e_n:]
         else:
             buf = torch.randn(e_n, c_n, d_n, generator=gen).to(dev)
@@ -411,9 +471,9 @@ def _binned(gen, x_tok, e_n, k_n, c_n, deg_frac, dev):
     for i, g in enumerate(grp.tolist()):
         pos[i] = seen[g]
         seen[g] += 1
-    buf = torch.zeros(2 * e_n, c_n, d_n, dtype=x_tok.dtype)
-    buf[grp, pos] = x_tok.cpu().repeat_interleave(k_n, 0)
-    return buf.to(dev), counts.to(torch.int32).to(dev)
+    buf = torch.zeros(2 * e_n, c_n, d_n, dtype=x_tok.dtype, device=dev)
+    buf[grp.to(dev), pos.to(dev)] = x_tok.to(dev).repeat_interleave(k_n, 0)
+    return buf, counts.to(torch.int32).to(dev)
 
 
 def kernel_grouped_ffn(dev, gen):
@@ -423,10 +483,17 @@ def kernel_grouped_ffn(dev, gen):
     e_n, k_n, t_n, d_n, f_n = 64, 6, 4, 2048, 1408
     c_n = t_n * k_n
     w1, w3, w2 = _ffn_weights(gen, e_n, d_n, f_n, dev, torch.float32)
-    x_tok = torch.randn(t_n, d_n, generator=gen)
     rows = {}
-    for name, deg_frac in (("decode", 0.0), ("decode_int8", 0.4)):
-        buf, counts = _binned(gen, x_tok, e_n, k_n, c_n, deg_frac, dev)
+    # decode: 4 tokens; chunk_t32 / chunk_t512: the continuous phase's
+    # fused chunk steps (runs (a) and (c)), T = 4 slots x 8 or x 128
+    # tokens at the dropless cap T*K
+    for name, tokens, deg_frac, reps in (("decode", t_n, 0.0, 20),
+                                         ("decode_int8", t_n, 0.4, 20),
+                                         ("chunk_t32", 32, 0.0, 20),
+                                         ("chunk_t512", 512, 0.0, 5)):
+        x_tok = torch.randn(tokens, d_n, generator=gen)
+        buf, counts = _binned(gen, x_tok, e_n, k_n, tokens * k_n, deg_frac,
+                              dev)
         quant = _replicas(w1, w3, w2) if deg_frac else None
         got = grouped_ffn_cuda(buf, w1, w3, w2, quant, counts)
         want = grouped_ffn_plain(buf, w1, w3, w2, quant, counts)
@@ -444,15 +511,16 @@ def kernel_grouped_ffn(dev, gen):
                  + filled * d_n * 4 + nbytes(got, counts))
         b_ms, b_by = bound(moved, 2 * filled * d_n * f_n * 3)
         copied = (buf, w1, w3, w2) + (quant[::2] if quant else ())
-        rows[name] = {"max_abs_err": err,
+        rows[name] = {"cap": buf.shape[1], "filled_rows": filled,
+                      "max_abs_err": err,
                       "max_abs_plain": float(want.abs().max()),
                       "live_fp": n_fp, "live_deg": n_deg,
                       "instance": ffn_instance(buf, 2 * e_n, f_n, copied,
                                                int8=quant is not None),
-                      "ms": time_ms(lambda: grouped_ffn_cuda(buf, w1, w3, w2,
-                                                             quant, counts)),
+                      "ms": time_ms(lambda: grouped_ffn_cuda(
+                          buf, w1, w3, w2, quant, counts), reps),
                       "plain_ms": time_ms(lambda: grouped_ffn_plain(
-                          buf, w1, w3, w2, quant, counts)),
+                          buf, w1, w3, w2, quant, counts), reps),
                       "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
         rows[name].update(ffn_rate(moved, rows[name]["ms"], b_ms))
     # the row sweep: 22 live fp groups (the decode case's count) with the
@@ -474,7 +542,7 @@ def kernel_grouped_ffn(dev, gen):
         sweep[r] = {"max_abs_err": err, "ms": ms, "bound_ms": b_ms,
                     "bound_by": b_by, **ffn_rate(moved, ms, b_ms)}
     emit({"phase": "kernels", "kernel": "grouped_ffn",
-          "shape": [2 * e_n, c_n, d_n, f_n], "by_case": rows,
+          "shape": [2 * e_n, "cap", d_n, f_n], "by_case": rows,
           "row_sweep_22_live_groups": sweep})
     return rows["decode"]
 
@@ -607,7 +675,7 @@ def kernel_route(dev, gen):
     e_n, k_n, r_n, h, rho, tau = 64, 6, 8, 8, 3, 0.2
     by_t, old_path = {}, None
     pgen = torch.Generator().manual_seed(1)   # the policy cases' vectors
-    for t_n in (4, 32, 256, 4096):
+    for t_n in (4, 32, 256, 512, 4096):
         z = torch.randn(t_n, e_n, generator=gen).to(dev)
         resident = (torch.rand(e_n, generator=gen) < 0.5).to(dev)
         table, q = _buddy_tables(gen, e_n, r_n, dev)
@@ -900,7 +968,235 @@ def phase_serve():
     require(all(e.policy.miss_policy == "cost" for e in cost["engines"])
             and sum(e.stats.n_upgrade_issued for e in cost["engines"]) > 0,
             f"the cost path issued no upgrade: {out['cost_int8_tier']}")
-    return counts
+    return counts, params
+
+
+# ---------------------------------------------------------------------------
+class StepLog:
+    """Records every ServeEngine.step and .prefill_rows call while open
+    (patched on the class, so it also sees the engines that serve.main
+    builds): its kind ("chunk", "decode", or "probe" for the lockstep batch
+    that sizes the auto arrival rate), tokens fed, wall ms on a host clock
+    synchronized with the card, and the kernel launches it made; and the
+    range of every sampled token array."""
+
+    def __init__(self):
+        self.steps, self.sampled = [], []
+
+    def __enter__(self):
+        from repro_torch.serving.engine import ServeEngine
+        self._orig = {n: getattr(ServeEngine, n)
+                      for n in ("step", "prefill_rows", "sample_tokens")}
+        ServeEngine.step = self._timed("step")
+        ServeEngine.prefill_rows = self._timed("prefill_rows")
+        sample = self._orig["sample_tokens"]
+
+        def sample_tokens(eng, *a, **kw):
+            out = sample(eng, *a, **kw)
+            self.sampled.append((int(out.min()), int(out.max())))
+            return out
+
+        ServeEngine.sample_tokens = sample_tokens
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.serving.engine import ServeEngine
+        for n, fn in self._orig.items():
+            setattr(ServeEngine, n, fn)
+
+    def _timed(self, name):
+        import numpy as np
+        import torch
+        from repro_torch.kernels import ops
+        fn = self._orig[name]
+
+        def call(eng, tokens, *a, **kw):
+            if name == "prefill_rows":
+                kind, fed = "chunk", int(tokens.numel() if torch.is_tensor(
+                    tokens) else np.asarray(tokens).size)
+            else:
+                pos = a[1] if len(a) > 1 else kw["pos"]
+                kind = "decode" if isinstance(pos, np.ndarray) else "probe"
+                fed = int(tokens.shape[0])
+            before = ops.launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(eng, tokens, *a, **kw)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            after = ops.launch_counts()
+            self.steps.append({"kind": kind, "tokens": fed, "ms": ms,
+                               "layers": eng.num_moe_layers,
+                               "launches": {k: after[k] - before[k]
+                                            for k in after}})
+            return out
+
+        return call
+
+
+def _continuous_row(log: StepLog, s: dict, counts: dict) -> dict:
+    """One run's figures: wall ms per chunk / decode step (median, mean),
+    step counts, the simulated clock's TTFT and goodput, launches."""
+    row = {"completed": s["completed"], "num_requests": s["num_requests"],
+           "scheduler_steps": s["steps"]}
+    for kind in ("chunk", "decode", "probe"):
+        ms = [st["ms"] for st in log.steps if st["kind"] == kind]
+        row[f"{kind}_steps"] = len(ms)
+        if ms:
+            row[f"{kind}_wall_ms_median"] = statistics.median(ms)
+            row[f"{kind}_wall_ms_mean"] = statistics.fmean(ms)
+    row["chunk_tokens_max"] = max((st["tokens"] for st in log.steps
+                                   if st["kind"] == "chunk"), default=0)
+    row.update(simulated_ttft_ms_p50=s["ttft_s"]["p50"] * 1e3,
+               simulated_ttft_ms_p99=s["ttft_s"]["p99"] * 1e3,
+               simulated_tpot_ms_p50=s["tpot_s"]["p50"] * 1e3,
+               simulated_goodput_rps=s["goodput_rps"],
+               simulated_goodput_tok_s=s["goodput_tok_s"],
+               n_sub=s["engine"]["stats"]["n_sub"],
+               n_miss_fetch=s["engine"]["stats"]["n_miss_fetch"],
+               launches=counts)
+    if "tier" in s["engine"]:
+        row["degraded_slots"] = s["engine"]["tier"]["degraded_tokens"]
+    return row
+
+
+def _check_continuous(tag: str, log: StepLog, s: dict, counts: dict,
+                      vocab: int, kernels) -> None:
+    require(s["completed"] == s["num_requests"] > 0,
+            f"continuous ({tag}): {s['completed']} of {s['num_requests']} "
+            "requests completed")
+    for st in log.steps:
+        d = st["launches"]
+        require(d["route"] == st["layers"] and d["topk_gate"] == 0
+                and d["buddy_substitute"] == 0,
+                f"continuous ({tag}): want route once per MoE layer and no "
+                f"standalone routing kernel in every step, got {st}")
+    require(any(st["kind"] == "chunk" for st in log.steps),
+            f"continuous ({tag}): no chunk step")
+    require(all(k in counts and counts[k] > 0 for k in kernels),
+            f"continuous ({tag}): a kernel of the run did not launch: "
+            f"{counts}")
+    require(all(0 <= lo and hi < vocab for lo, hi in log.sampled),
+            f"continuous ({tag}): a token outside the vocabulary")
+
+
+def _first_token_logits(eng, sched):
+    """Patch ``eng.sample_tokens`` to keep, per step, the simulated time and
+    the rid of each row beside the logits it samples from; returns a
+    function that gives {rid: first-token logits} after the run."""
+    seen = []
+    sample = eng.sample_tokens
+
+    def logged(logits, *a, **kw):
+        seen.append((eng.scheduler.now,
+                     [None if r is None else r.rid for r in sched._slot],
+                     logits.detach().float().cpu()))
+        return sample(logits, *a, **kw)
+
+    eng.sample_tokens = logged
+
+    def firsts(reqs):
+        by_t = {t: (rids, lg) for t, rids, lg in seen}
+        out = {}
+        for r in reqs:
+            rids, lg = by_t[r.first_token_s]
+            out[r.rid] = lg[rids.index(r.rid)]
+        return out
+
+    return firsts
+
+
+def phase_continuous(params) -> dict:
+    """Continuous serving at full width (8 layers) on the serve phase's
+    weights; see the module note. Returns the three runs' launches."""
+    import contextlib
+    import io
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.serving import scheduler as S
+    from repro_torch.training.data import MarkovLM
+    flags = ["--arch", "deepseek-v2-lite-buddy", "--layers", "8",
+             "--cache-rate", "0.5", "--policy", "buddy", "--mode",
+             "continuous", "--slots", "4", "--num-requests", "8", "--steps",
+             "8", "--prefill-chunk", "8"]
+    cfg = serve.model_config(serve.parse_args(flags))
+    vocab = cfg.vocab_size
+
+    def run_main(argv):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            s = serve.main(argv, params=params)
+        return s, buf.getvalue().strip().splitlines()[-1]
+
+    def run_long():
+        args = serve.parse_args(flags + ["--fused-dispatch"])
+        eng, lm = serve.build_engine(args, params=params)
+        reqs = S.make_requests(list(lm.sample(8, 256)),
+                               S.ReplayArrivals([0.0] * 8), 8)
+        return S.ContinuousScheduler(eng, slots=4, prefill_chunk=128).run(
+            S.RequestQueue(reqs)), None
+
+    runs = (("a_launcher_fused", lambda: run_main(flags + ["--fused-dispatch"]),
+             ("route", "grouped_ffn")),
+            ("b_launcher_int8_tier_capacity",
+             lambda: run_main(flags + ["--quant-tier", "int8",
+                                       "--tier-coverage", "0.5"]),
+             ("route", "expert_ffn", "quant_ffn")),
+            ("c_long_prompts_chunk128", run_long, ("route", "grouped_ffn")))
+    t_phase = time.perf_counter()
+    out = {"phase": "continuous", "arch": cfg.arch_id,
+           "layers": cfg.num_layers, "slots": 4}
+    total = None
+    for tag, fn, kernels in runs:
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()             # this run starts here
+        t0 = time.perf_counter()
+        with StepLog() as log:
+            s, line = fn()
+        counts = ops.launch_counts()          # ... and ends here
+        out[tag] = dict(_continuous_row(log, s, counts),
+                        run_s=time.perf_counter() - t0,
+                        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+                        **({"launcher_line": line} if line else {}))
+        _check_continuous(tag, log, s, counts, vocab, kernels)
+        total = counts if total is None else {k: total[k] + counts[k]
+                                              for k in total}
+    require(out["c_long_prompts_chunk128"]["chunk_tokens_max"] > 256,
+            "continuous (c): no chunk step above 256 tokens")
+    require(out["b_launcher_int8_tier_capacity"]["degraded_slots"] > 0,
+            "continuous (b): the tier served no slot")
+
+    # chunked (C = 8) against token-by-token (C = 1), substitution off so
+    # that both runs compute the same function whatever the residency
+    cmp_flags = flags + ["--policy", "none", "--fused-dispatch"]
+    lm = MarkovLM(vocab, seed=3)
+    rng = np.random.default_rng(3)
+    prompts = [lm.sample(1, int(rng.integers(4, 9)))[0] for _ in range(4)]
+    res = {}
+    for chunk in (8, 1):
+        eng, _ = serve.build_engine(serve.parse_args(cmp_flags),
+                                    params=params)
+        reqs = S.make_requests(prompts, S.ReplayArrivals([0.0] * 4), 8)
+        sched = S.ContinuousScheduler(eng, slots=4, prefill_chunk=chunk)
+        firsts = _first_token_logits(eng, sched)
+        sched.run(S.RequestQueue(reqs))
+        res[chunk] = (firsts(reqs), {r.rid: r.tokens for r in reqs})
+    errs = [max_err(res[8][0][rid], res[1][0][rid]) for rid in res[1][0]]
+    same = sum(int(a == b) for rid in res[1][1]
+               for a, b in zip(res[8][1][rid], res[1][1][rid]))
+    out["chunked_vs_token_by_token"] = {
+        "requests": 4, "first_token_logits_max_abs_err": max(errs),
+        "tol": LOGIT_TOL, "generated_tokens_equal": same,
+        "generated_tokens": sum(len(t) for t in res[1][1].values())}
+    out["launches"] = total
+    out["seconds"] = time.perf_counter() - t_phase
+    emit(out)
+    require(max(errs) <= LOGIT_TOL,
+            f"continuous: chunked and token-by-token first-token logits "
+            f"differ: {out['chunked_vs_token_by_token']}")
+    return total
 
 
 # ---------------------------------------------------------------------------
@@ -1088,7 +1384,10 @@ def main() -> int:
             "wkv_chunk": kernel_wkv(dev, gen),
             "route": kernel_route(dev, gen)}
     phase_parity()
-    counts = phase_serve()
+    counts, params = phase_serve()
+    cont = phase_continuous(params)
+    del params
+    counts = {k: counts[k] + cont[k] for k in counts}
     phase_train_parity()
     counts["wkv_chunk"], params, cfg = phase_train(rows["wkv_chunk"]["ms"])
     phase_decode(params, cfg)

@@ -17,10 +17,21 @@ the card by default.
     PYTHONPATH=src python -m repro_torch.launch.serve --layers 8 \
         --miss-policy cost --quant-tier int8 --tier-coverage 0.5
 
-Counterpart of ``repro/launch/serve.py`` for batch mode, quant tier
-included. Flags of the subsystems that are not ported yet (continuous mode,
-the mesh, paged KV and the prefix cache, live placement, telemetry and
-traces) stop with "not ported yet".
+    # continuous batching under Poisson load, joining prompts ingested 8
+    # tokens per fused step (chunked prefill)
+    PYTHONPATH=src python -m repro_torch.launch.serve --reduced \
+        --device cpu --mode continuous --num-requests 16 --slots 4 \
+        --prefill-chunk 8
+
+    # workload replay: arrivals and per-request token budgets from a JSONL
+    # trace of {t_arrival, prompt_len, max_new_tokens} rows
+    PYTHONPATH=src python -m repro_torch.launch.serve --reduced \
+        --device cpu --mode continuous --trace trace.jsonl --slots 4
+
+Counterpart of ``repro/launch/serve.py`` for batch and continuous mode,
+quant tier included. Flags of the subsystems that are not ported yet (the
+mesh, paged KV and the prefix cache, live placement, telemetry and the
+trace export) stop with "not ported yet".
 """
 from __future__ import annotations
 
@@ -40,10 +51,16 @@ from repro_torch.core.quantize import TIER_BITS
 from repro_torch.models import transformer
 from repro_torch.models.common import resolve_device
 from repro_torch.runtime.cache import ExpertCache
-from repro_torch.runtime.prefetch import (CrossLayerPredictor,
+from repro_torch.runtime.prefetch import (AdaptiveBudgetController,
+                                          CrossLayerPredictor,
                                           PrevStepPredictor, TopFreqPredictor)
 from repro_torch.runtime.tiers import TieredExpertStore
 from repro_torch.serving.engine import ServeEngine
+from repro_torch.serving.scheduler import (BurstyArrivals,
+                                           ContinuousScheduler,
+                                           PoissonArrivals, RequestQueue,
+                                           SLOConfig, make_requests,
+                                           requests_from_trace)
 from repro_torch.training.data import MarkovLM
 
 PREDICTORS = {
@@ -131,29 +148,61 @@ def parse_args(argv=None):
                     help="background-fetch the true expert after serving "
                          "its slot from the quant tier (auto: on exactly "
                          "with --miss-policy cost and a tier)")
-    # subsystems that are not ported yet: present so that they fail loudly
+    # -- continuous serving under load ---------------------------------
     ap.add_argument("--mode", choices=["batch", "continuous"],
                     default="batch")
+    ap.add_argument("--num-requests", type=int, default=16)
+    ap.add_argument("--slots", type=int, default=4,
+                    help="decode slots (continuous batch width)")
+    ap.add_argument("--arrival-rate", type=float, default=0.0,
+                    help="requests per SIMULATED second (0: sized to ~70%% "
+                         "of MEASURED decode capacity, stalls included)")
+    ap.add_argument("--arrivals", choices=["poisson", "bursty"],
+                    default="poisson")
+    ap.add_argument("--slo-ttft-ms", type=float, default=0.0,
+                    help="TTFT objective in modeled ms (0: disabled)")
+    ap.add_argument("--slo-tpot-ms", type=float, default=0.0,
+                    help="per-token objective in modeled ms (0: disabled)")
+    ap.add_argument("--deadline-ms", type=float, default=0.0,
+                    help="end-to-end deadline; with --admission slo, doomed "
+                         "requests are shed instead of admitted")
+    ap.add_argument("--admission", choices=["fcfs", "slo"], default="fcfs")
+    ap.add_argument("--prefill-chunk", type=int, default=1,
+                    help="prompt tokens ingested per fused step when a "
+                         "request joins (1: token-by-token through decode)")
+    ap.add_argument("--adaptive-chunk", action="store_true",
+                    help="halve the prefill chunk while the estimated "
+                         "step time would blow co-resident decode rows' "
+                         "TPOT budget")
+    ap.add_argument("--adaptive-prefetch", action="store_true",
+                    help="resize prefetch budget from queue depth + stall "
+                         "attribution instead of the fixed --prefetch-k")
+    ap.add_argument("--trace", default=None,
+                    help="JSONL serving trace ({t_arrival, prompt_len, "
+                         "max_new_tokens} rows) replayed with per-request "
+                         "token budgets (--mode continuous)")
+    # subsystems that are not ported yet: present so that they fail loudly
     ap.add_argument("--n-devices", type=int, default=1)
     ap.add_argument("--paged-kv", action="store_true")
     ap.add_argument("--prefix-cache", action="store_true")
     ap.add_argument("--placement", choices=["off", "live"], default="off")
     ap.add_argument("--telemetry", choices=["off", "on"], default="off")
     ap.add_argument("--trace-out", default=None)
-    ap.add_argument("--trace", default=None)
     args = ap.parse_args(argv)
-    for flag, on in (("--mode continuous", args.mode != "batch"),
-                     ("--n-devices > 1", args.n_devices != 1),
+    for flag, on in (("--n-devices > 1", args.n_devices != 1),
                      ("--paged-kv", args.paged_kv),
                      ("--prefix-cache", args.prefix_cache),
                      ("--placement live", args.placement != "off"),
                      ("--telemetry", args.telemetry != "off"),
-                     ("--trace-out", args.trace_out is not None),
-                     ("--trace", args.trace is not None)):
+                     ("--trace-out", args.trace_out is not None)):
         if on:
             ap.error(f"{flag}: not ported yet")
     if args.lookahead < 1:
         ap.error("--lookahead must be >= 1 (layers ahead to prefetch)")
+    if args.prefill_chunk < 1:
+        ap.error("--prefill-chunk must be >= 1 (prompt tokens per fused step)")
+    if args.trace and args.mode != "continuous":
+        ap.error("--trace replays a request stream: use --mode continuous")
     if args.layers < 0:
         ap.error("--layers must be >= 0")
     if not 0.0 < args.tier_coverage <= 1.0:
@@ -218,9 +267,71 @@ def build_engine(args, params=None):
     return eng, lm
 
 
-def main(argv=None):
+def continuous_requests(args, eng, lm) -> list:
+    """The request stream of --mode continuous: a replayed --trace, or
+    --num-requests prompts of 4-8 tokens at --arrival-rate (0: ~70% of the
+    capacity an unloaded probe batch measures on the simulated clock, after
+    which the engine's runtime state is reset)."""
+    slo = SLOConfig(
+        ttft_s=args.slo_ttft_ms * 1e-3 if args.slo_ttft_ms > 0 else None,
+        tpot_s=args.slo_tpot_ms * 1e-3 if args.slo_tpot_ms > 0 else None,
+        deadline_s=args.deadline_ms * 1e-3 if args.deadline_ms > 0 else None)
+    if args.trace:
+        reqs = requests_from_trace(args.trace,
+                                   lambda n: lm.sample(1, max(1, n))[0], slo)
+        print(f"[serve] replaying {len(reqs)} requests from {args.trace}")
+        return reqs
+    rng = np.random.default_rng(1)
+    prompts = [lm.sample(1, int(rng.integers(4, 9)))[0]
+               for _ in range(args.num_requests)]
+    rate = args.arrival_rate
+    if rate <= 0:
+        # the probe's step time includes transfer stalls (a compute-only
+        # estimate is far too optimistic in the transfer-bound regime)
+        eng.generate(lm.sample(args.slots, 4), max_new_tokens=8)
+        step_s = eng.stats.sim_time_s / max(1, eng.stats.steps)
+        eng.reset_runtime()
+        rate = 0.7 * args.slots / ((8 + args.steps) * step_s)
+        print(f"[serve] auto arrival rate: {rate:.1f} req/s "
+              f"(measured step {step_s*1e3:.3f}ms)")
+    proc = (PoissonArrivals(rate, seed=2) if args.arrivals == "poisson"
+            else BurstyArrivals(rate, seed=2))
+    return make_requests(prompts, proc, args.steps, slo)
+
+
+def serve_continuous(args, eng, lm) -> dict:
+    """Drive the engine with continuously arriving requests and SLOs
+    through the ContinuousScheduler; returns its summary."""
+    queue = RequestQueue(continuous_requests(args, eng, lm),
+                         admission=args.admission)
+    ctrl = None
+    if args.adaptive_prefetch and eng.prefetch_k > 0:
+        k = eng.prefetch_k
+        ctrl = AdaptiveBudgetController(
+            prefetch_k=k, lookahead=args.lookahead, max_k=max(2 * k, 4),
+            max_lookahead=max(4, args.lookahead))
+    sched = ContinuousScheduler(eng, slots=args.slots, controller=ctrl,
+                                prefill_chunk=args.prefill_chunk,
+                                adaptive_chunk=args.adaptive_chunk)
+    return sched.run(queue)
+
+
+def main(argv=None, params=None) -> dict:
+    """Serve a batch (--mode batch) or a request stream (--mode continuous)
+    and print the summary, which it returns. ``params``: weights already on
+    the device (default: --checkpoint, or random from seed 0)."""
     args = parse_args(argv)
-    eng, lm = build_engine(args)
+    eng, lm = build_engine(args, params=params)
+    if args.mode == "continuous":
+        s = serve_continuous(args, eng, lm)
+        print(json.dumps(s, indent=1, default=str))
+        print(f"completed {s['completed']}/{s['num_requests']} "
+              f"(rejected {s['rejected']})  "
+              f"TTFT p50/p99 {s['ttft_s']['p50']*1e3:.2f}/"
+              f"{s['ttft_s']['p99']*1e3:.2f}ms  "
+              f"goodput {s['goodput_rps']:.1f} req/s  "
+              f"SLO-met {s['slo_met_frac']*100:.0f}%")
+        return s
     out = eng.generate(lm.sample(args.batch, 8), max_new_tokens=args.steps)
     s = eng.summary()
     print(json.dumps(s, indent=1, default=str))
@@ -235,6 +346,7 @@ def main(argv=None):
               f"{t['tier_budget_split']['cache_slots_per_layer']} full "
               f"slots/layer left")
     print("sample output tokens:", out[0, -16:].tolist())
+    return s
 
 
 if __name__ == "__main__":

@@ -6,12 +6,16 @@ with the reference's keys and each group's layers stacked on a leading
 axis. Entry points:
 
   forward_train(params, cfg, tokens, ...)            -> logits [B, S, V], aux
+  prefill(params, cfg, tokens)                       -> logits [B, S, V]
   decode_step(params, cfg, token, caches, pos, ...)  -> logits [B, V], caches, aux
+  prefill_chunk(params, cfg, tokens, caches, base_pos, tok_valid, ...)
+                                                     -> logits [B, C, V], caches, aux
 
 Serving state for MoE stacks: ``buddies`` is a BuddyState whose leaves carry
 a leading MoE-layer axis [L_moe, ...]. Decode caches (ring KV, RWKV states)
-are updated in place. The Mamba2, hybrid, VLM and audio families, chunked
-prefill and paged caches arrive with later slices.
+are updated in place; chunked prefill writes the same ring KV caches. The
+Mamba2, hybrid, VLM and audio families and paged caches arrive with later
+slices.
 """
 from __future__ import annotations
 
@@ -39,6 +43,14 @@ def _check_stack(cfg: ModelConfig):
     if not kinds <= {ATTN_DENSE, ATTN_MOE, RWKV}:
         raise NotImplementedError(
             f"only attention and RWKV6 stacks are ported, got {cfg.stack()}")
+
+
+def require_attention_stack(cfg: ModelConfig, what: str):
+    """Chunked prefill and the row hooks need ring KV caches whose leaves
+    are [L, B, ...]: attention stacks only (SSM states are sequential)."""
+    if not all(k in (ATTN_DENSE, ATTN_MOE) for k, _ in cfg.stack()):
+        raise ValueError(f"{what} supports attention stacks only, got "
+                         f"{cfg.stack()}")
 
 
 def _tree_assign(dst, i: int, src):
@@ -113,11 +125,14 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
 # ===========================================================================
 class StepCtx(NamedTuple):
     cfg: ModelConfig
-    mode: str                      # "full" | "step"
+    mode: str                      # "full" | "step" | "chunk"
     window: int                    # effective attention window (0 = full)
     policy: Optional[BuddyPolicy]
-    positions: Any                 # [B, S] (full) or int / [B] pos (step)
+    positions: Any                 # [B, S] (full), int / [B] pos (step),
+    #                                or [B] per-row base positions (chunk)
     record: bool
+    tok_valid: Any = None          # [B, C] prefix validity mask (chunk mode)
+    plan: Optional[attn.ChunkPlan] = None   # the chunk's device indices
 
 
 def _attn_kwargs(cfg: ModelConfig):
@@ -172,6 +187,10 @@ def block_forward(kind: str, p, x, cache, ctx: StepCtx, buddy=None):
     if ctx.mode == "full":
         h = attn.attn_forward(p["attn"], xn, ctx.positions, window=ctx.window,
                               **_attn_kwargs(cfg))
+    elif ctx.mode == "chunk":
+        h, cache = attn.attn_prefill_chunk(
+            p["attn"], xn, cache, ctx.positions, ctx.tok_valid,
+            window=ctx.window, plan=ctx.plan, **_attn_kwargs(cfg))
     else:
         h, cache = attn.attn_decode(p["attn"], xn, cache, ctx.positions,
                                     window=ctx.window, **_attn_kwargs(cfg))
@@ -181,7 +200,8 @@ def block_forward(kind: str, p, x, cache, ctx: StepCtx, buddy=None):
     if kind == ATTN_MOE:
         y, moe_aux = moe_mod.moe_forward(
             p["moe"], xn, cfg.moe, policy=ctx.policy, buddy=buddy,
-            capacity_factor=2.0 if ctx.mode == "step" else 1.25)
+            capacity_factor=2.0 if ctx.mode == "step" else 1.25,
+            dropless=ctx.mode == "chunk")
         aux = _moe_aux_dict(moe_aux, ctx.record)
     else:
         y = swiglu(xn, p["ffn"]["w1"], p["ffn"]["w3"], p["ffn"]["w2"])
@@ -326,3 +346,46 @@ def decode_step(params, cfg: ModelConfig, token, caches, pos, *,
     if record:
         total["recorded"] = rec
     return logits, caches, total
+
+
+def prefill_chunk(params, cfg: ModelConfig, tokens, caches, base_pos,
+                  tok_valid, *, policy: Optional[BuddyPolicy] = None,
+                  buddies=None, window: int = -1, record: bool = False):
+    """Fused multi-token step for chunked prefill (continuous batching).
+
+    tokens [B, C] int tensor on the params' device; base_pos [B] the
+    absolute position of each row's first chunk token and tok_valid [B, C]
+    the PREFIX validity mask, both host data (numpy): row b's tokens
+    j < count(b) are live, the rest ride the fixed-shape step and write
+    nothing. A decode row joins the step as a 1-valid-token chunk, so one
+    step serves prefill and decode rows together. caches from init_caches
+    (updated in place).
+
+    Returns (logits [B, C, V] f32, caches, aux). aux token axes are the
+    flattened [B*C] chunk (row-major): mask them with tok_valid on the host.
+    MoE dispatch is dropless in this mode, so per-token outputs do not
+    depend on the chunk size."""
+    require_attention_stack(cfg, "chunked prefill")
+    if window < 0:
+        window = cfg.sliding_window
+    x = params["embed"][tokens]                                   # [B, C, D]
+    cap = caches[0]["kv"]["k"].shape[2]
+    plan = attn.chunk_plan(base_pos, tok_valid, cap, window, x.device)
+    ctx = StepCtx(cfg, "chunk", window, policy, base_pos, record,
+                  tok_valid=tok_valid, plan=plan)
+    total = _zero_moe_aux(cfg, x.device)
+    rec = []
+    for kind, gp, gc, gb in _iter_groups(params, cfg, caches, buddies):
+        x, _, aux = _run_group(kind, gp, x, gc, ctx, gbuddy=gb)
+        _accumulate(total, aux, rec, record)
+    logits = _logits(params, cfg, x)                              # [B, C, V]
+    if record:
+        total["recorded"] = rec
+    return logits, caches, total
+
+
+def prefill(params, cfg: ModelConfig, tokens, *, window: int = -1):
+    """Full-sequence forward (the prefill compute): forward_train's logits.
+    The serving engine builds decode caches through decode_step or
+    prefill_chunk."""
+    return forward_train(params, cfg, tokens, window=window)[0]

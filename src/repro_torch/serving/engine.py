@@ -1,7 +1,9 @@
 """BuddyMoE serving engine — batched decode with an offloaded expert cache.
 
-Counterpart of ``repro/serving/engine.py`` for batch serving. Each step runs
-``transformer.decode_step`` on the device with the CURRENT residency mask
+Counterpart of ``repro/serving/engine.py`` for batch and continuous
+serving. Each step runs ``transformer.decode_step`` (or, for a chunked-
+prefill step, ``transformer.prefill_chunk``) on the device with the CURRENT
+residency mask
 (experts whose transfers have ARRIVED; in-flight prefetches are misses); the
 in-model BuddyMoE layer substitutes/flags per slot (Alg. 1). Between steps
 the host replays the step on the event-driven PCIe timeline
@@ -19,10 +21,11 @@ compute). The recorded per-slot masks come back to the host once per step
 The quant tier (``tier=``, a runtime.tiers.TieredExpertStore) is ported:
 the engine quantizes every MoE expert on the params' device, calibrates
 the fidelity, uses the tier's displaced-budget cache, and serves a miss
-the tier takes as a degraded slot. Not ported yet (they raise
+the tier takes as a degraded slot. The continuous scheduler's row hooks
+(``prefill_rows``, ``reset_rows``, ``advance_clock``, ``release_kv_row``)
+are ported for the ring KV cache. Not ported yet (they raise
 NotImplementedError): telemetry, the multi-device mesh, paged KV, the
-prefix cache, live placement, chunked prefill and the continuous
-scheduler's row hooks.
+prefix cache and live placement.
 """
 from __future__ import annotations
 
@@ -108,6 +111,7 @@ class ServeEngine:
                          ("live placement", placement is not None)):
             if on:
                 _not_ported(what)
+        self.telemetry = None          # read by serving.scheduler.summary
         self.tier = tier
         if tier is not None:
             if policy.quant_tier == "off":
@@ -213,13 +217,24 @@ class ServeEngine:
             self.cfg, batch, seq_len,
             window=0 if self.window < 0 else self.window, device=self.device)
 
+    def advance_clock(self, to_time: float) -> None:
+        """Advance the simulated clock (the host PCIe link's timeline) to
+        ``to_time``: the serving schedulers' idle time between steps. The
+        reference also advances its mesh's links; at one device this is
+        exactly ``scheduler.advance``."""
+        self.scheduler.advance(to_time)
+
     # ------------------------------------------------------------------
     def step(self, token, caches, pos, active: Optional[np.ndarray] = None):
         """One decode step for the whole batch. token [B] int tensor on the
-        engine's device; pos an int (lockstep batch) or a [B] tensor.
-        ``active`` is a bool [B] slot mask: inactive rows still flow through
-        the step but are excluded from all expert-usage, transfer and
-        throughput accounting. Returns (logits [B, V], caches)."""
+        engine's device; pos an int (lockstep batch) or [B] per-row
+        positions (a tensor, or the scheduler's numpy array, which goes to
+        the device here). ``active`` is a bool [B] slot mask: inactive rows
+        still flow through the step but are excluded from all expert-usage,
+        transfer and throughput accounting. Returns (logits [B, V],
+        caches)."""
+        if isinstance(pos, np.ndarray) and pos.ndim == 1:
+            pos = torch.from_numpy(pos.astype(np.int64)).to(self.device)
         logits, caches, aux = transformer.decode_step(
             self.params, self.cfg, token, caches, pos, policy=self.policy,
             buddies=self._buddy_state(), window=self.window, record=True)
@@ -227,6 +242,68 @@ class ServeEngine:
             active = np.ones(int(token.shape[0]), bool)
         self._account(aux, active=np.asarray(active, bool))
         return logits, caches
+
+    def prefill_rows(self, tokens, rows, caches, base_pos, tok_valid=None):
+        """Fused chunked-prefill step: up to C tokens per row in one launch
+        of the model and one replay on the timeline (instead of C decode
+        steps).
+
+        tokens [B, C] int (numpy, or a tensor); ``rows`` bool [B] marks live
+        slots (the others ride the fixed-shape step, masked out of all
+        accounting); base_pos [B] is each row's absolute position of chunk
+        token 0; tok_valid [B, C] is a PREFIX validity mask (default: every
+        token of a live row). A decode row joins as a 1-valid-token chunk,
+        so decode rows keep stepping while a neighbour slot prefills. The
+        chunk's tokens share one weight-streaming pass on the simulated
+        clock, and its expert activations feed the predictor and the cache.
+
+        Returns (logits [B, C, V], caches); row i's next-token logits sit
+        at index ``tok_valid[i].sum() - 1``. Raises ValueError when a
+        multi-token chunk would wrap the ring KV cache."""
+        if not torch.is_tensor(tokens):
+            tokens = self._tokens(tokens)
+        tokens = tokens.to(self.device)
+        b, c = tokens.shape
+        rows = np.asarray(rows, bool)
+        if tok_valid is None:
+            tok_valid = np.repeat(rows[:, None], c, axis=1)
+        tok_valid = np.asarray(tok_valid, bool) & rows[:, None]
+        base = np.asarray(base_pos, np.int64)
+        counts = tok_valid.sum(axis=1)
+        # a multi-token chunk is scattered into the ring before its queries
+        # attend, so it must not wrap it (attn_prefill_chunk); single-token
+        # rows are plain decode writes
+        cap = caches[0]["kv"]["k"].shape[2]
+        multi = counts > 1
+        if multi.any() and int((base[multi] + counts[multi]).max()) > cap:
+            raise ValueError(
+                "chunked prefill would wrap the KV ring buffer: size caches "
+                f"to the full prompt (prompt end "
+                f"{int((base[multi] + counts[multi]).max())} > capacity "
+                f"{cap})")
+        logits, caches, aux = transformer.prefill_chunk(
+            self.params, self.cfg, tokens, caches, base, tok_valid,
+            policy=self.policy, buddies=self._buddy_state(),
+            window=self.window, record=True)
+        self._account(aux, active=tok_valid.reshape(-1))
+        return logits, caches
+
+    def reset_rows(self, caches, rows):
+        """Zero the ring KV caches of ``rows`` (batch indices), in place, so
+        that a freed slot can take a newly admitted request. Attention
+        stacks only: their cache leaves are [L, B, ...]."""
+        transformer.require_attention_stack(self.cfg, "reset_rows")
+        idx = torch.as_tensor(np.atleast_1d(rows), dtype=torch.int64) \
+            .to(self.device)
+        for g in caches:
+            for a in g["kv"].values():
+                a[:, idx] = 0
+        return caches
+
+    def release_kv_row(self, row: int) -> None:
+        """The scheduler's preemption and retirement hook: returns a row's
+        KV pages to the pool in the reference's paged mode. A no-op on the
+        ring, whose slots are zeroed on re-admission."""
 
     # -- per-layer step timeline ---------------------------------------
     def _account(self, aux, active: np.ndarray) -> None:

@@ -6,6 +6,8 @@ file imports no JAX, so that it runs where only PyTorch is installed:
     PYTHONPATH=src python -m pytest --noconftest -p no:cacheprovider \
         -m cuda tests/test_torch_cuda.py
 """
+from pathlib import Path
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -608,3 +610,108 @@ def test_rwkv_loss_and_grads_on_card_match_cpu(dev):
     assert abs(float(lg) - float(lc)) <= 1e-5 * abs(float(lc))
     for a, b in zip(tree_leaves(gc), tree_leaves(gg)):
         assert float((b.cpu() - a).abs().max()) <= 1e-4 * float(a.abs().max())
+
+
+# ---------------------------------------------------------------------------
+# Chunked prefill and the continuous scheduler, card against CPU, on the
+# committed profiling fixture (2 layers, d_model 128, 64 experts, top-6)
+# ---------------------------------------------------------------------------
+FIXTURE = Path(__file__).resolve().parents[1] / "results" / "bench"
+
+
+def _fixture(device):
+    from repro_torch.checkpoint.io import load_npz
+    from repro_torch.configs.deepseek_v2_lite_buddy import profiling
+    from repro_torch.core.buddies import load_tables
+    return (profiling(), load_npz(str(FIXTURE / "model.npz"), device),
+            load_tables(str(FIXTURE / "tables_a0.95_k16.npz")))
+
+
+@pytest.mark.parametrize("b,c,fused,tier", [(4, 5, True, False),
+                                            (4, 5, False, True),
+                                            (4, 80, True, True)])
+def test_prefill_chunk_on_card_matches_cpu(dev, b, c, fused, tier):
+    """Two chunk steps of mixed rows (a prefill, a decode row, a partial
+    prefix, an inactive row): logits, caches and every per-slot mask. At
+    4 x 80 = 320 tokens route runs its two-launch form."""
+    import numpy as np
+    from repro_torch.models import transformer as T
+    from repro_torch.models.common import tree_leaves
+    pol = BuddyPolicy(tau=0.1, beta=1.1, rho=3, use_fused_dispatch=fused,
+                      quant_tier="int8" if tier else "off")
+    rng = np.random.default_rng(c)
+    counts = np.array([c, 1, c // 2, 0])
+    valid = np.arange(c)[None, :] < counts[:, None]
+    base = np.array([0, c + 3, 2, 1])
+    runs = []
+    for d in ("cpu", dev):
+        cfg, params, tables = _fixture(d)
+        if tier:
+            params, _ = quantize.attach_quant_tier(cfg, params, 8)
+        n, e = cfg.num_layers, cfg.moe.num_experts
+        caches = T.init_caches(cfg, b, 2 * c + 4, device=d)
+        r = np.random.default_rng(1)
+        out = []
+        pos = base.copy()
+        for _ in range(2):
+            toks = torch.from_numpy(r.integers(0, cfg.vocab_size, (b, c)))
+            bud = M.BuddyState(
+                torch.from_numpy(r.random((n, e)) < 0.5).to(d),
+                torch.from_numpy(tables.table).to(d),
+                torch.from_numpy(tables.q).to(d),
+                torch.zeros(n, e, dtype=torch.int32, device=d),
+                quant_ok=(torch.from_numpy(r.random((n, e)) < 0.6).to(d)
+                          if tier else None))
+            before = ops.launch_counts()
+            logits, caches, aux = T.prefill_chunk(
+                params, cfg, toks.to(d), caches, pos, valid, policy=pol,
+                buddies=bud, record=True)
+            after = ops.launch_counts()
+            out.append((logits.cpu(), aux["recorded"][0], after, before))
+            pos = pos + counts
+        runs.append((out, [a.cpu() for a in tree_leaves(caches)]))
+    (cpu, ccache), (card, gcache) = runs
+    assert route_plan(b * c, 6).launches == (2 if b * c > 256 else 1)
+    for (cl, cr, _, _), (gl, gr, after, before) in zip(cpu, card):
+        assert after["route"] - before["route"] == 2          # per layer
+        assert after["topk_gate"] == before["topk_gate"]
+        assert after["buddy_substitute"] == before["buddy_substitute"]
+        torch.testing.assert_close(gl[valid], cl[valid], rtol=1e-3,
+                                   atol=1e-3)
+        for k in ("indices", "substituted", "missed", "degraded"):
+            assert torch.equal(gr[k].cpu(), cr[k]), k
+    for g, w in zip(gcache, ccache):
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)
+
+
+def test_continuous_scheduler_on_card_matches_cpu(dev):
+    """Chunked continuous serving of the fixture (cache-rate 0.5, buddy
+    policy, fused dispatch): the same tokens per request and the same
+    counters on the card as on the CPU."""
+    import numpy as np
+    from repro_torch.runtime.cache import ExpertCache
+    from repro_torch.runtime.prefetch import PrevStepPredictor
+    from repro_torch.serving import scheduler as S
+    from repro_torch.serving.engine import ServeEngine
+    from repro_torch.training.data import MarkovLM
+    out = []
+    for d in ("cpu", dev):
+        cfg, params, tables = _fixture(d)
+        n, e = cfg.num_layers, cfg.moe.num_experts
+        cache = ExpertCache(n, e, 0.5)
+        eng = ServeEngine(cfg, params, tables=tables,
+                          policy=BuddyPolicy(use_fused_dispatch=True),
+                          cache=cache, predictor=PrevStepPredictor(n, e),
+                          prefetch_k=cache.capacity // 2)
+        lm, rng = MarkovLM(cfg.vocab_size, seed=1), np.random.default_rng(1)
+        reqs = S.make_requests(
+            [lm.sample(1, int(rng.integers(4, 12)))[0] for _ in range(6)],
+            S.PoissonArrivals(3000.0, seed=2), 5)
+        s = S.ContinuousScheduler(eng, slots=3, prefill_chunk=8).run(
+            S.RequestQueue(reqs))
+        out.append(({r.rid: r.tokens for r in reqs}, s))
+    (ctok, cs), (gtok, gs) = out
+    assert gs["completed"] == 6 and gtok == ctok
+    assert gs["steps"] == cs["steps"]
+    assert gs["engine"]["stats"] == cs["engine"]["stats"]
+    assert gs["engine"]["ledger"] == cs["engine"]["ledger"]

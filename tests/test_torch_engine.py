@@ -4,7 +4,9 @@ PrevStepPredictor, batch 4, 8 prompt + 8 greedy new tokens): the same tokens
 and the same counters on the simulated clock; float clock values allclose
 (rtol 1e-9: the host-side timeline replays the same decisions). Also the
 serve launcher's batch mode and its refusals. The quant tier's engine
-tests are in tests/test_torch_tier_engine.py."""
+tests are in tests/test_torch_tier_engine.py; chunked prefill and the
+continuous scheduler's in tests/test_torch_prefill.py and
+tests/test_torch_scheduler.py."""
 import math
 from pathlib import Path
 
@@ -124,13 +126,11 @@ def test_unported_subsystems_raise(kw):
         ServeEngine(profiling(), params, **kw)
 
 
-@pytest.mark.parametrize("flag", [["--mode", "continuous"],
-                                  ["--n-devices", "2"], ["--paged-kv"],
+@pytest.mark.parametrize("flag", [["--n-devices", "2"], ["--paged-kv"],
                                   ["--prefix-cache"],
                                   ["--placement", "live"],
                                   ["--telemetry", "on"],
-                                  ["--trace-out", "t.json"],
-                                  ["--trace", "t.jsonl"]])
+                                  ["--trace-out", "t.json"]])
 def test_serve_refuses_unported_flags(flag, capsys):
     with pytest.raises(SystemExit):
         serve.parse_args(flag)
@@ -155,3 +155,46 @@ def test_serve_batch_mode_on_cpu(capsys):
     s = json.loads(summary)
     assert s["stats"]["steps"] == 9 and s["stats"]["tokens"] == 18
     assert s["policy"]["use_fused_dispatch"] is True
+
+
+@pytest.mark.parametrize("chunk", [1, 4])
+def test_serve_continuous_on_cpu(chunk, capsys):
+    """--mode continuous at the auto arrival rate (an unloaded probe batch,
+    then reset_runtime): every request completes with --steps tokens, the
+    printed summary is the returned one, and chunk 4 ingests the 4-8 token
+    prompts in fewer steps."""
+    import json
+    s = serve.main(["--reduced", "--device", "cpu", "--layers", "1",
+                    "--mode", "continuous", "--num-requests", "5",
+                    "--slots", "2", "--steps", "3", "--fused-dispatch",
+                    "--prefill-chunk", str(chunk)])
+    out = capsys.readouterr().out
+    assert "[serve] auto arrival rate" in out
+    printed = out[out.index("\n{") + 1:out.index("\ncompleted ")]
+    assert json.loads(printed) == json.loads(json.dumps(s, default=str))
+    assert s["mode"] == "continuous" and s["slots"] == 2
+    assert s["completed"] == s["num_requests"] == 5
+    prompt_tokens = s["engine"]["stats"]["tokens"] - 5 * (3 - 1)
+    assert 5 * 4 <= prompt_tokens <= 5 * 8
+    assert s["steps"] < prompt_tokens if chunk == 4 else \
+        s["steps"] >= prompt_tokens / 2
+
+
+def test_serve_trace_replay_on_cpu(tmp_path, capsys):
+    """--trace replays arrivals and per-request token budgets; it needs
+    --mode continuous."""
+    trace = tmp_path / "t.jsonl"
+    trace.write_text("".join(
+        '{"t_arrival": %g, "prompt_len": %d, "max_new_tokens": %d}\n'
+        % (i * 1e-4, 3 + i, 2 + i) for i in range(3)))
+    with pytest.raises(SystemExit):
+        serve.parse_args(["--trace", str(trace)])
+    assert "--mode continuous" in capsys.readouterr().err
+    s = serve.main(["--reduced", "--device", "cpu", "--layers", "1",
+                    "--mode", "continuous", "--trace", str(trace),
+                    "--slots", "2", "--prefill-chunk", "2",
+                    "--adaptive-prefetch"])
+    assert "replaying 3 requests" in capsys.readouterr().out
+    assert s["completed"] == 3 and "budget" in s
+    # per-request budgets from the trace: 2 + 3 + 4 tokens
+    assert s["engine"]["stats"]["tokens"] == (3 + 4 + 5) + (2 + 3 + 4) - 3

@@ -22,7 +22,8 @@ NEW = ("repro_torch.core.quantize", "repro_torch.runtime.tiers",
        "repro_torch.kernels.quant_ffn", "repro_torch.kernels.wkv_chunk",
        "repro_torch.models.rwkv", "repro_torch.configs.rwkv6_1p6b",
        "repro_torch.training.optimizer", "repro_torch.training.train_loop",
-       "repro_torch.launch.train")
+       "repro_torch.launch.train", "repro_torch.serving.scheduler",
+       "repro_torch.serving.requests")
 names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                 "repro_torch.")]
 for n in names:

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Where a decode step of the PyTorch/CUDA port spends its time on the card.
+"""Where a decode step (or a chunked-prefill step) of the PyTorch/CUDA port
+spends its time on the card.
 
     PYTHONPATH=src python tools/profile_torch_decode.py [--layers 8] [--steps 6] \
-        [--quant-tier int8]
+        [--quant-tier int8] [--prefill-chunk 128]
 
 Builds the same engine as chip_smoke.py's serve phase (deepseek-v2-lite-buddy
 at full width, cut to --layers layers, random weights from seed 0, buddy
@@ -13,8 +14,11 @@ clock (synchronized), the host-side timeline replay inside the engine
 With --quant-tier the engines carry the replica tier at coverage 0.5
 (chip_smoke.py's tier path: 15 full slots and 32 replicas per layer at
 full width), so degraded slots run through the grouped kernel's int8 half (fused)
-or quant_ffn (gather). Prints one JSON object per dispatch and, with --out,
-writes them to a file.
+or quant_ffn (gather). With --prefill-chunk C > 1 the timed steps are
+``ServeEngine.prefill_rows`` chunk steps of 4 rows x C prompt tokens (the
+continuous scheduler's fused step while every slot prefills), and the
+unfused dispatch is the dropless capacity branch (expert_ffn). Prints one
+JSON object per dispatch and, with --out, writes them to a file.
 Needs a CUDA device; it exits nonzero without one.
 """
 from __future__ import annotations
@@ -38,7 +42,8 @@ def _device_us(evt) -> float:
 
 
 def profile_dispatch(serve, params, layers: int, steps: int, fused: bool,
-                     tier_flags=()):
+                     tier_flags=(), chunk: int = 1):
+    import numpy as np
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -57,8 +62,8 @@ def profile_dispatch(serve, params, layers: int, steps: int, fused: bool,
         account_s[0] += time.perf_counter() - t0
 
     eng._account = timed_account
-    prompts = lm.sample(4, steps + 3)
-    caches = eng.init_caches(4, 2 * steps + 4)
+    prompts = lm.sample(4, 2 * steps * chunk + 4)
+    caches = eng.init_caches(4, 2 * steps * chunk + 4)
     tok = eng._tokens(prompts[:, 0])
     for pos in range(3):                           # warm-up
         _, caches = eng.step(tok, caches, pos)
@@ -69,16 +74,22 @@ def profile_dispatch(serve, params, layers: int, steps: int, fused: bool,
         nonlocal tok, caches
         account_s[0] = 0.0
         t0 = time.perf_counter()
-        for pos in range(first, first + steps):
-            logits, caches = eng.step(tok, caches, pos)
-            tok = eng._tokens(eng.sample_tokens(logits, True))
+        for pos in range(first, first + steps * chunk, chunk):
+            if chunk == 1:
+                logits, caches = eng.step(tok, caches, pos)
+                tok = eng._tokens(eng.sample_tokens(logits, True))
+            else:
+                logits, caches = eng.prefill_rows(
+                    prompts[:, pos:pos + chunk], np.ones(4, bool), caches,
+                    base_pos=np.full(4, pos))
+                eng.sample_tokens(logits[:, -1], True)
         torch.cuda.synchronize()
         return time.perf_counter() - t0, account_s[0]
 
     wall, acc = run(3)                             # without the profiler
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        wall_prof, _ = run(3 + steps)
+        wall_prof, _ = run(3 + steps * chunk)
     # device-side kernel and copy events only: the CPU-side aten ops that
     # launched them carry the same device time again
     rows = [(e.key, _device_us(e), e.count) for e in prof.key_averages()
@@ -86,8 +97,10 @@ def profile_dispatch(serve, params, layers: int, steps: int, fused: bool,
     busy_us = sum(r[1] for r in rows)
     rows.sort(key=lambda r: -r[1])
     return {
-        "dispatch": "fused" if fused else "gather", "layers": layers,
-        "steps": steps, "tier": " ".join(tier_flags) or "off",
+        "dispatch": "fused" if fused else ("gather" if chunk == 1
+                                           else "capacity"),
+        "layers": layers, "steps": steps, "chunk_tokens": 4 * chunk,
+        "tier": " ".join(tier_flags) or "off",
         "degraded_slots_all_steps": (eng.tier.degraded_tokens
                                      if eng.tier is not None else 0),
         "wall_ms_per_step": wall / steps * 1e3,
@@ -109,6 +122,9 @@ def main() -> int:
     ap.add_argument("--steps", type=int, default=6)
     ap.add_argument("--quant-tier", choices=["off", "int8", "int4"],
                     default="off")
+    ap.add_argument("--prefill-chunk", type=int, default=1,
+                    help="> 1: time chunk steps of 4 rows x this many "
+                         "prompt tokens instead of decode steps")
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
     tier_flags = () if args.quant_tier == "off" else (
@@ -132,7 +148,7 @@ def main() -> int:
            "results": []}
     for fused in (True, False):
         res = profile_dispatch(serve, params, args.layers, args.steps, fused,
-                               tier_flags)
+                               tier_flags, args.prefill_chunk)
         print(json.dumps(res), flush=True)
         out["results"].append(res)
     if args.out:
