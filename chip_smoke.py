@@ -7,7 +7,8 @@ Run from the root of a checkout (it imports ``src/repro_torch`` and reads the
 committed fixture under ``results/bench``). Phases, one JSON line each:
 
   device   the card's name, power limit and compute capability (must be 9.0)
-  build    nvcc builds of the seven kernels (csrc/*.cu), all at once
+  build    nvcc builds of the seven kernels (csrc/*.cu), all at once, with
+           ptxas's registers and spill bytes per compiled function
   kernels  each kernel against its plain PyTorch version on the card, at the
            shapes of the main path, with times (CUDA events) and bounds;
            the routing kernels also with their device time (torch.profiler)
@@ -19,13 +20,17 @@ committed fixture under ``results/bench``). Phases, one JSON line each:
            path it replaced (topk_gate, the distribution gate in torch ops,
            buddy_substitute, the splits) timed in the same run;
            the three FFN kernels also print the instance of the shared tile
-           that ran (vec16 or elem; the path shapes must run vec16) and the
-           achieved TB/s, and grouped_ffn a row sweep (every live group at
-           1, 3 and 8 rows); the FFN kernels also at the continuous
-           phase's chunk shapes: grouped_ffn on 32 and 512 tokens binned at
-           the dropless cap T*K (192, 3072), expert_ffn on the capacity
-           branch's [64, 4 x 48, 2048] buffer and quant_ffn on its degraded
-           slots [64, 192, 2048] with row counts; wkv_chunk also at head dim 128 (dynamic shared
+           that ran (vec16 or elem; the path shapes must run vec16), its
+           stage depth bk (64 for quant_ffn's int8-only launch, 16 for the
+           others) and the achieved TB/s, and grouped_ffn a row sweep (every
+           live group at 1, 3 and 8 rows); the FFN kernels also at the
+           continuous phase's chunk shapes: grouped_ffn on 32 and 512 tokens
+           binned at the dropless cap T*K (192, 3072), expert_ffn on the
+           capacity branch's [64, 4 x 48, 2048] buffer and quant_ffn on its
+           degraded slots [64, 192, 2048] with row counts; quant_ffn also
+           on the gather tier step's call (4 degraded slots over 3-4 live
+           experts), each case with its kernels' device time by kernel
+           (torch.profiler); wkv_chunk also at head dim 128 (dynamic shared
            memory), and its autograd backward on the card against the same
            on the CPU
   parity   the committed profiling fixture (results/bench/model.npz with
@@ -149,10 +154,11 @@ def _self_device_us(evt) -> float:
     return 0.0
 
 
-def device_us(fn, n: int = 10) -> dict:
+def device_us(fn, n: int = 10, by_op: bool = False) -> dict:
     """The device's own time per call of ``fn`` and the device ops (kernels
     and copies) per call, from torch.profiler over ``n`` back-to-back
-    calls: what the card spends apart from waiting for the host. Two spin
+    calls: what the card spends apart from waiting for the host (with
+    ``by_op``, also per device op, by its name). Two spin
     kernels (torch.cuda._sleep) open and close the window and are left out:
     the profiler can drop a window's first or last device event. A window
     with no device event (seen once) is taken again, up to three times;
@@ -174,8 +180,12 @@ def device_us(fn, n: int = 10) -> dict:
                 if e.device_type == DeviceType.CUDA
                 and _self_device_us(e) > 0 and "spin" not in e.key.lower()]
         if evts:
-            return {"device_us": sum(_self_device_us(e) for e in evts) / n,
-                    "device_ops_per_call": sum(e.count for e in evts) / n}
+            out = {"device_us": sum(_self_device_us(e) for e in evts) / n,
+                   "device_ops_per_call": sum(e.count for e in evts) / n}
+            if by_op:
+                out["device_us_by_op"] = {e.key[:60]: _self_device_us(e) / n
+                                          for e in evts}
+            return out
     return {"device_us": None, "device_ops_per_call": None}
 
 
@@ -190,17 +200,17 @@ def ffn_rate(moved: float, ms: float, b_ms: float) -> dict:
             "share_of_bound": b_ms / ms}
 
 
-def ffn_instance(x, groups: int, f_n: int, tensors, fp=True,
-                 int8=False) -> str:
-    """The shared FFN tile's instance a call on these operands runs; the
-    path shapes must run the 16-byte-copy one."""
+def ffn_plan(x, groups: int, f_n: int, tensors, fp=True,
+             int8=False) -> dict:
+    """The shared FFN tile's instance and stage depth a call on these
+    operands runs; the path shapes must run the 16-byte-copy instance."""
     from repro_torch.kernels.expert_ffn import launch_plan
     _, c_n, d_n = x.shape
     plan = launch_plan(x.element_size(), groups, c_n, d_n, f_n, fp=fp,
                        int8=int8, ptrs=[t.data_ptr() for t in tensors])
     require(plan["instance"] == "vec16",
             f"FFN path shape {tuple(x.shape)} x {f_n} ran {plan}")
-    return plan["instance"]
+    return {"instance": plan["instance"], "bk": plan["bk"]}
 
 
 def max_err(a, b) -> float:
@@ -226,12 +236,37 @@ def phase_device():
     return smi
 
 
+def _ptxas_functions(log: str) -> dict:
+    """ptxas -v's registers and spill bytes per compiled function, under a
+    short name: the FFN tile's instances as kernel/type/load width/stage
+    depth (the int8-only launch's instances are quant_ffn's)."""
+    import re
+    out, name = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            name = m.group(1)
+            f = re.search(r"ffn\d+(gate_up|down)_kernelI(f|13__nv_bfloat16)"
+                          r"Li(\d+)ELb([01])E", name)
+            if f:
+                name = "/".join((f.group(1), "f32" if f.group(2) == "f"
+                                 else "bf16", "vec16" if f.group(4) == "1"
+                                 else "elem", f"classes{f.group(3)}"))
+            out[name] = {}
+        elif name and "spill stores" in ln:
+            st, ld = re.findall(r"(\d+) bytes spill (?:stores|loads)", ln)
+            out[name]["spill_bytes"] = int(st) + int(ld)
+        elif name and "Used" in ln:
+            out[name]["registers"] = int(re.search(r"Used (\d+) registers",
+                                                   ln).group(1))
+    return out
+
+
 def phase_build():
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
     info = _build.build_all()
-    ptxas = {n: [ln.split("info    : ")[-1] for ln in v["log"].splitlines()
-                 if "Used" in ln or "spill" in ln] for n, v in info.items()}
+    ptxas = {n: _ptxas_functions(v["log"]) for n, v in info.items()}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "ptxas": ptxas})
 
@@ -371,7 +406,7 @@ def kernel_expert_ffn(dev, gen):
         b_ms, b_by = bound(moved, flops)
         rows[name] = {"shape": list(x.shape) + [f_n], "max_abs_err": err,
                       "max_abs_plain": float(want.abs().max()),
-                      "instance": ffn_instance(x, e_n, f_n, (x, w1, w3, w2)),
+                      **ffn_plan(x, e_n, f_n, (x, w1, w3, w2)),
                       "ms": time_ms(lambda: expert_ffn_cuda(x, w1, w3, w2)),
                       "plain_ms": time_ms(lambda: expert_ffn_plain(x, w1, w3,
                                                                    w2)),
@@ -396,13 +431,16 @@ def kernel_quant_ffn(dev, gen):
     quant = _replicas(*_ffn_weights(gen, e_n, d_n, f_n, dev, torch.float32))
     x_tok = torch.randn(t_n, d_n, generator=gen)
     rows = {}
-    # "chunk": the capacity branch of a continuous chunk step (run (b)):
-    # 4 slots x 8 tokens, half of the 192 routed slots degraded, binned by
-    # expert into [E, T*K, D] with counts
+    # "path": the gather tier step's call (4 degraded slots over 3-4 live
+    # experts); "chunk": the capacity branch of a continuous chunk step (run
+    # (b)): 4 slots x 8 tokens, half of the 192 routed slots degraded,
+    # binned by expert into [E, T*K, D] with counts
     x_chunk = torch.randn(32, d_n, generator=gen)
     for name, c_n in (("decode", t_n * k_n), ("full", 32),
-                      ("chunk", 32 * k_n)):
-        if name != "full":
+                      ("chunk", 32 * k_n), ("path", t_n * k_n)):
+        if name == "path":
+            buf, counts = _degraded_path(gen, x_tok, e_n, k_n, dev)
+        elif name != "full":
             # the degraded slots binned by expert, as _degraded_outputs does
             buf, counts = _binned(gen, x_tok if name == "decode" else x_chunk,
                                   e_n, k_n, c_n,
@@ -428,17 +466,21 @@ def kernel_quant_ffn(dev, gen):
         rows[name] = {"max_abs_err": err,
                       "max_abs_plain": float(want.abs().max()),
                       "live_experts": n_live, "filled_rows": filled,
-                      "instance": ffn_instance(buf, e_n, f_n,
-                                               (buf, *quant[::2]), fp=False,
-                                               int8=True),
+                      **ffn_plan(buf, e_n, f_n, (buf, *quant[::2]),
+                                 fp=False, int8=True),
+                      # 10 calls back to back: one call's events time the
+                      # wrapper's host work, longer than the kernels' here
                       "ms": time_ms(lambda: quant_ffn_cuda(buf, *quant,
-                                                           counts)),
+                                                           counts), inner=10),
                       "plain_ms": time_ms(lambda: quant_ffn_plain(
                           buf, *quant, counts)),
-                      "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
+                      "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+                      **device_us(lambda: quant_ffn_cuda(buf, *quant, counts),
+                                  by_op=True)}
         rows[name].update(ffn_rate(moved, rows[name]["ms"], b_ms))
-    # bf16 activations and ragged shapes: correctness only
-    for (e, c, d, f) in ((3, 37, 200, 136), (2, 1, 40, 24)):
+    # bf16 activations and ragged shapes (up to 63 zero-filled rows of a
+    # 64-deep stage): correctness only
+    for (e, c, d, f) in ((3, 37, 200, 136), (2, 1, 40, 24), (5, 70, 64, 33)):
         qs = _replicas(*_ffn_weights(gen, e, d, f, dev, torch.float32))
         for dt, tol in ((torch.float32, TOL_F32), (torch.bfloat16, 5e-2)):
             xs = torch.randn(e, c, d, generator=gen).to(dt).to(dev)
@@ -455,6 +497,26 @@ def _replicas(w1, w3, w2):
     from repro_torch.core.quantize import quantize_expert_ffn
     from repro_torch.kernels.quant_ffn import quant_operands
     return quant_operands(quantize_expert_ffn(w1, w3, w2, 8))
+
+
+def _degraded_path(gen, x_tok, e_n, k_n, dev):
+    """A decode step's 4 degraded slots over 3 or 4 distinct experts,
+    binned by true expert into [E, T*K, D] with counts by the gather
+    branch's own binning (models/moe.py _degraded_outputs)."""
+    import torch
+    from repro_torch.models.moe import _bin, _bin_slots
+    t_n, d_n = x_tok.shape
+    n = t_n * k_n
+    s = _route_slots(gen, t_n, e_n, k_n, "cpu").reshape(-1).long()
+    while True:
+        deg = torch.zeros(n, dtype=torch.bool)
+        deg[torch.randperm(n, generator=gen)[:4]] = True
+        if s[deg].unique().numel() >= 3:
+            break
+    grp = torch.where(deg, s, e_n).to(dev)
+    flat, _, counts, _ = _bin_slots(grp, e_n, n)
+    xr = x_tok.to(dev).repeat_interleave(k_n, 0)
+    return _bin(xr, flat, e_n * n).view(e_n, n, d_n), counts
 
 
 def _binned(gen, x_tok, e_n, k_n, c_n, deg_frac, dev):
@@ -515,8 +577,8 @@ def kernel_grouped_ffn(dev, gen):
                       "max_abs_err": err,
                       "max_abs_plain": float(want.abs().max()),
                       "live_fp": n_fp, "live_deg": n_deg,
-                      "instance": ffn_instance(buf, 2 * e_n, f_n, copied,
-                                               int8=quant is not None),
+                      **ffn_plan(buf, 2 * e_n, f_n, copied,
+                                 int8=quant is not None),
                       "ms": time_ms(lambda: grouped_ffn_cuda(
                           buf, w1, w3, w2, quant, counts), reps),
                       "plain_ms": time_ms(lambda: grouped_ffn_plain(

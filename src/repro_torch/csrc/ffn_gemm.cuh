@@ -10,7 +10,8 @@
 // the degraded class at expert e = g - E: int8 weights, everything in f32,
 // per-output-channel scales applied after each matmul. The scratch h is f32
 // for both classes (a full-precision value is stored already rounded to T).
-// quant_ffn.cu launches with E = 0, so every group is the degraded class.
+// quant_ffn.cu launches with E = 0, so every group is the degraded class,
+// and compiles the int8-only instances, whose stages are four times deeper.
 //
 // What bounds it on the H100: each weight element is read once per 32-row
 // tile and used by the tile's filled rows only. At decode (1-3 rows per
@@ -18,17 +19,31 @@
 // of 67 TFLOP/s to 3.35 TB/s, so the live groups' weight bytes bound it; at
 // 32 full rows (the capacity dispatch) the byte bound (0.67 ms) and the f32
 // FMA bound (0.53 ms) are close, so loads and FMAs must run at once, each
-// near its peak. No tensor cores: every output is one f32 FMA chain over k
-// in increasing order (no split over depth, no TF32), which keeps f32
-// parity with the reference.
+// near its peak. int8 weights carry the same FMAs in a quarter of the
+// bytes: at decode their bytes still bound the int8-only launch; at 32
+// full rows its FMAs do (0.53 ms against 0.17 ms of bytes). No tensor
+// cores: every output is one f32 FMA chain over k in increasing order (no
+// split over depth, no TF32), which keeps f32 parity with the reference.
 //
 // The design:
-//  - A ring of STAGES shared-memory stages, each one BK-deep slice of the
+//  - A ring of STAGES shared-memory stages, each one slice of the
 //    activation rows and of the block's BN weight columns, filled with
 //    cp.async: the slices kt+1 .. kt+3 stay in flight while slice kt's FMAs
 //    run, so the weight stream never waits on the FMAs (one barrier per
-//    slice). A gate/up block of f32 weights keeps 48 KB in flight, and three
-//    such blocks fit on an SM (72 KB of dynamic shared memory each).
+//    slice). A launch with a full-precision class stages BK = 16 deep: a
+//    gate/up block of f32 weights keeps 48 KB in flight, and three such
+//    blocks fit on an SM (72 KB of dynamic shared memory each). The
+//    int8-only launch (quant_ffn) stages BK_Q = 64 deep, so an int8 stage
+//    carries the weight bytes of an f32 one (2 x 64 x 128 B) with a quarter
+//    of the slices and barriers (gate/up 32 at D = 2048, down 22 at F =
+//    1408); two of its gate/up blocks fit on an SM (96 KB with f32
+//    activations). A mixed launch (grouped_ffn) keeps BK: its int8 groups
+//    share one dynamic shared-memory size with its f32 groups. The FMAs of
+//    a stage run in BK-deep sub-slices, the same unrolled body at either
+//    depth, so the depth changes no FMA order and no output bit. On the
+//    H100 (tools/time_ffn.py) depth 64 took 17% off the decode shape's
+//    device time but left the 3-4-live-expert call where it was: what
+//    holds that call back is its few live blocks (see quant_ffn.cu).
 //  - FMA work sized to the filled rows. A block reads counts[g] once and
 //    branches, uniformly over the block, into the instance whose row
 //    sub-tile RM (1, 2, 4, 8, 16 or 32) covers them. Up to 8 rows every
@@ -45,8 +60,9 @@
 //    instance copies single elements (4-byte cp.async for f32, plain loads
 //    for bf16 and int8), for any row length. Both need 16-byte-aligned base
 //    pointers. The Python side (kernels/expert_ffn.launch_plan) picks the
-//    instance and the dynamic shared-memory bytes; launch() checks the
-//    bytes against its own layout and refuses a mismatch.
+//    instance, the stage depth and the dynamic shared-memory bytes;
+//    launch() checks the bytes against its own layout and refuses a
+//    mismatch.
 //  - Empty groups, and row tiles past a group's count, return at once
 //    (uniform over the block): they cost a block launch and no weight bytes.
 #pragma once
@@ -61,7 +77,8 @@ namespace ffn {
 
 constexpr int BM = 32;        // rows of a block's tile
 constexpr int BN = 128;       // columns of a block's tile
-constexpr int BK = 16;        // depth of one stage
+constexpr int BK = 16;        // depth of a stage with a full-precision class
+constexpr int BK_Q = 64;      // depth of a stage of the int8-only launch
 constexpr int STAGES = 4;     // ring depth: 3 slices in flight during FMAs
 constexpr int THREADS = 128;
 constexpr int MIN_BLOCKS = 3; // per SM: caps registers at 170
@@ -69,12 +86,18 @@ constexpr int MIN_BLOCKS = 3; // per SM: caps registers at 170
 constexpr int CLASS_FP = 1;   // full-precision groups [0, E)
 constexpr int CLASS_Q = 2;    // int8 groups [E, G)
 
-// Dynamic shared memory of one launch (must equal launch_plan's).
-__host__ __device__ constexpr int gate_up_stage_bytes(int t_size, int w_size) {
-  return BM * BK * t_size + 2 * BK * BN * w_size;
+// The stage depth of a launch serving CLASSES (see the design note).
+template <int CLASSES>
+__host__ __device__ constexpr int stage_depth() {
+  return CLASSES == CLASS_Q ? BK_Q : BK;
 }
-__host__ __device__ constexpr int down_stage_bytes(int w_size) {
-  return BM * BK * 4 + BK * BN * w_size;
+
+// Dynamic shared memory of one launch (must equal launch_plan's).
+__host__ __device__ constexpr int gate_up_stage_bytes(int t_size, int w_size, int sk) {
+  return BM * sk * t_size + 2 * sk * BN * w_size;
+}
+__host__ __device__ constexpr int down_stage_bytes(int w_size, int sk) {
+  return BM * sk * 4 + sk * BN * w_size;
 }
 
 __device__ __forceinline__ float round_to(float v, const float*) { return v; }
@@ -201,26 +224,28 @@ struct Layout {
 
 // NMAT weight matrices [depth, cols] against one activation slab [rows,
 // depth]: acc[q][i][j] = sum_k a[m0 + row_i, k] * w_q[k, n0 + col_j], one FMA
-// chain per output in increasing k, through the cp.async ring.
-template <typename A, typename W, int NMAT, int RM, bool VEC16>
+// chain per output in increasing k, through the cp.async ring of SK-deep
+// stages.
+template <typename A, typename W, int NMAT, int RM, bool VEC16, int SK>
 __device__ __forceinline__ void mma_ring(const A* __restrict__ a, const W* __restrict__ w0,
                                          const W* __restrict__ w1, int rows, int depth, int cols,
                                          int m0, int n0, unsigned char* smem, int stage_bytes,
                                          float (&acc)[NMAT][Layout<RM>::TM][Layout<RM>::TN]) {
   using L = Layout<RM>;
-  constexpr int A_BYTES = BM * BK * sizeof(A), B_BYTES = BK * BN * sizeof(W);
+  static_assert(SK % BK == 0, "a stage is whole BK-deep sub-slices");
+  constexpr int A_BYTES = BM * SK * sizeof(A), B_BYTES = SK * BN * sizeof(W);
   const int rg = threadIdx.x / L::CG, cg = threadIdx.x % L::CG;
-  const int nk = (depth + BK - 1) / BK;
+  const int nk = (depth + SK - 1) / SK;
   const A* a_tile = a + (size_t)m0 * depth;
   auto load = [&](int kt) {
     unsigned char* s = smem + (kt % STAGES) * stage_bytes;
-    const int k0 = kt * BK;
-    copy_tile<A, VEC16, RM, BK>(reinterpret_cast<A*>(s), a_tile + k0, depth, rows - m0,
+    const int k0 = kt * SK;
+    copy_tile<A, VEC16, RM, SK>(reinterpret_cast<A*>(s), a_tile + k0, depth, rows - m0,
                                 depth - k0);
-    copy_tile<W, VEC16, BK, BN>(reinterpret_cast<W*>(s + A_BYTES), w0 + (size_t)k0 * cols + n0,
+    copy_tile<W, VEC16, SK, BN>(reinterpret_cast<W*>(s + A_BYTES), w0 + (size_t)k0 * cols + n0,
                                 cols, depth - k0, cols - n0);
     if constexpr (NMAT == 2)
-      copy_tile<W, VEC16, BK, BN>(reinterpret_cast<W*>(s + A_BYTES + B_BYTES),
+      copy_tile<W, VEC16, SK, BN>(reinterpret_cast<W*>(s + A_BYTES + B_BYTES),
                                   w1 + (size_t)k0 * cols + n0, cols, depth - k0, cols - n0);
   };
 #pragma unroll
@@ -234,23 +259,27 @@ __device__ __forceinline__ void mma_ring(const A* __restrict__ a, const W* __res
     if (kt + STAGES - 1 < nk) load(kt + STAGES - 1);
     commit();                    // (possibly empty) keeps the group count uniform
     const unsigned char* s = smem + (kt % STAGES) * stage_bytes;
-    const A* as = reinterpret_cast<const A*>(s) + (rg * L::TM) * BK;
+    const A* as = reinterpret_cast<const A*>(s) + (rg * L::TM) * SK;
     const W* bs = reinterpret_cast<const W*>(s + A_BYTES) + cg * L::TN;
+    // BK-deep sub-slices in increasing k, each the same unrolled body
+#pragma unroll 1
+    for (int k1 = 0; k1 < SK; k1 += BK) {
 #pragma unroll
-    for (int kk = 0; kk < BK; kk += 4) {
-      float av[L::TM][4];
+      for (int kk = k1; kk < k1 + BK; kk += 4) {
+        float av[L::TM][4];
 #pragma unroll
-      for (int i = 0; i < L::TM; ++i) lds<4>(as + i * BK + kk, av[i]);
+        for (int i = 0; i < L::TM; ++i) lds<4>(as + i * SK + kk, av[i]);
 #pragma unroll
-      for (int u = 0; u < 4; ++u) {
+        for (int u = 0; u < 4; ++u) {
 #pragma unroll
-        for (int q = 0; q < NMAT; ++q) {
-          float b[L::TN];
-          lds<L::TN>(bs + q * (B_BYTES / sizeof(W)) + (kk + u) * BN, b);
+          for (int q = 0; q < NMAT; ++q) {
+            float b[L::TN];
+            lds<L::TN>(bs + q * (B_BYTES / sizeof(W)) + (kk + u) * BN, b);
 #pragma unroll
-          for (int i = 0; i < L::TM; ++i)
+            for (int i = 0; i < L::TM; ++i)
 #pragma unroll
-            for (int j = 0; j < L::TN; ++j) acc[q][i][j] = fmaf(av[i][u], b[j], acc[q][i][j]);
+              for (int j = 0; j < L::TN; ++j) acc[q][i][j] = fmaf(av[i][u], b[j], acc[q][i][j]);
+          }
         }
       }
     }
@@ -258,7 +287,7 @@ __device__ __forceinline__ void mma_ring(const A* __restrict__ a, const W* __res
 }
 
 // One gate/up tile: x [rows, D] (T), w1/w3 [D, F] (W) -> h [rows, F] (f32).
-template <typename T, typename W, bool QUANT, int RM, bool VEC16>
+template <typename T, typename W, bool QUANT, int RM, bool VEC16, int SK>
 __device__ __forceinline__ void gate_up_tile(const T* __restrict__ x, const W* __restrict__ w1,
                                              const W* __restrict__ w3, const float* __restrict__ s1,
                                              const float* __restrict__ s3, float* __restrict__ h,
@@ -266,7 +295,7 @@ __device__ __forceinline__ void gate_up_tile(const T* __restrict__ x, const W* _
                                              unsigned char* smem, int stage_bytes) {
   using L = Layout<RM>;
   float acc[2][L::TM][L::TN] = {};
-  mma_ring<T, W, 2, RM, VEC16>(x, w1, w3, rows, D, F, m0, n0, smem, stage_bytes, acc);
+  mma_ring<T, W, 2, RM, VEC16, SK>(x, w1, w3, rows, D, F, m0, n0, smem, stage_bytes, acc);
   const int rg = threadIdx.x / L::CG, cg = threadIdx.x % L::CG;
 #pragma unroll
   for (int i = 0; i < L::TM; ++i) {
@@ -288,14 +317,14 @@ __device__ __forceinline__ void gate_up_tile(const T* __restrict__ x, const W* _
 }
 
 // One down tile: h [rows, F] (f32), w2 [F, D] (W) -> out [rows, D] (T).
-template <typename T, typename W, bool QUANT, int RM, bool VEC16>
+template <typename T, typename W, bool QUANT, int RM, bool VEC16, int SK>
 __device__ __forceinline__ void down_tile(const float* __restrict__ h, const W* __restrict__ w2,
                                           const float* __restrict__ s2, T* __restrict__ out,
                                           int rows, int F, int D, int m0, int n0,
                                           unsigned char* smem, int stage_bytes) {
   using L = Layout<RM>;
   float acc[1][L::TM][L::TN] = {};
-  mma_ring<float, W, 1, RM, VEC16>(h, w2, nullptr, rows, F, D, m0, n0, smem, stage_bytes, acc);
+  mma_ring<float, W, 1, RM, VEC16, SK>(h, w2, nullptr, rows, F, D, m0, n0, smem, stage_bytes, acc);
   const int rg = threadIdx.x / L::CG, cg = threadIdx.x % L::CG;
 #pragma unroll
   for (int i = 0; i < L::TM; ++i) {
@@ -329,6 +358,7 @@ gate_up_kernel(const T* __restrict__ x, const T* __restrict__ w1, const T* __res
                const int8_t* __restrict__ w3q, const float* __restrict__ s3,
                const int* __restrict__ counts, float* __restrict__ h, int E, int C, int D, int F,
                int stage_bytes) {
+  constexpr int SK = stage_depth<CLASSES>();
   const int g = blockIdx.z;
   const int rows = counts ? min(counts[g], C) : C;
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
@@ -341,7 +371,7 @@ gate_up_kernel(const T* __restrict__ x, const T* __restrict__ w1, const T* __res
     if constexpr ((CLASSES & CLASS_FP) != 0) {
       const size_t wo = (size_t)g * D * F;
       by_rows(live, [&](auto rm) {
-        gate_up_tile<T, T, false, decltype(rm)::value, VEC16>(
+        gate_up_tile<T, T, false, decltype(rm)::value, VEC16, SK>(
             xg, w1 + wo, w3 + wo, nullptr, nullptr, hg, rows, D, F, m0, n0, smem, stage_bytes);
       });
     }
@@ -350,7 +380,7 @@ gate_up_kernel(const T* __restrict__ x, const T* __restrict__ w1, const T* __res
       const int e = g - E;
       const size_t wo = (size_t)e * D * F;
       by_rows(live, [&](auto rm) {
-        gate_up_tile<T, int8_t, true, decltype(rm)::value, VEC16>(
+        gate_up_tile<T, int8_t, true, decltype(rm)::value, VEC16, SK>(
             xg, w1q + wo, w3q + wo, s1 + (size_t)e * F, s3 + (size_t)e * F, hg, rows, D, F, m0,
             n0, smem, stage_bytes);
       });
@@ -365,6 +395,7 @@ down_kernel(const float* __restrict__ h, const T* __restrict__ w2,
             const int8_t* __restrict__ w2q, const float* __restrict__ s2,
             const int* __restrict__ counts, T* __restrict__ out, int E, int C, int D, int F,
             int stage_bytes) {
+  constexpr int SK = stage_depth<CLASSES>();
   const int g = blockIdx.z;
   const int rows = counts ? min(counts[g], C) : C;
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
@@ -376,7 +407,7 @@ down_kernel(const float* __restrict__ h, const T* __restrict__ w2,
   if (g < E) {
     if constexpr ((CLASSES & CLASS_FP) != 0) {
       by_rows(live, [&](auto rm) {
-        down_tile<T, T, false, decltype(rm)::value, VEC16>(
+        down_tile<T, T, false, decltype(rm)::value, VEC16, SK>(
             hg, w2 + (size_t)g * F * D, nullptr, og, rows, F, D, m0, n0, smem, stage_bytes);
       });
     }
@@ -384,7 +415,7 @@ down_kernel(const float* __restrict__ h, const T* __restrict__ w2,
     if constexpr ((CLASSES & CLASS_Q) != 0) {
       const int e = g - E;
       by_rows(live, [&](auto rm) {
-        down_tile<T, int8_t, true, decltype(rm)::value, VEC16>(
+        down_tile<T, int8_t, true, decltype(rm)::value, VEC16, SK>(
             hg, w2q + (size_t)e * F * D, s2 + (size_t)e * D, og, rows, F, D, m0, n0, smem,
             stage_bytes);
       });
@@ -397,8 +428,9 @@ int launch_pair(const T* x, const T* w1, const T* w3, const T* w2, const int8_t*
                 const float* s1, const int8_t* w3q, const float* s3, const int8_t* w2q,
                 const float* s2, const int* counts, float* h, T* out, int E, int G, int C, int D,
                 int F, int smem_gate_up, int smem_down, cudaStream_t stream) {
-  constexpr int w_size = (CLASSES & CLASS_FP) ? sizeof(T) : 1;
-  constexpr int st1 = gate_up_stage_bytes(sizeof(T), w_size), st2 = down_stage_bytes(w_size);
+  constexpr int w_size = (CLASSES & CLASS_FP) ? sizeof(T) : 1, sk = stage_depth<CLASSES>();
+  constexpr int st1 = gate_up_stage_bytes(sizeof(T), w_size, sk);
+  constexpr int st2 = down_stage_bytes(w_size, sk);
   if (smem_gate_up != STAGES * st1 || smem_down != STAGES * st2)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaFuncSetAttribute(gate_up_kernel<T, CLASSES, VEC16>,

@@ -13,18 +13,26 @@
 // g is the degraded class at expert g, so the same int8 tiles (gate_up_tile
 // and down_tile with QUANT = true) serve this kernel and the degraded half
 // of grouped_ffn, and the two cannot drift. It inherits the shared tile's
-// cp.async ring and row instances; its shared-memory stages are sized for
-// int8 weights (16 bytes copy 16 weights, widened to f32 on read).
+// cp.async ring and row instances. Its stages alone are sized for int8
+// weights: BK_Q = 64 deep, so a gate/up stage carries 16 KB of weights (the
+// bytes of a 16-deep f32 stage) and a block keeps 48 KB in flight, with a
+// quarter of the slices and barriers (32 per gate/up block at D = 2048, 22
+// per down block at F = 1408). The depth changes no FMA order, so the
+// outputs equal grouped_ffn's degraded half bit for bit (that launch keeps
+// BK = 16: its f32 groups fix its shared-memory size).
 //
 // Bound on the H100: at the gather branch's decode shapes ([64, 24, 2048] x
-// 1408, a few rows in each of the ~20 live experts) each int8 weight byte
-// serves one or two rows, so the live experts' int8 weights and scales
-// bound it. A block whose rows are all past its expert's count returns
-// before reading anything, so an expert with no degraded slot reads no
-// weight bytes and a step with no degraded slot costs the empty launches.
-// What still holds it back: with 3-4 live experts (the tier path's usual
-// step) a launch has ~40 live blocks for 132 SMs, and each block's int8
-// slices are a quarter of the f32 bytes, so few bytes are in flight.
+// 1408, a few rows in each live expert) each int8 weight byte serves one or
+// two rows, so the live experts' int8 weights and scales bound it. A block
+// whose rows are all past its expert's count returns before reading
+// anything, so an expert with no degraded slot reads no weight bytes and a
+// step with no degraded slot costs the empty launches. What still holds it
+// back (H100, tools/time_ffn.py): with ~20 live experts the launch reaches
+// ~60% of its byte bound on the device, but with the tier path's usual 3-4
+// it has ~44 live gate/up blocks for 132 SMs and reaches ~20% at every
+// stage depth tried (16, 32, 64). More blocks per live expert (a narrower
+// column tile, or a persistent grid over the live (expert, column tile)
+// pairs) is the next step there.
 #include "ffn_gemm.cuh"
 
 extern "C" int quant_ffn_launch(int dtype, const void* x, const int8_t* w1q, const float* s1,

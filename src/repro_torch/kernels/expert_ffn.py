@@ -20,8 +20,9 @@ from repro_torch.kernels import _build
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 # The shared tile's constants (csrc/ffn_gemm.cuh): rows and columns of a
-# block's tile, depth of a stage, stages of the cp.async ring.
-BM, BN, BK, STAGES = 32, 128, 16, 4
+# block's tile, depth of a stage (BK_Q for the int8-only launch, BK for a
+# launch with a full-precision class), stages of the cp.async ring.
+BM, BN, BK, BK_Q, STAGES = 32, 128, 16, 64, 4
 
 
 def launch_plan(t_size: int, groups: int, c: int, d: int, f: int, *,
@@ -33,8 +34,9 @@ def launch_plan(t_size: int, groups: int, c: int, d: int, f: int, *,
     shared memory. The vec16 instance (16-byte cp.async) needs every copied
     row to be a multiple of 16 bytes; the elem instance (element copies)
     takes any row length. Both need 16-byte-aligned base pointers: anything
-    else raises ValueError. The kernel checks the shared-memory bytes
-    against its own layout."""
+    else raises ValueError. The int8-only launch stages BK_Q deep, any
+    launch with the full-precision class BK deep (``bk``). The kernel checks
+    the shared-memory bytes against its own layout."""
     bad = [hex(p) for p in ptrs if p % 16]
     if bad:
         raise ValueError(f"FFN kernels need 16-byte-aligned operands, got "
@@ -46,11 +48,12 @@ def launch_plan(t_size: int, groups: int, c: int, d: int, f: int, *,
         row_bytes += [f, d]                           # w1_q/w3_q, w2_q
     vec16 = all(r % 16 == 0 for r in row_bytes)
     w_size = t_size if fp else 1                      # stages fit either class
-    smem1 = STAGES * (BM * BK * t_size + 2 * BK * BN * w_size)
-    smem2 = STAGES * (BM * BK * 4 + BK * BN * w_size)
+    bk = BK if fp else BK_Q
+    smem1 = STAGES * (BM * bk * t_size + 2 * bk * BN * w_size)
+    smem2 = STAGES * (BM * bk * 4 + bk * BN * w_size)
     m_tiles = -(-c // BM)
     return {"instance": "vec16" if vec16 else "elem", "stages": STAGES,
-            "smem_gate_up": smem1, "smem_down": smem2,
+            "bk": bk, "smem_gate_up": smem1, "smem_down": smem2,
             "grid_gate_up": (-(-f // BN), m_tiles, groups),
             "grid_down": (-(-d // BN), m_tiles, groups)}
 

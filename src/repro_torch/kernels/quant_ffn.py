@@ -8,9 +8,13 @@ w2_q [E, F, D] int8 with scales [E, D] f32; per-output-channel scales after
 each matmul, all in f32; returns [E, C, D] in x.dtype. ``counts`` [E] int32
 (optional) is each expert's filled-row count from the binning step: rows at
 or past it are unfilled and come back zero, and an expert with none reads no
-weight bytes. Bound on the H100: the live experts' int8 weight bytes; see
-the source note in the .cu file. One call is two launches (gate/up, then
-down); ``launches`` counts calls.
+weight bytes. Bound on the H100: the live experts' int8 weight bytes. The
+launch is the shared FFN tile's int8-only instance, whose cp.async stages
+are 64 deep (``launch_plan``'s ``bk``), so each stage carries the weight
+bytes of a 16-deep f32 stage; with 3-4 live experts most SMs still have no
+block, and that, not the depth, holds it back (see the source note in the
+.cu file). One call is two launches (gate/up, then down); ``launches``
+counts calls.
 """
 from __future__ import annotations
 

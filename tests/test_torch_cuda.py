@@ -406,6 +406,34 @@ def test_quant_ffn(dev, e, c, d, f, binned, dtype):
         assert torch.all(got[empty] == 0)
 
 
+@pytest.mark.parametrize("e,c,d,f", [
+    (64, 24, 2048, 1408),        # gather-branch decode: 24 slots binned
+    (64, 192, 2048, 1408),       # a chunk step's slots (4 x 8 tokens x K)
+    (3, 37, 200, 136), (2, 1, 40, 24), (5, 70, 64, 33)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_quant_ffn_equals_grouped_ffn_degraded_half(dev, e, c, d, f, dtype):
+    """quant_ffn stages 64 deep, grouped_ffn 16 deep (its fp groups fix the
+    launch's shared memory); both run one FMA chain per output in
+    increasing k, so on the same int8 groups (the fp groups empty) their
+    outputs are equal bit for bit."""
+    assert launch_plan(dtype.itemsize, e, c, d, f, fp=False,
+                       int8=True)["bk"] == 64
+    assert launch_plan(dtype.itemsize, 2 * e, c, d, f, int8=True)["bk"] == 16
+    g = _gen(e + c + d)
+    ws = _weights(g, e, d, f, dtype, dev)
+    quant = _replicas(ws)
+    counts = torch.bincount(torch.randint(0, e, (c,), generator=g),
+                            minlength=e).to(torch.int32)
+    x = torch.randn(e, c, d, generator=g)
+    x[torch.arange(c)[None, :] >= counts[:, None]] = 0.0
+    x, counts = x.to(dtype).to(dev), counts.to(dev)
+    got = quant_ffn_cuda(x, *quant, counts)
+    both = grouped_ffn_cuda(torch.cat([torch.zeros_like(x), x]), *ws, quant,
+                            torch.cat([torch.zeros_like(counts), counts]))
+    assert torch.equal(got, both[e:])
+    assert torch.all(both[:e] == 0)
+
+
 def test_wrappers_check_their_operands(dev):
     z = torch.randn(4, 8, device=dev)
     with pytest.raises(ValueError):

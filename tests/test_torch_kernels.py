@@ -298,14 +298,52 @@ CARD_SHAPES = [(4, 1, 8, 32, 64, True, False, "vec16"),
 @pytest.mark.parametrize("shape", CARD_SHAPES)
 def test_launch_plan_ragged_shapes(shape):
     """Rows that are not a multiple of 16 bytes take the element-copy
-    instance of the same tile; the shared memory fits either way."""
+    instance of the same tile; the shared memory fits either way. The
+    int8-only launch (quant_ffn) stages 64 deep, a launch with the
+    full-precision class 16 deep."""
     t, g, c, d, f, fp, q, instance = shape
     plan = launch_plan(t, g, c, d, f, fp=fp, int8=q)
     assert plan["instance"] == instance
     w = t if fp else 1
-    assert plan["smem_gate_up"] == 4 * (32 * 16 * t + 2 * 16 * 128 * w)
-    assert plan["smem_down"] == 4 * (32 * 16 * 4 + 16 * 128 * w)
+    bk = 64 if q and not fp else 16
+    assert plan["bk"] == bk
+    assert plan["smem_gate_up"] == 4 * (32 * bk * t + 2 * bk * 128 * w)
+    assert plan["smem_down"] == 4 * (32 * bk * 4 + bk * 128 * w)
     assert max(plan["smem_gate_up"], plan["smem_down"]) <= 227 * 1024
+
+
+def _plan_16_deep(t, fp):
+    """The shared memory of a 16-deep launch, as every FFN launch had it
+    before the int8-only launch took deeper stages."""
+    w = t if fp else 1
+    return (4 * (32 * 16 * t + 2 * 16 * 128 * w),
+            4 * (32 * 16 * 4 + 16 * 128 * w))
+
+
+@pytest.mark.parametrize("shape", [s[:7] for s in PATH_SHAPES + CARD_SHAPES
+                                   if s[5]])
+def test_launch_plan_full_precision_keeps_16_deep_stages(shape):
+    """expert_ffn and grouped_ffn (with or without int8 groups): the
+    stages, shared memory and grids do not move with the int8-only
+    launch's depth."""
+    t, g, c, d, f, fp, q = shape
+    plan = launch_plan(t, g, c, d, f, fp=fp, int8=q)
+    assert plan["bk"] == 16
+    assert (plan["smem_gate_up"], plan["smem_down"]) == _plan_16_deep(t, fp)
+    assert plan["grid_gate_up"] == (-(-f // 128), -(-c // 32), g)
+    assert plan["grid_down"] == (-(-d // 128), -(-c // 32), g)
+
+
+@pytest.mark.parametrize("t,gate_up", [(4, 96 * 1024), (2, 80 * 1024)])
+def test_launch_plan_int8_only_stages_carry_f32_stage_bytes(t, gate_up):
+    """quant_ffn's 64-deep stage holds 2 x 64 x 128 int8 weights: the
+    16 KB of weights of a 16-deep f32 stage."""
+    plan = launch_plan(t, 64, 24, 2048, 1408, fp=False, int8=True)
+    f32 = launch_plan(4, 64, 24, 2048, 1408)
+    assert plan["bk"] == 64 and plan["instance"] == "vec16"
+    assert (plan["smem_gate_up"], plan["smem_down"]) == (gate_up, 64 * 1024)
+    assert plan["smem_gate_up"] - 4 * 32 * 64 * t == \
+        f32["smem_gate_up"] - 4 * 32 * 16 * 4
 
 
 @pytest.mark.parametrize("ptr", [4, 8, 12, 4096 + 2])
