@@ -30,9 +30,10 @@ committed fixture under ``results/bench``). Phases, one JSON line each:
            degraded slots [64, 192, 2048] with row counts; quant_ffn also
            on the gather tier step's call (4 degraded slots over 3-4 live
            experts), each case with its kernels' device time by kernel
-           (torch.profiler); wkv_chunk also at head dim 128 (dynamic shared
-           memory), and its autograd backward on the card against the same
-           on the CPU
+           (torch.profiler); wkv_chunk at the train shape and at head dim
+           128 (dynamic shared memory), each with its device time, ring
+           depth and a SHA-256 of its outputs' bytes, and its autograd
+           backward on the card against the same on the CPU
   parity   the committed profiling fixture (results/bench/model.npz with
            tables_a0.95_k16.npz) served on the CPU through the plain versions
            and on the card through the kernels, without and with the int8
@@ -85,6 +86,7 @@ it exits nonzero before printing a result.
 """
 from __future__ import annotations
 
+import hashlib
 import json
 import statistics
 import subprocess
@@ -252,6 +254,9 @@ def _ptxas_functions(log: str) -> dict:
                 name = "/".join((f.group(1), "f32" if f.group(2) == "f"
                                  else "bf16", "vec16" if f.group(4) == "1"
                                  else "elem", f"classes{f.group(3)}"))
+            w = re.search(r"wkv_chunk_kernelILi(\d+)ELi(\d+)ELi(\d+)E", name)
+            if w:
+                name = "wkv/C{}/D{}/stages{}".format(*w.groups())
             out[name] = {}
         elif name and "spill stores" in ln:
             st, ld = re.findall(r"(\d+) bytes spill (?:stores|loads)", ln)
@@ -612,7 +617,8 @@ def kernel_grouped_ffn(dev, gen):
 def kernel_wkv(dev, gen):
     import torch
     from repro_torch.kernels import ops
-    from repro_torch.kernels.wkv_chunk import wkv_chunk_cuda, wkv_chunk_plain
+    from repro_torch.kernels.wkv_chunk import (stages, wkv_chunk_cuda,
+                                               wkv_chunk_plain)
     from repro_torch.models.rwkv import random_chunk_operands
     rows = {}
     # the train phase's shape (B 4 x H 32 lanes, 512 tokens = 16 chunks of
@@ -631,9 +637,16 @@ def kernel_wkv(dev, gen):
         flops = bh * n * (4 * c * d * d + 2 * c * (c - 1) * d + 2 * c * d
                           + 2 * d * d)
         b_ms, b_by = bound(nbytes(*args) + nbytes(*got), flops)
-        rows[name] = {"shape": [bh, n, c, d], "max_abs_err": err,
-                      "max_abs_plain": scale - 1,
+        dev_t = device_us(lambda: wkv_chunk_cuda(*args))
+        rows[name] = {"shape": [bh, n, c, d], "stages": stages(c, d),
+                      "max_abs_err": err, "max_abs_plain": scale - 1,
+                      "sha256": hashlib.sha256(b"".join(
+                          t.cpu().numpy().tobytes() for t in got)).hexdigest(),
                       "ms": time_ms(lambda: wkv_chunk_cuda(*args), inner=10),
+                      **dev_t,
+                      # of the kernel's own time (None: not measured)
+                      "share_of_bound": dev_t["device_us"]
+                      and b_ms / dev_t["device_us"] * 1e3,
                       "plain_ms": time_ms(lambda: wkv_chunk_plain(*args)),
                       "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
     # the autograd backward (torch ops) on the card against the CPU's

@@ -9,8 +9,12 @@ across the chunks:
     S  <- exp(laE_n) (.)_rows S + k_end_n^T v_n
 
 rt, kt, v, ke [BH, N, C, D]; lae [BH, N, D]; dg [BH, N, C]; s0 [BH, D, D]
--> (o [BH, N, C, D], s_final [BH, D, D]), f32. Bound on the H100: bytes;
-see the source note in the .cu file for the design.
+-> (o [BH, N, C, D], s_final [BH, D, D]), f32. Bound on the H100: bytes.
+The kernel runs the chunk loop inside a block and stages each chunk's tiles
+through a ring of cp.async stages: with two (head dim <= 64), chunk n + 1
+loads while chunk n computes; ``stages(c, d)`` reads an instance's depth
+from the built library. The depth changes no output bit; see the source
+note in the .cu file for the design.
 
 The JAX package has no backward kernel (it differentiates its jnp scan), so
 the gradient here is the explicit chunked gradient in torch ops, the same
@@ -94,6 +98,11 @@ def _lib():
         fn.argtypes = [p] * 9 + [i] * 4 + [p]
         fn.restype = ctypes.c_int
     return lib
+
+
+def stages(c: int, d: int) -> int:
+    """The ring depth of the kernel's (C, D) instance (0: not an instance)."""
+    return _lib().wkv_chunk_stages(c, d)
 
 
 def wkv_chunk_cuda(rt, kt, v, ke, lae, dg, s0):

@@ -31,6 +31,7 @@ from repro_torch.kernels.topk_gate import (topk_gate_cuda,  # noqa: E402
                                            topk_gate_plain)
 from repro_torch.kernels.wkv_chunk import (wkv_chunk_cuda,  # noqa: E402
                                            wkv_chunk_plain)
+from repro_torch.kernels.wkv_chunk import stages as wkv_stages  # noqa: E402
 from repro_torch.models import moe as M  # noqa: E402
 from repro_torch.models import rwkv as R  # noqa: E402
 
@@ -573,10 +574,15 @@ def _wkv_close(got, want):
     assert float((got - want).abs().max()) <= 1e-4 * scale
 
 
+# the last four: the cp.async ring's edges, N = 1 (nothing to prefetch),
+# N = 2 and odd N (the stage parity at the last chunk), two stages at D = 64
+# and one at D = 128
 @pytest.mark.parametrize("b,h,n,c,d", [(4, 32, 16, 32, 64),
                                        (2, 32, 8, 32, 128),
                                        (3, 1, 4, 16, 32), (1, 2, 1, 16, 128),
-                                       (2, 3, 5, 32, 32)])
+                                       (2, 3, 5, 32, 32), (1, 4, 1, 32, 64),
+                                       (2, 3, 2, 32, 64), (1, 5, 3, 16, 64),
+                                       (1, 3, 2, 32, 128)])
 def test_wkv_chunk(dev, b, h, n, c, d):
     args = R.random_chunk_operands(_gen(b + n), b, h, n, c, d, dev)
     before = wkv_chunk_cuda.launches
@@ -585,6 +591,19 @@ def test_wkv_chunk(dev, b, h, n, c, d):
     want = wkv_chunk_plain(*args)
     for g_, w_ in zip(got, want):
         _wkv_close(g_, w_)
+
+
+def test_wkv_chunk_stage_depths(dev):
+    assert (wkv_stages(32, 64), wkv_stages(16, 32), wkv_stages(32, 128),
+            wkv_stages(24, 64)) == (2, 2, 1, 0)
+
+
+def test_wkv_chunk_is_deterministic(dev):
+    args = R.random_chunk_operands(_gen(3), 4, 32, 16, 32, 64, dev)
+    first = wkv_chunk_cuda(*args)
+    again = wkv_chunk_cuda(*args)
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
 
 
 def test_wkv_chunk_backward_on_card_matches_cpu(dev):

@@ -1,6 +1,7 @@
 """The port's chunkwise WKV (plain version and autograd Function) against the
 JAX package: ``ref_wkv_chunk`` and the Pallas kernel in interpret mode at
-the shapes ``tests/test_kernels.py`` sweeps, torch's gradcheck in float64,
+the shapes ``tests/test_kernels.py`` sweeps and at the chunk counts of the
+card tests' ring edges (N = 2 and 3), torch's gradcheck in float64,
 and the gradients against ``jax.grad`` of the reference oracle.
 
 Tolerances: rtol/atol 3e-4 for the forward, as the JAX package holds its
@@ -21,7 +22,8 @@ from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels.wkv_chunk import (wkv_chunk_cuda,  # noqa: E402
                                            wkv_chunk_plain)
 
-SHAPES = [(1, 1, 32, 64), (3, 4, 32, 64), (2, 2, 32, 128), (4, 8, 16, 32)]
+SHAPES = [(1, 1, 32, 64), (3, 4, 32, 64), (2, 2, 32, 128), (4, 8, 16, 32),
+          (2, 3, 32, 64), (1, 2, 16, 64)]
 
 
 def _inputs(bh, n, c, d, seed):
