@@ -39,7 +39,11 @@ committed fixture under ``results/bench``). Phases, one JSON line each:
            and on the card through the kernels, without and with the int8
            quant tier, and in cost mode (fused without the tier, gather
            with it): equal tokens and counters (tier and cost-policy
-           counters included), close logits
+           counters included), close logits; and paged_prefix: paged KV
+           in 8-token blocks with the prefix cache and the int8 tier,
+           session requests on a 20-token shared prefix through the
+           continuous scheduler, with equal prefix summaries (hits,
+           copy-on-write copies, evictions, tree) besides
   serve    deepseek-v2-lite-buddy at full width cut to 8 layers, random
            weights from seed 0, two paths, each in its own launch-count
            window: (1) buddy profiling, a fused-dispatch batch (4 x 8 prompt
@@ -67,6 +71,20 @@ committed fixture under ``results/bench``). Phases, one JSON line each:
            against token-by-token: each request's first-token logits agree
            within LOGIT_TOL (the count of equal generated tokens is printed,
            not required: a near tie at random weights may flip one)
+  paged    the same weights with paged KV (--paged-kv --kv-block 16), each
+           run in its own launch-count window: (a) the launcher as in
+           continuous (a): every request completes, route once per MoE
+           layer per step, the pool empty at the end, the [paged-kv] line
+           printed; (b) 8 requests on a 60-token system prompt (not a
+           multiple of the block) with 8-24 tokens of their own, with
+           --prefix-cache and without: >= 4 hits of 60 tokens, a copy-on-
+           write per hit, the pool's refcounts equal to its holders, fewer
+           chunk steps with the cache; wall ms per chunk / decode step,
+           peak memory and the pool and tree digest beside continuous
+           (a)'s ring figures; (c) (b)'s requests without substitution
+           three ways (prefix cache, paged alone, ring): every hit
+           request's first-token logits agree within LOGIT_TOL (equal
+           generated tokens printed, not required)
   train_parity  the reduced rwkv6 config, weights from seed 0 made on the
            CPU: one train step on the CPU (plain) and one on the card
            (kernel); loss, grad norm and every gradient agree
@@ -813,10 +831,14 @@ def kernel_route(dev, gen):
 
 
 # ---------------------------------------------------------------------------
-def _fixture_run(device, fused: bool, tier: bool = False, **policy):
+def _fixture_run(device, fused: bool, tier: bool = False, paged=False,
+                 **policy):
     """Serve the committed profiling fixture, with the int8 tier when asked
     for and ``policy``'s further BuddyPolicy fields; returns (tokens,
-    summary, per-step logits)."""
+    summary, per-step logits). ``paged``: paged KV in 8-token blocks with
+    the prefix cache, serving six requests on a 20-token shared prefix
+    through the continuous scheduler (2 slots, chunks of 4), so that
+    later arrivals adopt it and copy its tail block on write."""
     import numpy as np
     import torch
     from repro_torch.checkpoint.io import load_npz
@@ -846,8 +868,28 @@ def _fixture_run(device, fused: bool, tier: bool = False, **policy):
                                          **policy),
                       cache=None if tier else cache, tier=store,
                       predictor=PrevStepPredictor(n_moe, e_n),
-                      prefetch_k=max(1, cache.capacity // 2))
+                      prefetch_k=max(1, cache.capacity // 2),
+                      paged_kv=paged, kv_block=8, prefix_cache=paged)
     logits = []
+    if paged:
+        from repro_torch.serving import scheduler as S
+        rng = np.random.default_rng(13)
+        base = rng.integers(0, cfg.vocab_size, 20)
+        reqs = S.make_requests(
+            [np.concatenate([base, rng.integers(0, cfg.vocab_size, n)])
+             for n in (4, 6, 13, 5, 9, 3)],
+            S.ReplayArrivals([0.0, 0.0, 0.03, 0.035, 0.04, 0.045]), 4)
+        sample = eng.sample_tokens
+
+        def sampled(lg, *a, **kw):
+            logits.append(lg.detach().cpu())
+            return sample(lg, *a, **kw)
+
+        eng.sample_tokens = sampled
+        S.ContinuousScheduler(eng, slots=2, prefill_chunk=4).run(
+            S.RequestQueue(reqs))
+        return (np.concatenate([r.tokens for r in reqs]), eng.summary(),
+                torch.stack(logits))
     step = eng.step
 
     def logged(*a, **kw):
@@ -878,7 +920,8 @@ PARITY_CASES = (
     ("cost_fused", True, False, dict(miss_policy="cost",
                                      stall_per_quality=2e-4)),
     ("cost_gather_int8", False, True, dict(miss_policy="cost",
-                                           stall_per_quality=0.05)))
+                                           stall_per_quality=0.05)),
+    ("paged_prefix", True, True, dict(paged=True)))
 
 
 def phase_parity():
@@ -886,10 +929,14 @@ def phase_parity():
     from repro_torch.kernels import ops
     out = {"phase": "parity"}
     for tag, fused, tier, policy in PARITY_CASES:
+        policy = dict(policy)
+        paged = policy.pop("paged", False)
         before = ops.launch_counts()
-        t_cpu, s_cpu, l_cpu = _fixture_run("cpu", fused, tier, **policy)
+        t_cpu, s_cpu, l_cpu = _fixture_run("cpu", fused, tier, paged,
+                                           **policy)
         require(ops.launch_counts() == before, "CPU run launched a kernel")
-        t_gpu, s_gpu, l_gpu = _fixture_run("cuda", fused, tier, **policy)
+        t_gpu, s_gpu, l_gpu = _fixture_run("cuda", fused, tier, paged,
+                                           **policy)
         err = max_err(l_gpu, l_cpu)
         st = s_gpu["stats"]
         out[tag] = {"tokens_equal": bool(np.array_equal(t_cpu, t_gpu)),
@@ -911,6 +958,13 @@ def phase_parity():
             ok = ok and out[tag]["tier_equal"]
             require(out[tag]["degraded_tokens"] > 0,
                     f"parity ({tag}): the tier served no slot")
+        if paged:
+            px = s_gpu["prefix"]
+            out[tag]["prefix_equal"] = s_cpu["prefix"] == px
+            out[tag]["prefix"] = px
+            ok = ok and out[tag]["prefix_equal"]
+            require(px["hits"] > 0 and px["pool"]["cow_copies"] > 0,
+                    f"parity ({tag}): no prefix hit or copy-on-write")
         if policy:
             require(st["n_miss_drop"] + st["n_miss_fetch"] > 0,
                     f"parity ({tag}): no slot was dropped or fetched")
@@ -1057,6 +1111,7 @@ class StepLog:
 
     def __init__(self):
         self.steps, self.sampled = [], []
+        self.engine = None             # the engine of the last step
 
     def __enter__(self):
         from repro_torch.serving.engine import ServeEngine
@@ -1100,6 +1155,7 @@ class StepLog:
             torch.cuda.synchronize()
             ms = (time.perf_counter() - t0) * 1e3
             after = ops.launch_counts()
+            self.engine = eng
             self.steps.append({"kind": kind, "tokens": fed, "ms": ms,
                                "layers": eng.num_moe_layers,
                                "launches": {k: after[k] - before[k]
@@ -1181,9 +1237,10 @@ def _first_token_logits(eng, sched):
     return firsts
 
 
-def phase_continuous(params) -> dict:
+def phase_continuous(params):
     """Continuous serving at full width (8 layers) on the serve phase's
-    weights; see the module note. Returns the three runs' launches."""
+    weights; see the module note. Returns the three runs' launches and run
+    (a)'s figures."""
     import contextlib
     import io
     import numpy as np
@@ -1271,6 +1328,145 @@ def phase_continuous(params) -> dict:
     require(max(errs) <= LOGIT_TOL,
             f"continuous: chunked and token-by-token first-token logits "
             f"differ: {out['chunked_vs_token_by_token']}")
+    return total, out["a_launcher_fused"]
+
+
+SYSTEM_PROMPT = 60                     # tokens; not a multiple of the block
+
+
+def _shared_prefix_requests(vocab: int):
+    """Eight requests, all arriving at 0, on one 60-token system prompt,
+    each with 8-24 tokens of its own (the first of them distinct, so a hit
+    adopts exactly the system prompt) and 8 new tokens."""
+    from repro_torch.serving import scheduler as S
+    import numpy as np
+    rng = np.random.default_rng(5)
+    system = rng.integers(0, vocab, SYSTEM_PROMPT)
+    firsts = rng.choice(vocab, 8, replace=False)
+    prompts = [np.concatenate([system, [f], rng.integers(0, vocab, n - 1)])
+               for f, n in zip(firsts, rng.integers(8, 25, 8))]
+    return S.make_requests(prompts, S.ReplayArrivals([0.0] * 8), 8)
+
+
+def phase_paged(params, ring_row: dict) -> dict:
+    """Paged KV and the prefix cache at full width (8 layers) on the serve
+    phase's weights; see the module note. Returns the runs' launches."""
+    import contextlib
+    import io
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.serving import scheduler as S
+    base = ["--arch", "deepseek-v2-lite-buddy", "--layers", "8",
+            "--cache-rate", "0.5", "--policy", "buddy", "--mode",
+            "continuous", "--slots", "4", "--num-requests", "8", "--steps",
+            "8", "--prefill-chunk", "8", "--fused-dispatch"]
+    paged = ["--paged-kv", "--kv-block", "16"]
+    flags = base + paged
+    cfg = serve.model_config(serve.parse_args(flags))
+    t_phase = time.perf_counter()
+    out = {"phase": "paged", "arch": cfg.arch_id, "layers": cfg.num_layers,
+           "slots": 4, "kv_block": 16,
+           "ring_a_launcher_fused": {k: ring_row[k] for k in ring_row
+                                     if "wall_ms" in k or k.endswith("steps")
+                                     or k == "peak_mem_gb"}}
+    total = {}
+
+    def window(tag, fn, kernels):
+        """One run in its own launch-count window, under a StepLog."""
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()             # this run starts here
+        t0 = time.perf_counter()
+        with StepLog() as log:
+            s, eng, text = fn()
+        counts = ops.launch_counts()          # ... and ends here
+        for k in counts:
+            total[k] = total.get(k, 0) + counts[k]
+        out[tag] = dict(_continuous_row(log, s, counts),
+                        run_s=time.perf_counter() - t0,
+                        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+                        prefix=s["engine"]["prefix"])
+        _check_continuous(tag, log, s, counts, cfg.vocab_size, kernels)
+        return s, eng or log.engine, text
+
+    def launcher():
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            s = serve.main(flags, params=params)
+        return s, None, buf.getvalue()
+
+    def shared(extra):
+        def run():
+            args = serve.parse_args(flags + extra)
+            eng, _ = serve.build_engine(args, params=params)
+            sched = S.ContinuousScheduler(eng, slots=4, prefill_chunk=8)
+            reqs = _shared_prefix_requests(cfg.vocab_size)
+            return sched.run(S.RequestQueue(reqs)), eng, None
+        return run
+
+    # (a) the launcher with --paged-kv
+    s, eng, text = window("a_launcher_paged", launcher,
+                          ("route", "grouped_ffn"))
+    eng.kv_pool.check()
+    line = [ln for ln in text.splitlines() if ln.startswith("[paged-kv]")]
+    out["a_launcher_paged"]["launcher_line"] = line[-1] if line else None
+    require(bool(line), "paged (a): the launcher printed no [paged-kv] line")
+    require(eng.kv_pool.used_blocks == 0,
+            f"paged (a): {eng.kv_pool.used_blocks} blocks held after every "
+            "request retired")
+
+    # (b) the shared system prompt, with and without the prefix cache
+    s, eng, _ = window("b_prefix_cache", shared(["--prefix-cache"]),
+                       ("route", "grouped_ffn"))
+    px = s["engine"]["prefix"]
+    eng.kv_pool.check(eng.prefix_tree.block_holders())
+    _, eng_off, _ = window("b_paged_only", shared([]),
+                           ("route", "grouped_ffn"))
+    eng_off.kv_pool.check()
+    chunks = (out["b_prefix_cache"]["chunk_steps"],
+              out["b_paged_only"]["chunk_steps"])
+    require(px["hits"] >= 4 and px["hit_tokens"] == SYSTEM_PROMPT
+            * px["hits"] and px["pool"]["cow_copies"] >= px["hits"],
+            f"paged (b): want >= 4 hits of {SYSTEM_PROMPT} tokens, each "
+            f"with a copy-on-write, got {px}")
+    require(chunks[0] < chunks[1], f"paged (b): {chunks[0]} chunk steps "
+            f"with the prefix cache, {chunks[1]} without")
+
+    # (c) first-token logits of every hit request, substitution off, three
+    # ways: the prefix cache, paged KV alone, the ring
+    res = {}
+    for tag, extra in (("prefix", ["--prefix-cache"]), ("paged", []),
+                       ("ring", None)):
+        args = serve.parse_args(base + ["--policy", "none"] + (
+            [] if extra is None else paged + extra))
+        eng, _ = serve.build_engine(args, params=params)
+        sched = S.ContinuousScheduler(eng, slots=4, prefill_chunk=8)
+        firsts = _first_token_logits(eng, sched)
+        reqs = _shared_prefix_requests(cfg.vocab_size)
+        ops.reset_launch_counts()
+        sched.run(S.RequestQueue(reqs))
+        for k, v in ops.launch_counts().items():
+            total[k] += v
+        res[tag] = (firsts(reqs), {r.rid: r.tokens for r in reqs},
+                    [r.rid for r in reqs if r.prefix_hit_tokens > 0])
+    hit = res["prefix"][2]
+    errs = {f"{a}_vs_{b}": max(max_err(res[a][0][r], res[b][0][r])
+                               for r in hit)
+            for a, b in (("prefix", "paged"), ("prefix", "ring"),
+                         ("paged", "ring"))}
+    out["c_first_token_logits"] = {
+        "hit_requests": len(hit), "max_abs_err": errs, "tol": LOGIT_TOL,
+        "generated_tokens_equal": {
+            k: sum(int(x == y) for r in res["ring"][1]
+                   for x, y in zip(res[k][1][r], res["ring"][1][r]))
+            for k in ("prefix", "paged")},
+        "generated_tokens": sum(len(t) for t in res["ring"][1].values())}
+    out["launches"] = total
+    out["seconds"] = time.perf_counter() - t_phase
+    emit(out)
+    require(len(hit) >= 4, f"paged (c): {len(hit)} prefix hits")
+    require(max(errs.values()) <= LOGIT_TOL,
+            f"paged (c): first-token logits differ: {errs}")
     return total
 
 
@@ -1460,9 +1656,10 @@ def main() -> int:
             "route": kernel_route(dev, gen)}
     phase_parity()
     counts, params = phase_serve()
-    cont = phase_continuous(params)
+    cont, ring_row = phase_continuous(params)
+    paged = phase_paged(params, ring_row)
     del params
-    counts = {k: counts[k] + cont[k] for k in counts}
+    counts = {k: counts[k] + cont[k] + paged[k] for k in counts}
     phase_train_parity()
     counts["wkv_chunk"], params, cfg = phase_train(rows["wkv_chunk"]["ms"])
     phase_decode(params, cfg)

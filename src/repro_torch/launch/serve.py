@@ -28,10 +28,15 @@ the card by default.
     PYTHONPATH=src python -m repro_torch.launch.serve --reduced \
         --device cpu --mode continuous --trace trace.jsonl --slots 4
 
+    # paged KV in blocks of 16 tokens, with the radix prefix cache
+    PYTHONPATH=src python -m repro_torch.launch.serve --reduced \
+        --device cpu --mode continuous --paged-kv --kv-block 16 \
+        --prefix-cache --prefill-chunk 8
+
 Counterpart of ``repro/launch/serve.py`` for batch and continuous mode,
-quant tier included. Flags of the subsystems that are not ported yet (the
-mesh, paged KV and the prefix cache, live placement, telemetry and the
-trace export) stop with "not ported yet".
+quant tier, paged KV and the prefix cache included. Flags of the
+subsystems that are not ported yet (the mesh, live placement, telemetry
+and the trace export) stop with "not ported yet".
 """
 from __future__ import annotations
 
@@ -181,17 +186,29 @@ def parse_args(argv=None):
                     help="JSONL serving trace ({t_arrival, prompt_len, "
                          "max_new_tokens} rows) replayed with per-request "
                          "token budgets (--mode continuous)")
+    # -- paged KV + radix-tree prefix cache (runtime/paged_kv.py) --------
+    ap.add_argument("--paged-kv", action="store_true",
+                    help="block-pooled KV cache: rows map fixed-size blocks "
+                         "through per-row tables (ref-counted, copy-on-"
+                         "write); off = the ring layout")
+    ap.add_argument("--kv-block", type=int, default=16,
+                    help="tokens per KV block (--paged-kv)")
+    ap.add_argument("--kv-blocks", type=int, default=0,
+                    help="pool size in blocks (0: exact ring-cache "
+                         "footprint, so paged vs ring runs at equal memory)")
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="radix-tree prefix cache over the paged pool: "
+                         "retiring requests donate their block chains; "
+                         "admitted requests adopt the longest cached prefix "
+                         "and prefill only the novel suffix (requires "
+                         "--paged-kv)")
     # subsystems that are not ported yet: present so that they fail loudly
     ap.add_argument("--n-devices", type=int, default=1)
-    ap.add_argument("--paged-kv", action="store_true")
-    ap.add_argument("--prefix-cache", action="store_true")
     ap.add_argument("--placement", choices=["off", "live"], default="off")
     ap.add_argument("--telemetry", choices=["off", "on"], default="off")
     ap.add_argument("--trace-out", default=None)
     args = ap.parse_args(argv)
     for flag, on in (("--n-devices > 1", args.n_devices != 1),
-                     ("--paged-kv", args.paged_kv),
-                     ("--prefix-cache", args.prefix_cache),
                      ("--placement live", args.placement != "off"),
                      ("--telemetry", args.telemetry != "off"),
                      ("--trace-out", args.trace_out is not None)):
@@ -207,6 +224,11 @@ def parse_args(argv=None):
         ap.error("--layers must be >= 0")
     if not 0.0 < args.tier_coverage <= 1.0:
         ap.error("--tier-coverage must be in (0, 1]")
+    if args.prefix_cache and not args.paged_kv:
+        ap.error("--prefix-cache shares KV at block granularity: it "
+                 "requires --paged-kv")
+    if args.kv_block < 1 or args.kv_blocks < 0:
+        ap.error("--kv-block must be >= 1 and --kv-blocks >= 0")
     return args
 
 
@@ -263,7 +285,10 @@ def build_engine(args, params=None):
                       predictor=predictor, prefetch_k=prefetch_k,
                       lookahead=args.lookahead,
                       prefetch_min_saving=(None if args.prefetch_min_saving
-                                           < 0 else args.prefetch_min_saving))
+                                           < 0 else args.prefetch_min_saving),
+                      paged_kv=args.paged_kv, kv_block=args.kv_block,
+                      kv_blocks=args.kv_blocks or None,
+                      prefix_cache=args.prefix_cache)
     return eng, lm
 
 
@@ -331,6 +356,7 @@ def main(argv=None, params=None) -> dict:
               f"{s['ttft_s']['p99']*1e3:.2f}ms  "
               f"goodput {s['goodput_rps']:.1f} req/s  "
               f"SLO-met {s['slo_met_frac']*100:.0f}%")
+        report_prefix(s["engine"])
         return s
     out = eng.generate(lm.sample(args.batch, 8), max_new_tokens=args.steps)
     s = eng.summary()
@@ -346,7 +372,26 @@ def main(argv=None, params=None) -> dict:
               f"{t['tier_budget_split']['cache_slots_per_layer']} full "
               f"slots/layer left")
     print("sample output tokens:", out[0, -16:].tolist())
+    report_prefix(s)
     return s
+
+
+def report_prefix(s: dict) -> None:
+    """The pool / copy-on-write / tree digest of a paged-KV engine summary
+    (nothing on the ring)."""
+    if "prefix" not in s:
+        return
+    px = s["prefix"]
+    occ = px["pool"]
+    line = (f"[paged-kv] block {px['kv_block']}: "
+            f"{occ['used_blocks']}/{occ['n_blocks']} blocks used, "
+            f"{occ['cow_copies']} CoW copies, {occ['evictions']} evictions")
+    if px.get("tree") is not None:
+        line += (f"; prefix cache: {px['hits']} hits, "
+                 f"{px['hit_tokens']} tokens adopted / "
+                 f"{px['novel_tokens']} novel, tree "
+                 f"{px['tree']['nodes']} nodes")
+    print(line)
 
 
 if __name__ == "__main__":

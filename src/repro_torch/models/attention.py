@@ -1,13 +1,16 @@
 """Attention: GQA + RoPE, causal/sliding-window full-sequence attention,
-ring-buffer KV-cache decode and chunked prefill into the same ring.
+ring-buffer KV-cache decode and chunked prefill into the same ring, and
+decode and chunked prefill against a paged KV block pool.
 
 Counterpart of ``repro/models/attention.py`` (``attn_forward``, the ring
-``attn_decode`` and ``attn_prefill_chunk``). The reference's
+``attn_decode`` and ``attn_prefill_chunk``, the paged
+``attn_decode_paged`` and ``attn_prefill_chunk_paged``). The reference's
 ``_flash_attend`` is plain jnp (online softmax over kv chunks), so here the
-scores are explicit f32 matmuls and a softmax. Paged and cross attention
-arrive with their slices. The decode and prefill caches are updated in place
-(the caller's stacked cache tensors are written at the new tokens' slots),
-which saves a copy of the whole cache per step.
+scores are explicit f32 matmuls and a softmax; its paged attention is plain
+jnp gathers and einsums too, so it is torch ops here. Cross attention
+arrives with its slice. The decode and prefill caches, ring or pool, are
+updated in place (the caller's stacked cache tensors are written at the new
+tokens' slots), which saves a copy of the whole cache per step.
 
 Shapes: x [B, S, D]; q [B, S, H, hd]; k, v [B, S, KV, hd]; g = H // KV.
 """
@@ -191,3 +194,113 @@ def attn_prefill_chunk(params, x_chunk, cache, base_pos, tok_valid, *,
     cache["v"][plan.rows, plan.slots] = v_new[plan.rows, plan.cols]
     out = _attend(q, cache["k"], cache["v"], plan.valid)
     return _out_proj(out, params["wo"], x_chunk.dtype), cache
+
+
+# ---------------------------------------------------------------------------
+# Paged KV: block-pool storage + per-row block tables (runtime/paged_kv.py)
+# ---------------------------------------------------------------------------
+class PagedPlan(NamedTuple):
+    """A paged step's device indices, the same for every layer, so built
+    once per step from the host's block table with one copy up. The
+    reference aims a token that must not write at ``P * bs`` and drops it
+    in its scatter; torch's indexing cannot drop, so ``phys``/``rows``/
+    ``cols`` list the WRITING tokens only."""
+    pos: torch.Tensor          # [B, C] absolute position of each token
+    rows: torch.Tensor         # [N] batch row of each writing token
+    cols: torch.Tensor         # [N] its index in the step's tokens
+    phys: torch.Tensor         # [N] its flat pool slot, blk * bs + pos % bs
+    pages: torch.Tensor        # [B, MB] block table, holes (-1) at block 0
+    valid: torch.Tensor        # [B, C, MB*bs] query x slot visibility
+
+
+def paged_plan(block_tables, base_pos, tok_valid, block_size: int,
+               device) -> PagedPlan:
+    """block_tables [B, MB] (-1 = unmapped), base_pos [B] and tok_valid
+    [B, C] (None: one token per row that writes wherever its block is
+    mapped, the decode rule) are host data; a device tensor is read back
+    once. A token writes iff it is valid and its row maps the block at
+    ``pos // bs`` (clamped to the table as the reference's gather is)."""
+    bt = _host(block_tables).astype(np.int64)
+    b, mb = bt.shape
+    base = np.broadcast_to(_host(base_pos).astype(np.int64).reshape(-1),
+                           (b,))
+    tv = (np.ones((b, 1), bool) if tok_valid is None
+          else _host(tok_valid).astype(bool))
+    c = tv.shape[1]
+    pos = base[:, None] + np.arange(c)[None, :]                     # [B, C]
+    blk = np.take_along_axis(bt, np.clip(pos // block_size, 0, mb - 1), 1)
+    rows, cols = np.nonzero(tv & (blk >= 0))
+    phys = blk[rows, cols] * block_size + pos[rows, cols] % block_size
+    n = rows.size
+    packed = torch.from_numpy(np.concatenate(
+        [pos.reshape(-1), bt.reshape(-1), rows, cols, phys])).to(device)
+    pos_d = packed[:b * c].view(b, c)
+    bt_d = packed[b * c:b * c + b * mb].view(b, mb)
+    rows_d, cols_d, phys_d = packed[b * c + b * mb:].view(3, n)
+    # a mapped slot's content position IS its index (blocks never wrap):
+    # idx <= query position masks unwritten tail slots and the row's own
+    # later chunk tokens
+    mapped = (bt_d >= 0).repeat_interleave(block_size, dim=1)  # [B, MB*bs]
+    idx = torch.arange(mb * block_size, device=device)
+    valid = mapped[:, None, :] & (idx <= pos_d[:, :, None])
+    return PagedPlan(pos_d, rows_d, cols_d, phys_d, bt_d.clamp(min=0), valid)
+
+
+def _gather_pages(arr, pages):
+    """arr [P, bs, KV, hd], pages [B, MB] -> per-row views [B, MB*bs, KV,
+    hd]. Holes gather block 0; the plan's ``valid`` masks them out."""
+    b, mb = pages.shape
+    return arr[pages].reshape(b, mb * arr.shape[1], *arr.shape[2:])
+
+
+def _attend_paged(params, x, cache, plan: PagedPlan, *, num_heads,
+                  num_kv_heads, head_dim, rope_theta):
+    p_bs = cache["k"].shape[0] * cache["k"].shape[1]
+    q, k_new, v_new = _project_qkv(params, x, num_heads, num_kv_heads,
+                                   head_dim)
+    q = apply_rope(q, plan.pos, rope_theta)
+    k_new = apply_rope(k_new, plan.pos, rope_theta)
+    # the whole step is written before any query attends
+    for name, new in (("k", k_new), ("v", v_new)):
+        cache[name].view(p_bs, *new.shape[2:])[plan.phys] = \
+            new[plan.rows, plan.cols]
+    with torch.profiler.record_function("paged_gather"):
+        k_rows = _gather_pages(cache["k"], plan.pages)
+        v_rows = _gather_pages(cache["v"], plan.pages)
+    out = _attend(q, k_rows, v_rows, plan.valid)
+    return _out_proj(out, params["wo"], x.dtype), cache
+
+
+def attn_decode_paged(params, x_tok, cache, pos, block_tables, *, num_heads,
+                      num_kv_heads, head_dim, rope_theta,
+                      plan: Optional[PagedPlan] = None):
+    """One decode step against paged KV. x_tok [B, 1, D]; cache k/v
+    [P, bs, KV, hd] (written in place); pos [B] absolute positions (paged
+    decode is always per-row: the engine broadcasts a lockstep scalar);
+    block_tables [B, MB], -1 = unmapped. A row writes iff its block at
+    ``pos // bs`` is mapped. ``plan`` (paged_plan's, shared by the layers
+    of a step) saves rebuilding the indices per layer.
+    Returns (y [B, 1, D], cache)."""
+    if plan is None:
+        plan = paged_plan(block_tables, pos, None, cache["k"].shape[1],
+                          x_tok.device)
+    return _attend_paged(params, x_tok, cache, plan, num_heads=num_heads,
+                         num_kv_heads=num_kv_heads, head_dim=head_dim,
+                         rope_theta=rope_theta)
+
+
+def attn_prefill_chunk_paged(params, x_chunk, cache, base_pos, tok_valid,
+                             block_tables, *, num_heads, num_kv_heads,
+                             head_dim, rope_theta,
+                             plan: Optional[PagedPlan] = None):
+    """Chunked prefill into paged KV, the paged twin of attn_prefill_chunk:
+    a token writes iff it is ``tok_valid`` and its block is mapped. No ring
+    can wrap (a slot's index is its content position), so a chunk of any
+    length works while the pool has blocks.
+    Returns (y [B, C, D], cache)."""
+    if plan is None:
+        plan = paged_plan(block_tables, base_pos, tok_valid,
+                          cache["k"].shape[1], x_chunk.device)
+    return _attend_paged(params, x_chunk, cache, plan, num_heads=num_heads,
+                         num_kv_heads=num_kv_heads, head_dim=head_dim,
+                         rope_theta=rope_theta)

@@ -13,9 +13,10 @@ axis. Entry points:
 
 Serving state for MoE stacks: ``buddies`` is a BuddyState whose leaves carry
 a leading MoE-layer axis [L_moe, ...]. Decode caches (ring KV, RWKV states)
-are updated in place; chunked prefill writes the same ring KV caches. The
-Mamba2, hybrid, VLM and audio families and paged caches arrive with later
-slices.
+are updated in place; chunked prefill writes the same ring KV caches. With
+``block_tables`` (attention stacks only) decode and chunked prefill read and
+write a paged KV block pool instead (``init_paged_caches``). The Mamba2,
+hybrid, VLM and audio families arrive with later slices.
 """
 from __future__ import annotations
 
@@ -133,6 +134,7 @@ class StepCtx(NamedTuple):
     record: bool
     tok_valid: Any = None          # [B, C] prefix validity mask (chunk mode)
     plan: Optional[attn.ChunkPlan] = None   # the chunk's device indices
+    paged: Optional[attn.PagedPlan] = None  # the paged step's (None = ring)
 
 
 def _attn_kwargs(cfg: ModelConfig):
@@ -187,6 +189,14 @@ def block_forward(kind: str, p, x, cache, ctx: StepCtx, buddy=None):
     if ctx.mode == "full":
         h = attn.attn_forward(p["attn"], xn, ctx.positions, window=ctx.window,
                               **_attn_kwargs(cfg))
+    elif ctx.paged is not None and ctx.mode == "chunk":
+        h, cache = attn.attn_prefill_chunk_paged(
+            p["attn"], xn, cache, ctx.positions, ctx.tok_valid, None,
+            plan=ctx.paged, **_attn_kwargs(cfg))
+    elif ctx.paged is not None:
+        h, cache = attn.attn_decode_paged(
+            p["attn"], xn, cache, ctx.positions, None, plan=ctx.paged,
+            **_attn_kwargs(cfg))
     elif ctx.mode == "chunk":
         h, cache = attn.attn_prefill_chunk(
             p["attn"], xn, cache, ctx.positions, ctx.tok_valid,
@@ -271,6 +281,20 @@ def init_caches(cfg: ModelConfig, batch: int, seq_len: int, *,
     return tuple(caches)
 
 
+def init_paged_caches(cfg: ModelConfig, n_blocks: int, block_size: int, *,
+                      device="cuda"):
+    """Paged decode caches: one shared block pool per layer, k and v
+    [L, P, bs, KV, hd] stacked on the group's layers, addressed through
+    the host's PagedKVPool block tables instead of a per-row ring.
+    Attention stacks only (an SSM state is sequential and has no pages)."""
+    require_attention_stack(cfg, "paged KV")
+    dev = resolve_device(device)
+    dtype = torch_dtype(cfg.dtype)
+    shape = (n_blocks, block_size, cfg.num_kv_heads, cfg.head_dim)
+    return tuple({"kv": {k: torch.zeros((r, *shape), dtype=dtype, device=dev)
+                         for k in ("k", "v")}} for _, r in cfg.stack())
+
+
 # ===========================================================================
 # Entry points
 # ===========================================================================
@@ -328,15 +352,20 @@ def forward_train(params, cfg: ModelConfig, tokens, *,
 
 def decode_step(params, cfg: ModelConfig, token, caches, pos, *,
                 policy: Optional[BuddyPolicy] = None, buddies=None,
-                window: int = -1, record: bool = False):
+                window: int = -1, record: bool = False, block_tables=None):
     """One-token decode. token [B] int tensor; pos an int (lockstep batch)
     or a [B] tensor of per-row positions; caches from init_caches (updated
-    in place). Returns (logits [B, V] f32, caches, aux)."""
+    in place). block_tables [B, MB] (host data, -1 = unmapped) routes
+    attention through the paged pool of init_paged_caches instead; pos is
+    then per-row host data (a lockstep int is broadcast).
+    Returns (logits [B, V] f32, caches, aux)."""
     _check_stack(cfg)
     if window < 0:
         window = cfg.sliding_window
     x = params["embed"][token][:, None, :]                        # [B, 1, D]
-    ctx = StepCtx(cfg, "step", window, policy, pos, record)
+    paged = (None if block_tables is None else attn.paged_plan(
+        block_tables, pos, None, caches[0]["kv"]["k"].shape[2], x.device))
+    ctx = StepCtx(cfg, "step", window, policy, pos, record, paged=paged)
     total = _zero_moe_aux(cfg, x.device)
     rec = []
     for kind, gp, gc, gb in _iter_groups(params, cfg, caches, buddies):
@@ -350,7 +379,8 @@ def decode_step(params, cfg: ModelConfig, token, caches, pos, *,
 
 def prefill_chunk(params, cfg: ModelConfig, tokens, caches, base_pos,
                   tok_valid, *, policy: Optional[BuddyPolicy] = None,
-                  buddies=None, window: int = -1, record: bool = False):
+                  buddies=None, window: int = -1, record: bool = False,
+                  block_tables=None):
     """Fused multi-token step for chunked prefill (continuous batching).
 
     tokens [B, C] int tensor on the params' device; base_pos [B] the
@@ -359,7 +389,8 @@ def prefill_chunk(params, cfg: ModelConfig, tokens, caches, base_pos,
     j < count(b) are live, the rest ride the fixed-shape step and write
     nothing. A decode row joins the step as a 1-valid-token chunk, so one
     step serves prefill and decode rows together. caches from init_caches
-    (updated in place).
+    (updated in place), or with block_tables [B, MB] (host data) the paged
+    pool of init_paged_caches.
 
     Returns (logits [B, C, V] f32, caches, aux). aux token axes are the
     flattened [B*C] chunk (row-major): mask them with tok_valid on the host.
@@ -369,10 +400,15 @@ def prefill_chunk(params, cfg: ModelConfig, tokens, caches, base_pos,
     if window < 0:
         window = cfg.sliding_window
     x = params["embed"][tokens]                                   # [B, C, D]
-    cap = caches[0]["kv"]["k"].shape[2]
-    plan = attn.chunk_plan(base_pos, tok_valid, cap, window, x.device)
+    plan = paged = None
+    width = caches[0]["kv"]["k"].shape[2]          # ring capacity, or block
+    if block_tables is None:
+        plan = attn.chunk_plan(base_pos, tok_valid, width, window, x.device)
+    else:
+        paged = attn.paged_plan(block_tables, base_pos, tok_valid, width,
+                                x.device)
     ctx = StepCtx(cfg, "chunk", window, policy, base_pos, record,
-                  tok_valid=tok_valid, plan=plan)
+                  tok_valid=tok_valid, plan=plan, paged=paged)
     total = _zero_moe_aux(cfg, x.device)
     rec = []
     for kind, gp, gc, gb in _iter_groups(params, cfg, caches, buddies):

@@ -23,9 +23,12 @@ the engine quantizes every MoE expert on the params' device, calibrates
 the fidelity, uses the tier's displaced-budget cache, and serves a miss
 the tier takes as a degraded slot. The continuous scheduler's row hooks
 (``prefill_rows``, ``reset_rows``, ``advance_clock``, ``release_kv_row``)
-are ported for the ring KV cache. Not ported yet (they raise
-NotImplementedError): telemetry, the multi-device mesh, paged KV, the
-prefix cache and live placement.
+are ported for the ring KV cache and for paged KV (``paged_kv=True``: a
+runtime.paged_kv.PagedKVPool of blocks behind per-row block tables, with
+copy-on-write), and so is the radix prefix cache over that pool
+(``prefix_cache=True``: serving.prefix.PrefixTree, ``adopt_prefix`` and
+``insert_prefix``). Not ported yet (they raise NotImplementedError):
+telemetry, the multi-device mesh and live placement.
 """
 from __future__ import annotations
 
@@ -45,7 +48,9 @@ from repro_torch.runtime.cache import ExpertCache
 from repro_torch.runtime.costs import MissCostModel, best_resident_q
 from repro_torch.runtime.memory import (DEFAULT_HW, HardwareModel,
                                         TransferLedger, expert_nbytes)
+from repro_torch.runtime.paged_kv import PagedKVPool
 from repro_torch.runtime.transfers import TransferScheduler
+from repro_torch.serving.prefix import PrefixTree
 
 # per-slot masks pulled back to the host each step, in this order
 _SLOT_KEYS = ("indices", "substituted", "missed", "degraded", "dropped",
@@ -91,7 +96,8 @@ class ServeEngine:
                  prefetch_min_saving: Optional[float] = None,
                  tier=None, upgrade_degraded: Optional[bool] = None,
                  telemetry=None, n_devices: int = 1,
-                 paged_kv: bool = False, prefix_cache: bool = False,
+                 paged_kv: bool = False, kv_block: int = 16,
+                 kv_blocks: Optional[int] = None, prefix_cache: bool = False,
                  placement=None):
         """Same knobs as the reference engine for what is ported. The
         params live on the device the engine runs on (their ``embed``
@@ -99,18 +105,44 @@ class ServeEngine:
 
         tier: a TieredExpertStore; ``policy.quant_tier`` must name its
         precision. upgrade_degraded: background-fetch the true expert of
-        every degraded slot (None: on exactly in cost mode with a tier)."""
+        every degraded slot (None: on exactly in cost mode with a tier).
+
+        paged_kv: one shared pool of ``kv_blocks`` blocks of ``kv_block``
+        tokens per layer in place of the per-row ring (None: the ring's
+        footprint, ``batch * ceil(seq_len / kv_block)``); attention stacks
+        without a sliding window only. prefix_cache: the radix tree over
+        that pool, which lets an admitted request adopt the KV of a cached
+        prompt prefix (needs paged_kv)."""
         if not cfg.is_moe:
             raise ValueError("ServeEngine's expert cache applies to MoE archs")
         if lookahead < 1:
             raise ValueError("lookahead: layers ahead to prefetch (>= 1)")
         for what, on in (("telemetry", telemetry is not None),
                          ("the multi-device mesh", int(n_devices) != 1),
-                         ("paged KV", paged_kv),
-                         ("the prefix cache", prefix_cache),
                          ("live placement", placement is not None)):
             if on:
                 _not_ported(what)
+        if paged_kv:
+            if kv_block < 1:
+                raise ValueError(f"kv_block must be >= 1, got {kv_block}")
+            transformer.require_attention_stack(cfg, "paged KV")
+            if cfg.sliding_window or window > 0:
+                raise ValueError("paged KV blocks never wrap; sliding-window "
+                                 "decode is ring-only")
+            if cfg.num_cond_tokens:
+                raise ValueError("paged KV does not model conditioning-"
+                                 "prefix positions")
+        elif prefix_cache:
+            raise ValueError("prefix_cache requires paged_kv")
+        self._paged = bool(paged_kv)
+        self._kv_block = int(kv_block)
+        self._kv_blocks = kv_blocks
+        self._prefix_on = bool(prefix_cache)
+        self.kv_pool: Optional[PagedKVPool] = None
+        self.prefix_tree: Optional[PrefixTree] = None
+        self._prefix_hits = 0
+        self._prefix_hit_tokens = 0
+        self._prefix_novel_tokens = 0
         self.telemetry = None          # read by serving.scheduler.summary
         self.tier = tier
         if tier is not None:
@@ -213,9 +245,49 @@ class ServeEngine:
                           fetch_cost=fetch_cost)
 
     def init_caches(self, batch: int, seq_len: int):
+        """Ring KV caches for ``batch`` rows of ``seq_len`` tokens, or in
+        paged mode a fresh pool (and prefix tree) with block tables that
+        wide and its device storage."""
+        if self._paged:
+            bs = self._kv_block
+            max_blocks = -(-seq_len // bs)
+            n_blocks = (int(self._kv_blocks) if self._kv_blocks
+                        else batch * max_blocks)
+            self.kv_pool = PagedKVPool(n_blocks, bs, batch, max_blocks)
+            self._prefix_hits = 0
+            self._prefix_hit_tokens = 0
+            self._prefix_novel_tokens = 0
+            if self._prefix_on:
+                self.prefix_tree = PrefixTree(self.kv_pool)
+            return transformer.init_paged_caches(self.cfg, n_blocks, bs,
+                                                 device=self.device)
         return transformer.init_caches(
             self.cfg, batch, seq_len,
             window=0 if self.window < 0 else self.window, device=self.device)
+
+    def _apply_kv_copies(self, caches):
+        """Land the pool's pending copy-on-write pairs in one batched
+        in-place copy per cache leaf ([L, P, bs, KV, hd]: block axis 1).
+        It must run before the step's scatter, which may write into a
+        fresh copy, and the source block stays as it was (the tree's)."""
+        pairs = self.kv_pool.drain_copies()
+        if pairs:
+            src, dst = torch.tensor(pairs, dtype=torch.int64).T \
+                .to(self.device)
+            with torch.profiler.record_function("kv_cow_copy"):
+                for g in caches:
+                    for a in g["kv"].values():
+                        a[:, dst] = a[:, src]
+        return caches
+
+    def _map_rows(self, caches, starts, ends):
+        """Paged mode: make positions [starts[i], ends[i]) writable by each
+        row i (allocate, or copy-on-write a shared block), land the copies,
+        and return the block table the step ships to the device."""
+        for i in np.flatnonzero(ends > starts):
+            self.kv_pool.ensure_range(int(i), int(starts[i]), int(ends[i]))
+        self._apply_kv_copies(caches)
+        return self.kv_pool.tables
 
     def advance_clock(self, to_time: float) -> None:
         """Advance the simulated clock (the host PCIe link's timeline) to
@@ -233,13 +305,22 @@ class ServeEngine:
         still flow through the step but are excluded from all expert-usage,
         transfer and throughput accounting. Returns (logits [B, V],
         caches)."""
-        if isinstance(pos, np.ndarray) and pos.ndim == 1:
+        if active is None:
+            active = np.ones(int(token.shape[0]), bool)
+        tables = None
+        if self._paged:
+            # paged decode is always per-row: broadcast a lockstep scalar;
+            # the block table and positions go up in the step's plan
+            pos = np.broadcast_to(np.asarray(pos, np.int64),
+                                  (int(token.shape[0]),))
+            tables = self._map_rows(caches, np.where(active, pos, 0),
+                                    np.where(active, pos + 1, 0))
+        elif isinstance(pos, np.ndarray) and pos.ndim == 1:
             pos = torch.from_numpy(pos.astype(np.int64)).to(self.device)
         logits, caches, aux = transformer.decode_step(
             self.params, self.cfg, token, caches, pos, policy=self.policy,
-            buddies=self._buddy_state(), window=self.window, record=True)
-        if active is None:
-            active = np.ones(int(token.shape[0]), bool)
+            buddies=self._buddy_state(), window=self.window, record=True,
+            block_tables=tables)
         self._account(aux, active=np.asarray(active, bool))
         return logits, caches
 
@@ -259,7 +340,9 @@ class ServeEngine:
 
         Returns (logits [B, C, V], caches); row i's next-token logits sit
         at index ``tok_valid[i].sum() - 1``. Raises ValueError when a
-        multi-token chunk would wrap the ring KV cache."""
+        multi-token chunk would wrap the ring KV cache; in paged mode there
+        is no ring (a slot's index is its content position) and the rows'
+        write ranges are mapped in the pool instead."""
         if not torch.is_tensor(tokens):
             tokens = self._tokens(tokens)
         tokens = tokens.to(self.device)
@@ -270,29 +353,40 @@ class ServeEngine:
         tok_valid = np.asarray(tok_valid, bool) & rows[:, None]
         base = np.asarray(base_pos, np.int64)
         counts = tok_valid.sum(axis=1)
-        # a multi-token chunk is scattered into the ring before its queries
-        # attend, so it must not wrap it (attn_prefill_chunk); single-token
-        # rows are plain decode writes
-        cap = caches[0]["kv"]["k"].shape[2]
-        multi = counts > 1
-        if multi.any() and int((base[multi] + counts[multi]).max()) > cap:
-            raise ValueError(
-                "chunked prefill would wrap the KV ring buffer: size caches "
-                f"to the full prompt (prompt end "
-                f"{int((base[multi] + counts[multi]).max())} > capacity "
-                f"{cap})")
+        tables = None
+        if self._paged:
+            tables = self._map_rows(caches, base, base + counts)
+        else:
+            # a multi-token chunk is scattered into the ring before its
+            # queries attend, so it must not wrap it (attn_prefill_chunk);
+            # single-token rows are plain decode writes
+            cap = caches[0]["kv"]["k"].shape[2]
+            multi = counts > 1
+            if multi.any() and int((base[multi] + counts[multi]).max()) > cap:
+                raise ValueError(
+                    "chunked prefill would wrap the KV ring buffer: size "
+                    "caches to the full prompt (prompt end "
+                    f"{int((base[multi] + counts[multi]).max())} > capacity "
+                    f"{cap})")
         logits, caches, aux = transformer.prefill_chunk(
             self.params, self.cfg, tokens, caches, base, tok_valid,
             policy=self.policy, buddies=self._buddy_state(),
-            window=self.window, record=True)
+            window=self.window, record=True, block_tables=tables)
         self._account(aux, active=tok_valid.reshape(-1))
         return logits, caches
 
     def reset_rows(self, caches, rows):
-        """Zero the ring KV caches of ``rows`` (batch indices), in place, so
-        that a freed slot can take a newly admitted request. Attention
-        stacks only: their cache leaves are [L, B, ...]."""
+        """Free the KV caches of ``rows`` (batch indices) so that a freed
+        slot can take a newly admitted request: the ring's rows are zeroed
+        in place (attention stacks only: their cache leaves are [L, B,
+        ...]); in paged mode the rows' blocks go back to the pool (shared
+        prefix blocks live on through the tree's refcounts) and the device
+        storage is left as it is."""
         transformer.require_attention_stack(self.cfg, "reset_rows")
+        if self._paged:
+            for r in np.atleast_1d(rows):
+                self.kv_pool.free_row(int(r))
+            return caches
         idx = torch.as_tensor(np.atleast_1d(rows), dtype=torch.int64) \
             .to(self.device)
         for g in caches:
@@ -301,9 +395,45 @@ class ServeEngine:
         return caches
 
     def release_kv_row(self, row: int) -> None:
-        """The scheduler's preemption and retirement hook: returns a row's
-        KV pages to the pool in the reference's paged mode. A no-op on the
-        ring, whose slots are zeroed on re-admission."""
+        """The scheduler's preemption and retirement hook: in paged mode,
+        return the row's blocks to the pool without touching the device
+        storage. A no-op on the ring, whose rows are zeroed on
+        re-admission."""
+        if self._paged:
+            self.kv_pool.free_row(int(row))
+
+    # -- prefix cache ---------------------------------------------------
+    # (the reference also feeds its telemetry from these two hooks; the
+    # port refuses telemetry for now, in __init__)
+    def adopt_prefix(self, row: int, prompt) -> int:
+        """Match ``prompt`` against the radix tree and map the longest
+        cached prefix into ``row``'s block table (a refcount each; the
+        shared tail block is copied on the row's first write to it).
+        Returns the number of adopted tokens m: the scheduler then feeds
+        prompt[m] first and chunk-prefills only the novel suffix."""
+        if self.prefix_tree is None:
+            raise ValueError("adopt_prefix needs prefix_cache=True and "
+                             "caches from init_caches")
+        toks = [int(t) for t in prompt]
+        m, blocks = self.prefix_tree.match(toks, cap=len(toks) - 1)
+        if m > 0:
+            self.kv_pool.adopt(row, blocks)
+            self._prefix_hits += 1
+        self._prefix_hit_tokens += m
+        self._prefix_novel_tokens += len(toks) - m
+        return m
+
+    def insert_prefix(self, row: int, prompt) -> None:
+        """Donate a fully prefilled row's prompt KV to the radix tree,
+        trimmed to full blocks: the final partial block stays private, so
+        the donor keeps decoding into it without a copy."""
+        if self.prefix_tree is None:
+            return
+        bs = self.kv_pool.block_size
+        covered = (len(prompt) // bs) * bs
+        if covered:
+            self.prefix_tree.insert([int(t) for t in prompt[:covered]],
+                                    self.kv_pool.row_blocks(row, covered))
 
     # -- per-layer step timeline ---------------------------------------
     def _account(self, aux, active: np.ndarray) -> None:
@@ -608,4 +738,17 @@ class ServeEngine:
                 "upgrade_degraded": self.upgrade_degraded,
                 "prefetch_worthwhile_last": self.last_prefetch_worthwhile,
             }
+        if self._paged:
+            s["prefix"] = {
+                "paged_kv": True,
+                "kv_block": self._kv_block,
+                "prefix_cache": self._prefix_on,
+                "pool": (self.kv_pool.occupancy()
+                         if self.kv_pool is not None else None),
+                "hits": self._prefix_hits,
+                "hit_tokens": self._prefix_hit_tokens,
+                "novel_tokens": self._prefix_novel_tokens,
+            }
+            if self.prefix_tree is not None:
+                s["prefix"]["tree"] = self.prefix_tree.stats()
         return s

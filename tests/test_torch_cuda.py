@@ -762,3 +762,114 @@ def test_continuous_scheduler_on_card_matches_cpu(dev):
     assert gs["steps"] == cs["steps"]
     assert gs["engine"]["stats"] == cs["engine"]["stats"]
     assert gs["engine"]["ledger"] == cs["engine"]["ledger"]
+
+
+# ---------------------------------------------------------------------------
+# Paged KV and the prefix cache, card against CPU, on the same fixture
+# ---------------------------------------------------------------------------
+def _paged_engine(d, prefix=False):
+    from repro_torch.serving.engine import ServeEngine
+    cfg, params, tables = _fixture(d)
+    return ServeEngine(cfg, params, tables=tables,
+                       policy=BuddyPolicy(use_fused_dispatch=True),
+                       paged_kv=True, kv_block=8, prefix_cache=prefix)
+
+
+def test_paged_steps_on_card_match_cpu(dev):
+    """Two chunk steps (a prefill from 0, a row prefilling mid-prompt, an
+    inactive row), then two decode steps, through the engine's paged
+    hooks: logits within 1e-3 and the same blocks written, their contents
+    within 1e-4."""
+    import numpy as np
+    runs = []
+    for d in ("cpu", dev):
+        eng = _paged_engine(d)
+        caches = eng.init_caches(3, 40)
+        r = np.random.default_rng(2)
+        pos, out = np.array([0, 11, 0]), []
+        rows = np.array([True, True, False])
+        for _ in range(2):
+            toks = r.integers(0, eng.cfg.vocab_size, (3, 6))
+            lg, caches = eng.prefill_rows(toks, rows, caches, base_pos=pos)
+            out.append(lg[rows].cpu())
+            pos = pos + 6
+        for _ in range(2):
+            tok = eng._tokens(r.integers(0, eng.cfg.vocab_size, 3))
+            lg, caches = eng.step(tok, caches, pos, active=rows)
+            out.append(lg[rows].cpu())
+            pos = pos + 1
+        runs.append((out, eng.kv_pool.tables.copy(),
+                     [a.cpu() for g in caches for a in g["kv"].values()]))
+    (cpu, ct, cc), (card, gt, gc) = runs
+    np.testing.assert_array_equal(gt, ct)
+    for g, w in zip(card, cpu):
+        torch.testing.assert_close(g, w, rtol=1e-3, atol=1e-3)
+    for g, w in zip(gc, cc):
+        written = w.flatten(2).abs().sum(-1) > 0          # [L, P]
+        assert torch.equal(g.flatten(2).abs().sum(-1) > 0, written)
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)
+
+
+def test_paged_copy_on_write_on_card_keeps_the_source(dev):
+    """The engine's batched in-place copy of a shared block: the copy
+    equals the source bit for bit, and the source (the tree's block) and
+    every other block are untouched."""
+    eng = _paged_engine(dev, prefix=True)
+    caches = eng.init_caches(2, 32)
+    g = torch.Generator(device=dev).manual_seed(0)
+    for grp in caches:
+        for a in grp["kv"].values():
+            a.copy_(torch.randn(a.shape, generator=g, device=dev))
+    pool = eng.kv_pool
+    pool.ensure_range(0, 0, 20)                 # 3 blocks, the last partial
+    pool.drain_copies()
+    pool.adopt(1, pool.row_blocks(0, 20))
+    src = int(pool.tables[0, 2])
+    before = [a.clone() for grp in caches for a in grp["kv"].values()]
+    pool.ensure_range(1, 20, 21)                # copy-on-write of block 2
+    dst = int(pool.tables[1, 2])
+    assert dst != src and pool.cow_copies == 1
+    eng._apply_kv_copies(caches)
+    after = [a for grp in caches for a in grp["kv"].values()]
+    for b, a in zip(before, after):
+        assert torch.equal(a[:, dst], b[:, src])
+        keep = torch.ones(a.shape[1], dtype=torch.bool)
+        keep[dst] = False
+        assert torch.equal(a[:, keep], b[:, keep])
+
+
+def test_prefix_hit_on_card_matches_cold_recompute(dev):
+    """A prompt whose first 20 tokens (not a multiple of the 8-token
+    block) another row donated: adopting them and prefilling only the
+    rest gives the last token's logits of a cold prefill of the whole
+    prompt, within 1e-3."""
+    import numpy as np
+    rng = np.random.default_rng(9)
+    donor = rng.integers(0, 512, 24)
+    adopter = np.concatenate([donor[:20], rng.integers(0, 512, 4)])
+
+    def prefill(eng, caches, row, prompt, start):
+        last = None
+        for p in range(start, len(prompt), 4):
+            c = min(4, len(prompt) - p)
+            toks = np.zeros((2, 4), np.int64)
+            valid = np.zeros((2, 4), bool)
+            toks[row, :c], valid[row, :c] = prompt[p:p + c], True
+            base = np.zeros(2, np.int64)
+            base[row] = p
+            lg, caches = eng.prefill_rows(toks, valid.any(1), caches,
+                                          base_pos=base, tok_valid=valid)
+            last = lg[row, c - 1].cpu()
+        return caches, last
+
+    eng = _paged_engine(dev, prefix=True)
+    caches = eng.init_caches(2, 32)
+    caches, _ = prefill(eng, caches, 0, donor, 0)
+    eng.insert_prefix(0, donor)
+    assert eng.adopt_prefix(1, adopter) == 20
+    _, hit = prefill(eng, caches, 1, adopter, 20)
+    assert eng.kv_pool.cow_copies >= 1
+    eng.kv_pool.check(eng.prefix_tree.block_holders())
+    cold = _paged_engine(dev, prefix=True)
+    _, want = prefill(cold, cold.init_caches(2, 32), 1, adopter, 0)
+    torch.testing.assert_close(hit, want, rtol=1e-3, atol=1e-3)

@@ -115,26 +115,39 @@ def test_temperature_sampling_is_seeded():
 
 
 @pytest.mark.parametrize("kw", [dict(telemetry=object()),
-                                dict(n_devices=2), dict(paged_kv=True),
+                                dict(n_devices=2),
+                                dict(paged_kv=True, window=8),
                                 dict(prefix_cache=True),
                                 dict(placement=object())])
 def test_unported_subsystems_raise(kw):
     """The quant tier is ported: its configuration errors are held against
-    the reference's in tests/test_torch_tier_engine.py."""
+    the reference's in tests/test_torch_tier_engine.py. So are paged KV and
+    the prefix cache (tests/test_torch_paged.py): what the reference
+    refuses there (a sliding window on paged KV, the prefix cache without
+    it) raises ValueError."""
     params = load_npz(str(FIXTURE / "model.npz"), "cpu")
-    with pytest.raises(NotImplementedError):
+    err = (ValueError if {"paged_kv", "prefix_cache"} & set(kw)
+           else NotImplementedError)
+    with pytest.raises(err):
         ServeEngine(profiling(), params, **kw)
 
 
-@pytest.mark.parametrize("flag", [["--n-devices", "2"], ["--paged-kv"],
+@pytest.mark.parametrize("flag", [["--n-devices", "2"],
+                                  ["--paged-kv", "--kv-block", "0"],
                                   ["--prefix-cache"],
                                   ["--placement", "live"],
                                   ["--telemetry", "on"],
                                   ["--trace-out", "t.json"]])
 def test_serve_refuses_unported_flags(flag, capsys):
+    """The paged-KV flags are ported; the launcher still refuses a block
+    of no tokens and, as the reference does, the prefix cache without
+    paged KV."""
     with pytest.raises(SystemExit):
         serve.parse_args(flag)
-    assert "not ported yet" in capsys.readouterr().err
+    want = {"--paged-kv": "--kv-block must be",
+            "--prefix-cache": "requires --paged-kv"}.get(flag[0],
+                                                         "not ported yet")
+    assert want in capsys.readouterr().err
 
 
 def test_serve_defaults_to_cuda_and_never_falls_back():

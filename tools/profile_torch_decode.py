@@ -3,7 +3,7 @@
 spends its time on the card.
 
     PYTHONPATH=src python tools/profile_torch_decode.py [--layers 8] [--steps 6] \
-        [--quant-tier int8] [--prefill-chunk 128]
+        [--quant-tier int8] [--prefill-chunk 128] [--paged-kv [--prefix-cache]]
 
 Builds the same engine as chip_smoke.py's serve phase (deepseek-v2-lite-buddy
 at full width, cut to --layers layers, random weights from seed 0, buddy
@@ -17,8 +17,16 @@ full width), so degraded slots run through the grouped kernel's int8 half (fused
 or quant_ffn (gather). With --prefill-chunk C > 1 the timed steps are
 ``ServeEngine.prefill_rows`` chunk steps of 4 rows x C prompt tokens (the
 continuous scheduler's fused step while every slot prefills), and the
-unfused dispatch is the dropless capacity branch (expert_ffn). Prints one
-JSON object per dispatch and, with --out, writes them to a file.
+unfused dispatch is the dropless capacity branch (expert_ffn). With
+--paged-kv the engines keep their KV in a block pool (16-token blocks), and
+the device time of the page gathers and of the copy-on-write copies is
+reported by name (the ``paged_gather`` and ``kv_cow_copy`` ranges). With
+--prefix-cache as well, every timed step is a prefix hit's first step: the
+four rows are freed, each adopts the first 60 tokens (not a multiple of the
+block) of a prompt another row donated, and the step writes at position 60,
+so each row copies the shared tail block; the host's admission work (free,
+match, adopt) is inside the step's wall time. Prints one JSON object per
+dispatch and, with --out, writes them to a file.
 Needs a CUDA device; it exits nonzero without one.
 """
 from __future__ import annotations
@@ -41,41 +49,93 @@ def _device_us(evt) -> float:
     return 0.0
 
 
+RANGES = ("paged_gather", "kv_cow_copy")    # record_function names
+HOST_TIMED = ("_account", "_map_rows", "paged_plan")
+HIT = 60                                     # adopted tokens per prefix hit
+
+
 def profile_dispatch(serve, params, layers: int, steps: int, fused: bool,
-                     tier_flags=(), chunk: int = 1):
+                     tier_flags=(), chunk: int = 1, kv_flags=()):
+    from repro_torch.models import attention
+    flags = ["--layers", str(layers), "--cache-rate", "0.5", "--policy",
+             "buddy", "--predictor", "prev-step", "--batch", "4"]
+    eng, lm = serve.build_engine(
+        serve.parse_args(flags + list(tier_flags) + list(kv_flags)
+                         + (["--fused-dispatch"] if fused else [])),
+        params=params)
+    hits = "--prefix-cache" in kv_flags
+    host_s = dict.fromkeys(HOST_TIMED, 0.0)
+
+    def timed(name, fn):
+        def call(*a, **kw):
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            host_s[name] += time.perf_counter() - t0
+            return out
+        return call
+
+    # the host's share of a step: the timeline replay, and in paged mode
+    # mapping the rows' write ranges (with their copies) and the step's plan
+    eng._account = timed("_account", eng._account)
+    eng._map_rows = timed("_map_rows", eng._map_rows)
+    plan_fn = attention.paged_plan
+    attention.paged_plan = timed("paged_plan", plan_fn)
+    try:
+        return _profile(eng, lm, steps, fused, tier_flags, chunk, kv_flags,
+                        layers, hits, host_s)
+    finally:
+        attention.paged_plan = plan_fn
+
+
+def _profile(eng, lm, steps, fused, tier_flags, chunk, kv_flags, layers,
+             hits, host_s):
     import numpy as np
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    flags = ["--layers", str(layers), "--cache-rate", "0.5", "--policy",
-             "buddy", "--predictor", "prev-step", "--batch", "4"]
-    eng, lm = serve.build_engine(
-        serve.parse_args(flags + list(tier_flags)
-                         + (["--fused-dispatch"] if fused else [])),
-        params=params)
-    account_s = [0.0]
-    account = eng._account
-
-    def timed_account(*a, **kw):
-        t0 = time.perf_counter()
-        account(*a, **kw)
-        account_s[0] += time.perf_counter() - t0
-
-    eng._account = timed_account
-    prompts = lm.sample(4, 2 * steps * chunk + 4)
-    caches = eng.init_caches(4, 2 * steps * chunk + 4)
+    n_tok = 2 * steps * chunk + 4 + (HIT + chunk if hits else 0)
+    prompts = lm.sample(4, n_tok)
+    caches = eng.init_caches(4, n_tok)
     tok = eng._tokens(prompts[:, 0])
     for pos in range(3):                           # warm-up
         _, caches = eng.step(tok, caches, pos)
         tok = eng._tokens(prompts[:, pos + 1])
+    if hits:
+        # row 0 prefills and donates 64 tokens; the others share its first
+        # HIT and go on with their own
+        caches = eng.reset_rows(caches, range(4))
+        donor = prompts[0, :HIT + 4].copy()
+        for p in range(0, HIT + 4, 16):
+            eng.prefill_rows(np.tile(donor[p:p + 16], (4, 1)),
+                             np.arange(4) == 0, caches,
+                             base_pos=np.full(4, p))
+        eng.insert_prefix(0, donor)
+        prompts[:, :HIT] = donor[:HIT]
+        prompts[:, HIT] = (donor[HIT] + 1 + np.arange(4)) % eng.cfg.vocab_size
     torch.cuda.synchronize()
+
+    def hit_step():
+        """Admit four rows with a prefix hit and take their first step."""
+        eng.reset_rows(caches, range(4))
+        assert all(eng.adopt_prefix(r, prompts[r]) == HIT for r in range(4))
+        if chunk == 1:
+            return eng.step(eng._tokens(prompts[:, HIT]), caches,
+                            np.full(4, HIT))
+        return eng.prefill_rows(prompts[:, HIT:HIT + chunk],
+                                np.ones(4, bool), caches,
+                                base_pos=np.full(4, HIT))
 
     def run(first):
         nonlocal tok, caches
-        account_s[0] = 0.0
+        for k in host_s:
+            host_s[k] = 0.0
         t0 = time.perf_counter()
         for pos in range(first, first + steps * chunk, chunk):
-            if chunk == 1:
+            if hits:
+                logits, caches = hit_step()
+                eng.sample_tokens(logits if chunk == 1 else logits[:, -1],
+                                  True)
+            elif chunk == 1:
                 logits, caches = eng.step(tok, caches, pos)
                 tok = eng._tokens(eng.sample_tokens(logits, True))
             else:
@@ -84,16 +144,25 @@ def profile_dispatch(serve, params, layers: int, steps: int, fused: bool,
                     base_pos=np.full(4, pos))
                 eng.sample_tokens(logits[:, -1], True)
         torch.cuda.synchronize()
-        return time.perf_counter() - t0, account_s[0]
+        return time.perf_counter() - t0, dict(host_s)
 
-    wall, acc = run(3)                             # without the profiler
+    wall, host = run(3)                            # without the profiler
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         wall_prof, _ = run(3 + steps * chunk)
     # device-side kernel and copy events only: the CPU-side aten ops that
     # launched them carry the same device time again
+    # a range's kernels' device time is its CPU-side event's total; the
+    # device-side annotation of the same name spans the launch gaps
+    # between those kernels too, so it is not used
+    named = {e.key: (float(getattr(e, "device_time_total",
+                                   getattr(e, "cuda_time_total", 0.0))),
+                     e.count)
+             for e in prof.key_averages()
+             if e.key in RANGES and e.device_type == DeviceType.CPU}
     rows = [(e.key, _device_us(e), e.count) for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and _device_us(e) > 0]
+            if e.device_type == DeviceType.CUDA and _device_us(e) > 0
+            and e.key not in RANGES]
     busy_us = sum(r[1] for r in rows)
     rows.sort(key=lambda r: -r[1])
     return {
@@ -101,10 +170,18 @@ def profile_dispatch(serve, params, layers: int, steps: int, fused: bool,
                                            else "capacity"),
         "layers": layers, "steps": steps, "chunk_tokens": 4 * chunk,
         "tier": " ".join(tier_flags) or "off",
+        "kv": ("paged, prefix hit steps" if hits else
+               "paged" if kv_flags else "ring"),
+        "named_ranges": {k: {"device_ms_per_step": us / steps / 1e3,
+                             "calls_per_step": n / steps}
+                         for k, (us, n) in sorted(named.items())},
+        "cow_copies": (eng.kv_pool.cow_copies if eng.kv_pool is not None
+                       else 0),
         "degraded_slots_all_steps": (eng.tier.degraded_tokens
                                      if eng.tier is not None else 0),
         "wall_ms_per_step": wall / steps * 1e3,
-        "host_account_ms_per_step": acc / steps * 1e3,
+        "host_account_ms_per_step": host["_account"] / steps * 1e3,
+        "host_ms_per_step": {k: v / steps * 1e3 for k, v in host.items()},
         "profiled_wall_ms_per_step": wall_prof / steps * 1e3,
         "device_busy_ms_per_step": busy_us / steps / 1e3,
         "device_ops_per_step": sum(r[2] for r in rows) / steps,
@@ -125,10 +202,18 @@ def main() -> int:
     ap.add_argument("--prefill-chunk", type=int, default=1,
                     help="> 1: time chunk steps of 4 rows x this many "
                          "prompt tokens instead of decode steps")
+    ap.add_argument("--paged-kv", action="store_true",
+                    help="KV in a block pool of 16-token blocks")
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="with --paged-kv: time prefix hits' first steps")
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
+    if args.prefix_cache and not args.paged_kv:
+        ap.error("--prefix-cache requires --paged-kv")
     tier_flags = () if args.quant_tier == "off" else (
         "--quant-tier", args.quant_tier, "--tier-coverage", "0.5")
+    kv_flags = (["--paged-kv", "--kv-block", "16"] if args.paged_kv else []) \
+        + (["--prefix-cache"] if args.prefix_cache else [])
     import torch
     if not torch.cuda.is_available():
         print("profile_torch_decode: no CUDA device", file=sys.stderr)
@@ -148,7 +233,7 @@ def main() -> int:
            "results": []}
     for fused in (True, False):
         res = profile_dispatch(serve, params, args.layers, args.steps, fused,
-                               tier_flags, args.prefill_chunk)
+                               tier_flags, args.prefill_chunk, kv_flags)
         print(json.dumps(res), flush=True)
         out["results"].append(res)
     if args.out:
