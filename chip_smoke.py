@@ -85,6 +85,34 @@ committed fixture under ``results/bench``). Phases, one JSON line each:
            three ways (prefix cache, paged alone, ring): every hit
            request's first-token logits agree within LOGIT_TOL (equal
            generated tokens printed, not required)
+  telemetry  the serve phase's batch (fused) and continuous (a)'s
+           configuration on the same weights, each four times on one
+           engine: telemetry off, Telemetry.with_trace() twice, off again
+           (installed by reset_runtime). Tokens, stats, ledger and stall
+           breakdown equal in all four; per run with the recorder, one
+           outcomes instant per MoE layer per step (hit and buddy sums equal
+           to the engine's counters), one step span per step, a fetch
+           calibration row per fetch, the request track complete for every
+           request; the JSONL export (chiprun_out/trace_*.jsonl) read back
+           equal, the Perfetto export (trace_*.json) parsed; wall ms per
+           lockstep, chunk and decode step off and on
+  mesh     the same weights, batch 4, 8 + 8 tokens, on a simulated mesh
+           (--n-devices 4) in precedence and in cost mode beside one device:
+           peer borrows, peer stall equal in the stall breakdown and the
+           mesh summary, the three links' peer bytes equal to the borrows'
+           expert bytes; every route call of the mesh runs (with the
+           engine's peer_ok / peer_cost) against route_plain on the card;
+           the committed fixture at 4 devices in both modes, CPU against
+           the card (tokens, stats, ledger, stall breakdown, mesh summary
+           equal, logits within LOGIT_TOL); wall ms per step against one
+           device
+  placement  continuous (b) (int8 tier at coverage 0.5, the capacity
+           branch) without placement, then with --placement live
+           --placement-interval-ms 1 on one device and on two: every
+           request served, ticks and a coverage re-pick or replica, a peer
+           push at two devices, the int8 replicas where they were and no
+           more device memory held after the run or at its peak than
+           without placement; expert_ffn and quant_ffn launches
   train_parity  the reduced rwkv6 config, weights from seed 0 made on the
            CPU: one train step on the CPU (plain) and one on the card
            (kernel); loss, grad norm and every gradient agree
@@ -136,6 +164,17 @@ DECODE_TOL = 5e-4              # chunked forward vs step-by-step decode,
 #                                summing in another order through exp(+-la)
 SERVE_KERNELS = ("topk_gate", "expert_ffn", "grouped_ffn", "quant_ffn",
                  "route")
+# the serve phase's batch and the continuous phase's runs: full width, 8
+# layers, cache-rate 0.5
+SERVE_FLAGS = ["--arch", "deepseek-v2-lite-buddy", "--layers", "8",
+               "--cache-rate", "0.5", "--policy", "buddy", "--predictor",
+               "prev-step", "--batch", "4", "--steps", "8"]
+CONTINUOUS_FLAGS = ["--arch", "deepseek-v2-lite-buddy", "--layers", "8",
+                    "--cache-rate", "0.5", "--policy", "buddy", "--mode",
+                    "continuous", "--slots", "4", "--num-requests", "8",
+                    "--steps", "8", "--prefill-chunk", "8"]
+TIER_FLAGS = ["--quant-tier", "int8", "--tier-coverage", "0.5"]
+OUT_DIR = ROOT / "chiprun_out"     # trace exports (git ignores it)
 
 
 def emit(obj) -> None:
@@ -832,10 +871,11 @@ def kernel_route(dev, gen):
 
 # ---------------------------------------------------------------------------
 def _fixture_run(device, fused: bool, tier: bool = False, paged=False,
-                 **policy):
+                 n_devices: int = 1, **policy):
     """Serve the committed profiling fixture, with the int8 tier when asked
-    for and ``policy``'s further BuddyPolicy fields; returns (tokens,
-    summary, per-step logits). ``paged``: paged KV in 8-token blocks with
+    for, on a simulated mesh of ``n_devices``, and ``policy``'s further
+    BuddyPolicy fields; returns (tokens, summary, per-step logits).
+    ``paged``: paged KV in 8-token blocks with
     the prefix cache, serving six requests on a 20-token shared prefix
     through the continuous scheduler (2 slots, chunks of 4), so that
     later arrivals adopt it and copy its tail block on write."""
@@ -869,7 +909,8 @@ def _fixture_run(device, fused: bool, tier: bool = False, paged=False,
                       cache=None if tier else cache, tier=store,
                       predictor=PrevStepPredictor(n_moe, e_n),
                       prefetch_k=max(1, cache.capacity // 2),
-                      paged_kv=paged, kv_block=8, prefix_cache=paged)
+                      paged_kv=paged, kv_block=8, prefix_cache=paged,
+                      n_devices=n_devices)
     logits = []
     if paged:
         from repro_torch.serving import scheduler as S
@@ -1041,16 +1082,14 @@ def phase_serve():
     from repro_torch.launch import serve
     from repro_torch.models.common import tree_leaves
     torch.cuda.reset_peak_memory_stats()
-    flags = ["--arch", "deepseek-v2-lite-buddy", "--layers", "8",
-             "--cache-rate", "0.5", "--policy", "buddy", "--predictor",
-             "prev-step", "--batch", "4", "--steps", "8"]
+    flags = SERVE_FLAGS
     cfg = serve.model_config(serve.parse_args(flags))
     ops.reset_launch_counts()                  # path 1 starts here
     base = _serve_path(serve, flags, None, 2)
     counts_base = ops.launch_counts()          # ... and ends here
     params = base["engines"][0].params
     ops.reset_launch_counts()                  # path 2 (the tier) starts here
-    tier_flags = flags + ["--quant-tier", "int8", "--tier-coverage", "0.5"]
+    tier_flags = flags + TIER_FLAGS
     tier = _serve_path(serve, tier_flags, params, 3)
     counts_tier = ops.launch_counts()          # ... and ends here
     ops.reset_launch_counts()                  # path 3 (cost mode) starts here
@@ -1249,10 +1288,7 @@ def phase_continuous(params):
     from repro_torch.launch import serve
     from repro_torch.serving import scheduler as S
     from repro_torch.training.data import MarkovLM
-    flags = ["--arch", "deepseek-v2-lite-buddy", "--layers", "8",
-             "--cache-rate", "0.5", "--policy", "buddy", "--mode",
-             "continuous", "--slots", "4", "--num-requests", "8", "--steps",
-             "8", "--prefill-chunk", "8"]
+    flags = CONTINUOUS_FLAGS
     cfg = serve.model_config(serve.parse_args(flags))
     vocab = cfg.vocab_size
 
@@ -1273,8 +1309,7 @@ def phase_continuous(params):
     runs = (("a_launcher_fused", lambda: run_main(flags + ["--fused-dispatch"]),
              ("route", "grouped_ffn")),
             ("b_launcher_int8_tier_capacity",
-             lambda: run_main(flags + ["--quant-tier", "int8",
-                                       "--tier-coverage", "0.5"]),
+             lambda: run_main(flags + TIER_FLAGS),
              ("route", "expert_ffn", "quant_ffn")),
             ("c_long_prompts_chunk128", run_long, ("route", "grouped_ffn")))
     t_phase = time.perf_counter()
@@ -1357,10 +1392,7 @@ def phase_paged(params, ring_row: dict) -> dict:
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
     from repro_torch.serving import scheduler as S
-    base = ["--arch", "deepseek-v2-lite-buddy", "--layers", "8",
-            "--cache-rate", "0.5", "--policy", "buddy", "--mode",
-            "continuous", "--slots", "4", "--num-requests", "8", "--steps",
-            "8", "--prefill-chunk", "8", "--fused-dispatch"]
+    base = CONTINUOUS_FLAGS + ["--fused-dispatch"]
     paged = ["--paged-kv", "--kv-block", "16"]
     flags = base + paged
     cfg = serve.model_config(serve.parse_args(flags))
@@ -1467,6 +1499,388 @@ def phase_paged(params, ring_row: dict) -> dict:
     require(len(hit) >= 4, f"paged (c): {len(hit)} prefix hits")
     require(max(errs.values()) <= LOGIT_TOL,
             f"paged (c): first-token logits differ: {errs}")
+    return total
+
+
+# ---------------------------------------------------------------------------
+def _fresh(reqs):
+    """Unserved copies of a request list: the same prompts and arrivals."""
+    import dataclasses
+    return [dataclasses.replace(r, tokens=[], token_times=[]) for r in reqs]
+
+
+def _step_ms(log: StepLog) -> dict:
+    """Median wall ms per step of one run, by kind (``lockstep``: a batch
+    ``generate``'s decode steps)."""
+    out = {}
+    for kind, name in (("chunk", "chunk"), ("decode", "decode"),
+                       ("probe", "lockstep")):
+        ms = [st["ms"] for st in log.steps if st["kind"] == kind]
+        if ms:
+            out[f"{name}_steps"] = len(ms)
+            out[f"{name}_wall_ms_median"] = statistics.median(ms)
+    return out
+
+
+def _trace_digest(tag: str, eng, tele, reqs=None, export=False) -> dict:
+    """Hold a run's flight-recorder events against the engine's counters:
+    one ``outcomes`` instant per MoE layer per step whose hit and buddy
+    sums are the engine's, one ``step`` span per step, as many fetch
+    calibration rows as fetches and, with ``reqs``, every served request's
+    track complete. ``export``: write the JSONL and Perfetto exports under
+    chiprun_out/, read the JSONL back equal and parse the Perfetto JSON."""
+    from repro_torch.runtime.trace import FlightRecorder, export_trace
+    evs = tele.trace.sorted_events()
+    by_kind = {}
+    for e in evs:
+        by_kind[e["kind"]] = by_kind.get(e["kind"], 0) + 1
+    outcomes = [e for e in evs if e["kind"] == "outcomes"]
+    sums = {k: sum(e["args"][k] for e in outcomes)
+            for k in ("hit", "buddy", "degraded", "fetch", "drop")}
+    st = eng.stats
+    row = {"events": len(evs), "by_kind": by_kind, "outcome_sums": sums,
+           "fetch_calibration_n": tele.calibration.summary()["fetch"]["n"]}
+    require(len(outcomes) == st.steps * eng.num_moe_layers
+            and by_kind.get("step") == st.steps,
+            f"telemetry ({tag}): {len(outcomes)} outcomes instants and "
+            f"{by_kind.get('step')} step spans for {st.steps} steps")
+    require(sums["hit"] == st.n_hit and sums["buddy"] == st.n_sub,
+            f"telemetry ({tag}): outcome sums {sums} against n_hit "
+            f"{st.n_hit}, n_sub {st.n_sub}")
+    require(row["fetch_calibration_n"] == st.n_miss_fetch,
+            f"telemetry ({tag}): {row['fetch_calibration_n']} fetch "
+            f"calibration rows for {st.n_miss_fetch} fetches")
+    if reqs is not None:
+        lanes = {}
+        for e in evs:
+            if e["track"] == "requests":
+                lanes.setdefault(e["lane"], set()).add(e["kind"])
+        want = {"arrive", "queued", "prefill", "decode", "retire"}
+        served = [r.rid for r in reqs if r.finished_s >= 0]
+        row["request_tracks_complete"] = sum(
+            want <= lanes.get(rid, set()) for rid in served)
+        require(row["request_tracks_complete"] == len(served) == len(reqs),
+                f"telemetry ({tag}): {row['request_tracks_complete']} "
+                f"complete request tracks for {len(reqs)} requests")
+    if export:
+        OUT_DIR.mkdir(exist_ok=True)
+        jl, pf = OUT_DIR / f"trace_{tag}.jsonl", OUT_DIR / f"trace_{tag}.json"
+        n_jl, n_pf = export_trace(tele.trace, str(jl)), export_trace(
+            tele.trace, str(pf))
+        with open(pf) as f:
+            perfetto = json.load(f)
+        row.update(jsonl=str(jl.relative_to(ROOT)), jsonl_events=n_jl,
+                   perfetto=str(pf.relative_to(ROOT)), perfetto_events=n_pf)
+        require(FlightRecorder.load_jsonl(str(jl)) == evs and n_jl == len(evs),
+                f"telemetry ({tag}): the JSONL export does not read back")
+        require(n_pf == len(perfetto["traceEvents"]) > 0,
+                f"telemetry ({tag}): the Perfetto export does not parse")
+    return row
+
+
+def phase_telemetry(params):
+    """Telemetry off and on at full width (8 layers) on the serve phase's
+    weights; see the module note. Returns the phase's launches."""
+    import contextlib
+    import io
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.runtime.telemetry import Telemetry
+    from repro_torch.serving import scheduler as S
+    t_phase = time.perf_counter()
+    out = {"phase": "telemetry", "order": ["off", "on", "on", "off"]}
+    ops.reset_launch_counts()                  # the phase's runs start here
+    for mode, flags in (("batch", SERVE_FLAGS + ["--fused-dispatch"]),
+                        ("continuous",
+                         CONTINUOUS_FLAGS + ["--fused-dispatch"])):
+        args = serve.parse_args(flags)
+        eng, lm = serve.build_engine(args, params=params)
+        if mode == "batch":
+            prompts = lm.sample(args.batch, 8)
+        else:
+            with contextlib.redirect_stdout(io.StringIO()):
+                reqs0 = serve.continuous_requests(args, eng, lm)
+        rows, results = [], []
+        for i, on in enumerate((False, True, True, False)):
+            # a fresh bundle (or none) is installed by reset_runtime, which
+            # also gives each run the same fresh serving state
+            eng.telemetry = (Telemetry.with_trace(
+                predictor_label=args.predictor,
+                num_layers=eng.num_moe_layers,
+                num_experts=eng.cfg.moe.num_experts) if on else None)
+            eng.reset_runtime()
+            reqs = None
+            with StepLog() as log:
+                if mode == "batch":
+                    toks = eng.generate(prompts, args.steps).tolist()
+                else:
+                    reqs = _fresh(reqs0)
+                    s = S.ContinuousScheduler(
+                        eng, slots=args.slots,
+                        prefill_chunk=args.prefill_chunk,
+                        adaptive_chunk=args.adaptive_chunk).run(
+                        S.RequestQueue(reqs, admission=args.admission))
+                    require(s["completed"] == s["num_requests"] == len(reqs),
+                            f"telemetry: {s['completed']} of "
+                            f"{s['num_requests']} requests completed")
+                    toks = [r.tokens for r in reqs]
+            es = eng.summary()
+            results.append((toks, {k: es[k] for k in
+                                   ("stats", "ledger", "stall_breakdown")}))
+            row = {"telemetry": "on" if on else "off", **_step_ms(log)}
+            if on:
+                row["trace"] = _trace_digest(f"{mode}", eng, eng.telemetry,
+                                             reqs, export=i == 1)
+                row["summary_keys"] = sorted(es["telemetry"])
+            rows.append(row)
+        same = [results[i] == results[0] for i in range(4)]
+        out[mode] = {"runs": rows, "off_on_equal": same,
+                     "stats": results[0][1]["stats"]}
+        for kind in ("lockstep", "chunk", "decode"):
+            key = f"{kind}_wall_ms_median"
+            if key in rows[0]:
+                off = [r[key] for r in rows if r["telemetry"] == "off"]
+                on_ = [r[key] for r in rows if r["telemetry"] == "on"]
+                out[mode][f"{kind}_wall_ms_off_on"] = [
+                    statistics.fmean(off), statistics.fmean(on_)]
+        require(all(same), f"telemetry ({mode}): tokens, stats, ledger or "
+                           f"stall breakdown differ between off and on runs: "
+                           f"{same}")
+    counts = ops.launch_counts()               # ... and end here
+    out["launches"] = counts
+    out["seconds"] = time.perf_counter() - t_phase
+    emit(out)
+    require(counts["route"] > 0 and counts["grouped_ffn"] > 0,
+            f"telemetry: a kernel of the path did not launch: {counts}")
+    return counts
+
+
+def _route_recorder(calls: list):
+    """ops.route wrapped to keep a copy of every call's inputs and output
+    (the peer inputs included) for the check against route_plain."""
+    import torch
+    from repro_torch.kernels import ops
+    real = ops.route
+
+    def route(*a, **kw):
+        got = real(*a, **kw)
+
+        def cp(v):
+            return v.clone() if torch.is_tensor(v) else v
+
+        calls.append(([cp(v) for v in a], {k: cp(v) for k, v in kw.items()},
+                      type(got)(*[cp(v) for v in got])))
+        return got
+
+    return real, route
+
+
+def phase_mesh(params):
+    """The simulated expert-parallel mesh at full width (8 layers) on the
+    serve phase's weights; see the module note. Returns the launches."""
+    import torch
+    import numpy as np
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.route import route_plain
+    from repro_torch.launch import serve
+    t_phase = time.perf_counter()
+    out = {"phase": "mesh"}
+    flags = SERVE_FLAGS + ["--fused-dispatch"]
+    runs = (("d1_precedence", []),
+            ("d4_precedence", ["--n-devices", "4"]),
+            ("d4_cost", ["--n-devices", "4", "--miss-policy", "cost"]))
+    captured = {}
+    ops.reset_launch_counts()                  # the phase's runs start here
+    for tag, extra in runs:
+        args = serve.parse_args(flags + extra)
+        eng, lm = serve.build_engine(args, params=params)
+        prompts = lm.sample(args.batch, 8)
+        calls = captured.setdefault(tag, [])
+        real, recorder = _route_recorder(calls)
+        ops.route = recorder
+        try:
+            with StepLog() as log:
+                toks = eng.generate(prompts, args.steps)
+        finally:
+            ops.route = real
+        s = eng.summary()
+        st = s["stats"]
+        row = {**_step_ms(log), "n_hit": st["n_hit"], "n_sub": st["n_sub"],
+               "n_miss_fetch": st["n_miss_fetch"],
+               "n_miss_drop": st["n_miss_drop"],
+               "stall_breakdown": s["stall_breakdown"]}
+        require(np.all((toks >= 0) & (toks < eng.cfg.vocab_size)),
+                f"mesh ({tag}): a token outside the vocabulary")
+        require(len(calls) == eng.num_moe_layers * st["steps"],
+                f"mesh ({tag}): {len(calls)} route calls for "
+                f"{st['steps']} steps")
+        if "mesh" in s:
+            m = s["mesh"]
+            peer_bytes = sum(u["bytes_by_cause"].get("peer", 0)
+                             for u in m["links"])
+            row["mesh"] = {k: m[k] for k in ("n_devices", "n_peer_borrow",
+                                             "peer_share", "peer_stall_s")}
+            row["links"] = [{k: u[k] for k in ("name", "busy_s",
+                                               "bytes_by_cause")}
+                            for u in m["links"]]
+            require(m["n_peer_borrow"] > 0 and m["peer_stall_s"] > 0.0,
+                    f"mesh ({tag}): no peer borrow: {row['mesh']}")
+            require(s["stall_breakdown"]["peer_stall_s"] == m["peer_stall_s"],
+                    f"mesh ({tag}): peer stall differs between the stall "
+                    f"breakdown and the mesh summary")
+            require(len(m["links"]) == 3 and peer_bytes
+                    == m["n_peer_borrow"] * eng._expert_bytes,
+                    f"mesh ({tag}): {peer_bytes} peer bytes over "
+                    f"{len(m['links'])} links for {m['n_peer_borrow']} "
+                    "borrows")
+        else:
+            require("peer_stall_s" not in s["stall_breakdown"],
+                    f"mesh ({tag}): a peer stall at one device")
+        out[tag] = row
+    counts = ops.launch_counts()               # ... and end here
+    base = out["d1_precedence"]["lockstep_wall_ms_median"]
+    for tag in ("d4_precedence", "d4_cost"):
+        out[tag]["lockstep_wall_ms_vs_d1"] = (
+            out[tag]["lockstep_wall_ms_median"] / base)
+
+    # route on every captured layer call of the D = 4 runs (the engine's
+    # peer_ok / peer_cost, hop and costs as they reached the card) against
+    # route_plain on the same inputs on the card
+    for tag in ("d4_precedence", "d4_cost"):
+        n_peered, err, equal = 0, 0.0, True
+        for a, kw, got in captured[tag]:
+            want = route_plain(*a, **kw)
+            equal &= all(torch.equal(getattr(got, f), getattr(want, f))
+                         for f in ROUTE_EXACT)
+            err = max(err, max(max_err(getattr(got, f), getattr(want, f))
+                               for f in ("topk_logits", "probs", "tae")))
+            n_peered += int(got.peered.sum())
+        vec = {k: kw[k] is not None for k in ("peer_ok", "peer_cost",
+                                              "fetch_cost")}
+        out[tag]["route_vs_plain"] = {
+            "calls": len(captured[tag]), "ints_and_masks_equal": equal,
+            "max_abs_err": err, "n_peered": n_peered, "inputs": vec}
+        require(equal and err <= TOL_GATE,
+                f"mesh ({tag}): route differs from route_plain on the "
+                f"engine's inputs: {out[tag]['route_vs_plain']}")
+        require(n_peered > 0 and (vec["peer_cost"] if "cost" in tag
+                                  else vec["peer_ok"]),
+                f"mesh ({tag}): no peer input or peered slot reached route")
+
+    # the committed fixture on a 4-device mesh, CPU against the card
+    for tag, pol in (("fixture_d4_precedence", {}),
+                     ("fixture_d4_cost", dict(miss_policy="cost",
+                                              stall_per_quality=2e-4))):
+        t_cpu, s_cpu, l_cpu = _fixture_run("cpu", True, n_devices=4, **pol)
+        t_gpu, s_gpu, l_gpu = _fixture_run("cuda", True, n_devices=4, **pol)
+        err = max_err(l_gpu, l_cpu)
+        row = {k + "_equal": s_cpu[k] == s_gpu[k]
+               for k in ("stats", "ledger", "stall_breakdown", "mesh")}
+        row.update(tokens_equal=bool(np.array_equal(t_cpu, t_gpu)),
+                   logits_max_abs_err=err, logits_tol=LOGIT_TOL,
+                   n_peer_borrow=s_gpu["mesh"]["n_peer_borrow"])
+        out[tag] = row
+        require(all(v for k, v in row.items() if k.endswith("_equal"))
+                and err <= LOGIT_TOL and row["n_peer_borrow"] > 0,
+                f"mesh ({tag}): CPU and card disagree: {row}")
+    out["launches"] = counts
+    out["seconds"] = time.perf_counter() - t_phase
+    emit(out)
+    require(counts["route"] > 0 and counts["grouped_ffn"] > 0,
+            f"mesh: a kernel of the path did not launch: {counts}")
+    return counts
+
+
+def phase_placement(params):
+    """Live placement on continuous (b) at full width (8 layers) on the
+    serve phase's weights; see the module note. Returns the launches."""
+    import contextlib
+    import gc
+    import io
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models.common import tree_leaves
+    t_phase = time.perf_counter()
+    out = {"phase": "placement"}
+    flags = CONTINUOUS_FLAGS + TIER_FLAGS      # (b): the capacity branch
+    live = ["--placement", "live", "--placement-interval-ms", "1"]
+    runs = (("b_off", []), ("b_live_d1", live),
+            ("b_live_d2", live + ["--n-devices", "2"]))
+    total = {}
+    for tag, extra in runs:
+        gc.collect()                           # the last run's engine
+        torch.cuda.empty_cache()
+        args = serve.parse_args(flags + extra)
+        eng, lm = serve.build_engine(args, params=params)
+        quant = tree_leaves([g["moe"]["quant"] for g in eng.params["groups"]
+                             if "quant" in g.get("moe", {})])
+        ptrs = [t.data_ptr() for t in quant]
+        torch.cuda.synchronize()
+        alloc0 = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()              # this run starts here
+        with StepLog() as log, contextlib.redirect_stdout(io.StringIO()):
+            s = serve.serve_continuous(args, eng, lm)
+        counts = ops.launch_counts()           # ... and ends here
+        torch.cuda.synchronize()
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        row = {"completed": s["completed"],
+               "num_requests": s["num_requests"], **_step_ms(log),
+               "degraded_slots": s["engine"]["tier"]["degraded_tokens"],
+               "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+               "allocated_gb_before_after": [
+                   alloc0 / 1e9, torch.cuda.memory_allocated() / 1e9],
+               "replica_tensors_moved": sum(
+                   t.data_ptr() != p for t, p in zip(quant, ptrs)),
+               "launches": {k: counts[k] for k in ("route", "expert_ffn",
+                                                   "quant_ffn",
+                                                   "grouped_ffn")}}
+        if "placement" in s["engine"]:
+            p = dict(s["engine"]["placement"])
+            p.pop("trace")
+            row["placement"] = p
+        # the mesh's own device input: a precedence step ships peer_ok,
+        # [MoE layers, experts] bools, beside the masks D = 1 ships
+        row["peer_input_bytes"] = (eng.num_moe_layers
+                                   * eng.cfg.moe.num_experts
+                                   if eng.n_devices > 1 else 0)
+        if "mesh" in s["engine"]:
+            row["n_peer_borrow"] = s["engine"]["mesh"]["n_peer_borrow"]
+        out[tag] = row
+        eng = log = quant = None
+    out["launches"] = total
+    out["seconds"] = time.perf_counter() - t_phase
+    emit(out)
+    for tag, row in out.items():
+        if not tag.startswith("b_"):
+            continue
+        require(row["completed"] == row["num_requests"] > 0,
+                f"placement ({tag}): {row['completed']} of "
+                f"{row['num_requests']} requests completed")
+        require(all(row["launches"][k] > 0 for k in ("expert_ffn",
+                                                     "quant_ffn", "route")),
+                f"placement ({tag}): a kernel of the path did not launch: "
+                f"{row['launches']}")
+        require(row["replica_tensors_moved"] == 0 and
+                row["allocated_gb_before_after"][1]
+                <= row["allocated_gb_before_after"][0],
+                f"placement ({tag}): device memory moved or grew: {row}")
+        if tag == "b_off":
+            continue
+        p = row["placement"]
+        require(p["n_ticks"] > 0
+                and p["coverage_repicks"] + p["replicas_issued"] > 0,
+                f"placement ({tag}): no tick, re-pick or replica: {p}")
+        require(row["peak_mem_bytes"] <= out["b_off"]["peak_mem_bytes"]
+                + row["peer_input_bytes"],
+                f"placement ({tag}): peak memory above the run without "
+                f"placement (plus the mesh's peer input): "
+                f"{row['peak_mem_bytes']} against "
+                f"{out['b_off']['peak_mem_bytes']} bytes")
+    require(out["b_live_d2"]["placement"]["peer_pushes"] > 0,
+            "placement (b_live_d2): no peer push at two devices")
     return total
 
 
@@ -1658,8 +2072,12 @@ def main() -> int:
     counts, params = phase_serve()
     cont, ring_row = phase_continuous(params)
     paged = phase_paged(params, ring_row)
+    tele = phase_telemetry(params)
+    mesh = phase_mesh(params)
+    place = phase_placement(params)
     del params
-    counts = {k: counts[k] + cont[k] + paged[k] for k in counts}
+    counts = {k: counts[k] + cont[k] + paged[k] + tele[k] + mesh[k]
+              + place[k] for k in counts}
     phase_train_parity()
     counts["wkv_chunk"], params, cfg = phase_train(rows["wkv_chunk"]["ms"])
     phase_decode(params, cfg)

@@ -33,10 +33,24 @@ the card by default.
         --device cpu --mode continuous --paged-kv --kv-block 16 \
         --prefix-cache --prefill-chunk 8
 
-Counterpart of ``repro/launch/serve.py`` for batch and continuous mode,
-quant tier, paged KV and the prefix cache included. Flags of the
-subsystems that are not ported yet (the mesh, live placement, telemetry
-and the trace export) stop with "not ported yet".
+    # expert-parallel mesh: experts sharded across 4 simulated devices; a
+    # miss on a peer-held expert borrows it over ICI
+    PYTHONPATH=src python -m repro_torch.launch.serve --reduced \
+        --device cpu --n-devices 4 --steps 8
+
+    # flight recorder: metrics and calibration in the summary, the event
+    # log written as JSONL (any other suffix: Perfetto trace_event JSON)
+    PYTHONPATH=src python -m repro_torch.launch.serve --reduced \
+        --device cpu --mode continuous --telemetry on --trace-out t.jsonl
+
+    # live placement: tier coverage and replicas follow live traffic
+    PYTHONPATH=src python -m repro_torch.launch.serve --reduced \
+        --device cpu --mode continuous --quant-tier int8 \
+        --tier-coverage 0.5 --placement live --placement-interval-ms 1
+
+Counterpart of ``repro/launch/serve.py``: batch and continuous mode, the
+quant tier, paged KV and the prefix cache, the simulated mesh, live
+placement, telemetry and the trace export (schema: docs/trace_schema.md).
 """
 from __future__ import annotations
 
@@ -56,10 +70,13 @@ from repro_torch.core.quantize import TIER_BITS
 from repro_torch.models import transformer
 from repro_torch.models.common import resolve_device
 from repro_torch.runtime.cache import ExpertCache
+from repro_torch.runtime.placement import PlacementController
 from repro_torch.runtime.prefetch import (AdaptiveBudgetController,
                                           CrossLayerPredictor,
                                           PrevStepPredictor, TopFreqPredictor)
+from repro_torch.runtime.telemetry import Telemetry
 from repro_torch.runtime.tiers import TieredExpertStore
+from repro_torch.runtime.trace import export_trace
 from repro_torch.serving.engine import ServeEngine
 from repro_torch.serving.scheduler import (BurstyArrivals,
                                            ContinuousScheduler,
@@ -202,24 +219,52 @@ def parse_args(argv=None):
                          "admitted requests adopt the longest cached prefix "
                          "and prefill only the novel suffix (requires "
                          "--paged-kv)")
-    # subsystems that are not ported yet: present so that they fail loudly
-    ap.add_argument("--n-devices", type=int, default=1)
-    ap.add_argument("--placement", choices=["off", "live"], default="off")
-    ap.add_argument("--telemetry", choices=["off", "on"], default="off")
-    ap.add_argument("--trace-out", default=None)
+    # -- expert-parallel mesh (peer-HBM borrowing over ICI) --------------
+    ap.add_argument("--n-devices", type=int, default=1,
+                    help="simulated expert-parallel mesh size (1-8): "
+                         "experts shard round-robin across devices; a miss "
+                         "on an expert a peer holds borrows it over that "
+                         "device's ICI link (the fifth miss outcome)")
+    ap.add_argument("--ici-gbps", type=float, default=0.0,
+                    help="per-ICI-link bandwidth in GB/s (0: hardware "
+                         "model default)")
+    ap.add_argument("--no-peer-borrow", action="store_true",
+                    help="mesh ablation: shard experts but resolve misses "
+                         "with the four single-device outcomes only")
+    # -- live placement (runtime/placement.py) ---------------------------
+    ap.add_argument("--placement", choices=["off", "live"], default="off",
+                    help="live traffic->placement loop: every refresh "
+                         "window of SIMULATED time, re-pick the quant "
+                         "tier's covered experts from live activity EMAs, "
+                         "background-replicate persistently-hot experts, "
+                         "and on a mesh push hot experts to underloaded "
+                         "peers")
+    ap.add_argument("--placement-interval-ms", type=float, default=1.0,
+                    help="simulated ms between placement ticks")
+    ap.add_argument("--placement-hot-windows", type=int, default=3,
+                    help="hysteresis: consecutive hot windows an expert "
+                         "needs before it earns a replica")
+    ap.add_argument("--placement-top-k", type=int, default=0,
+                    help="experts per layer counted as hot each window "
+                         "(0: half the cache capacity)")
+    # -- observability (runtime/telemetry.py + runtime/trace.py) ---------
+    ap.add_argument("--telemetry", choices=["off", "on"], default="off",
+                    help="attach the flight recorder: metrics registry, "
+                         "miss-cost calibration and prefetch meters in the "
+                         "final summary")
+    ap.add_argument("--trace-out", default=None, metavar="PATH",
+                    help="write the event log here after the run (implies "
+                         "--telemetry on): '*.jsonl' = lossless JSONL, "
+                         "anything else = Chrome/Perfetto trace_event JSON")
     args = ap.parse_args(argv)
-    for flag, on in (("--n-devices > 1", args.n_devices != 1),
-                     ("--placement live", args.placement != "off"),
-                     ("--telemetry", args.telemetry != "off"),
-                     ("--trace-out", args.trace_out is not None)):
-        if on:
-            ap.error(f"{flag}: not ported yet")
     if args.lookahead < 1:
         ap.error("--lookahead must be >= 1 (layers ahead to prefetch)")
     if args.prefill_chunk < 1:
         ap.error("--prefill-chunk must be >= 1 (prompt tokens per fused step)")
     if args.trace and args.mode != "continuous":
         ap.error("--trace replays a request stream: use --mode continuous")
+    if not 1 <= args.n_devices <= 8:
+        ap.error("--n-devices must be in 1..8")
     if args.layers < 0:
         ap.error("--layers must be >= 0")
     if not 0.0 < args.tier_coverage <= 1.0:
@@ -279,6 +324,17 @@ def build_engine(args, params=None):
                   else args.prefetch_k)
     predictor = PREDICTORS[args.predictor](n_moe, cfg.moe.num_experts)
     upgrade = {"auto": None, "on": True, "off": False}[args.upgrade_degraded]
+    tele = None
+    if args.telemetry == "on" or args.trace_out:
+        make = Telemetry.with_trace if args.trace_out else Telemetry
+        tele = make(predictor_label=args.predictor, num_layers=n_moe,
+                    num_experts=cfg.moe.num_experts)
+    placement = None
+    if args.placement == "live":
+        placement = PlacementController(
+            refresh_interval_s=args.placement_interval_ms * 1e-3,
+            hot_windows=args.placement_hot_windows,
+            hot_top_k=args.placement_top_k or None)
     eng = ServeEngine(cfg, params, tables=tables, policy=policy,
                       cache=None if tier is not None else cache, tier=tier,
                       upgrade_degraded=upgrade,
@@ -288,7 +344,11 @@ def build_engine(args, params=None):
                                            < 0 else args.prefetch_min_saving),
                       paged_kv=args.paged_kv, kv_block=args.kv_block,
                       kv_blocks=args.kv_blocks or None,
-                      prefix_cache=args.prefix_cache)
+                      prefix_cache=args.prefix_cache,
+                      telemetry=tele, n_devices=args.n_devices,
+                      ici_gbps=args.ici_gbps if args.ici_gbps > 0 else None,
+                      peer_borrow=not args.no_peer_borrow,
+                      placement=placement)
     return eng, lm
 
 
@@ -356,7 +416,7 @@ def main(argv=None, params=None) -> dict:
               f"{s['ttft_s']['p99']*1e3:.2f}ms  "
               f"goodput {s['goodput_rps']:.1f} req/s  "
               f"SLO-met {s['slo_met_frac']*100:.0f}%")
-        report_prefix(s["engine"])
+        report(s["engine"], eng, args.trace_out)
         return s
     out = eng.generate(lm.sample(args.batch, 8), max_new_tokens=args.steps)
     s = eng.summary()
@@ -372,8 +432,72 @@ def main(argv=None, params=None) -> dict:
               f"{t['tier_budget_split']['cache_slots_per_layer']} full "
               f"slots/layer left")
     print("sample output tokens:", out[0, -16:].tolist())
-    report_prefix(s)
+    report(s, eng, args.trace_out)
     return s
+
+
+def report(s: dict, eng, trace_out=None) -> None:
+    """The digests of an engine summary: paged KV, mesh, placement and
+    telemetry (each only where its subsystem is on), then the trace
+    export."""
+    report_prefix(s)
+    report_mesh(s)
+    report_placement(s)
+    report_telemetry(eng.telemetry, trace_out)
+
+
+def report_mesh(s: dict) -> None:
+    """Per-link digest of a mesh run (nothing at one device)."""
+    if "mesh" not in s:
+        return
+    m = s["mesh"]
+    print(f"[mesh] {m['n_devices']} devices, peer-borrow "
+          f"{'on' if m['peer_borrow'] else 'off'}: "
+          f"{m['n_peer_borrow']} borrows ({m['peer_share']*100:.1f}% of "
+          f"served slots), peer stall {m['peer_stall_s']*1e3:.2f}ms")
+    for link in m["links"]:
+        by = ", ".join(f"{k} {v/1e6:.2f}MB"
+                       for k, v in link["bytes_by_cause"].items())
+        print(f"[mesh]   {link['name']}: busy {link['busy_s']*1e3:.2f}ms, "
+              f"queue {link['queue_depth']}, {by or 'idle'}")
+
+
+def report_placement(s: dict) -> None:
+    """Live-placement digest (nothing without a controller)."""
+    if "placement" not in s:
+        return
+    p = s["placement"]
+    print(f"[placement] {p['n_ticks']} ticks every "
+          f"{p['refresh_interval_s']*1e3:.2f}ms: "
+          f"{p['coverage_repicks']} coverage re-picks, "
+          f"{p['replicas_issued']} replicas issued "
+          f"({p['active_replicas']} live, "
+          f"{p['replicas_reclaimed']} reclaimed), "
+          f"{p['peer_pushes']} peer pushes")
+
+
+def report_telemetry(tele, trace_out) -> None:
+    """One-line calibration and prefetch digest, then the --trace-out
+    export (the full nested summary is already in the engine summary)."""
+    if tele is None:
+        return
+    parts = []
+    for o, c in tele.calibration.summary().items():
+        p = f"{o} n={c['n']}"
+        if c["n"]:
+            p += f" |resid| {c['residual_abs_mean_s']*1e3:.3f}ms"
+        parts.append(p)
+    print("[telemetry] calibration: " + "; ".join(parts))
+    pf = tele.prefetch.summary()
+    print(f"[telemetry] prefetch[{pf['predictor']}]: precision "
+          f"{pf['precision']:.3f} recall {pf['recall']:.3f} issued "
+          f"{pf['issued']} used-in-time {pf['used_in_time']} late "
+          f"{pf['late']} expected-saved "
+          f"{pf['expected_stall_saved_s']*1e3:.2f}ms")
+    if trace_out:
+        n = export_trace(tele.trace, trace_out)
+        kind = "JSONL" if trace_out.endswith(".jsonl") else "Perfetto"
+        print(f"[telemetry] wrote {n} {kind} trace events to {trace_out}")
 
 
 def report_prefix(s: dict) -> None:

@@ -27,8 +27,16 @@ are ported for the ring KV cache and for paged KV (``paged_kv=True``: a
 runtime.paged_kv.PagedKVPool of blocks behind per-row block tables, with
 copy-on-write), and so is the radix prefix cache over that pool
 (``prefix_cache=True``: serving.prefix.PrefixTree, ``adopt_prefix`` and
-``insert_prefix``). Not ported yet (they raise NotImplementedError):
-telemetry, the multi-device mesh and live placement.
+``insert_prefix``). So are the reference's three observers and
+extensions of the host loop: telemetry (``telemetry=``, a
+runtime.telemetry.Telemetry: spans, counters, calibration and the
+prefetch meter, read from the host arrays each step already has), the
+simulated expert-parallel mesh (``n_devices`` 2-8: peer HBM pools behind
+their own ICI links on the one event clock, whose borrow masks and costs
+reach the routing on the device) and live placement (``placement=``, a
+runtime.placement.PlacementController ticking on the simulated clock; a
+coverage re-pick moves only the tier's host mask, since every expert's
+replica is already on the device).
 """
 from __future__ import annotations
 
@@ -49,7 +57,8 @@ from repro_torch.runtime.costs import MissCostModel, best_resident_q
 from repro_torch.runtime.memory import (DEFAULT_HW, HardwareModel,
                                         TransferLedger, expert_nbytes)
 from repro_torch.runtime.paged_kv import PagedKVPool
-from repro_torch.runtime.transfers import TransferScheduler
+from repro_torch.runtime.telemetry import ExpertStats, Telemetry
+from repro_torch.runtime.transfers import TransferScheduler, make_ici_links
 from repro_torch.serving.prefix import PrefixTree
 
 # per-slot masks pulled back to the host each step, in this order
@@ -78,10 +87,6 @@ class EngineStats:
         return self.tokens / self.sim_time_s if self.sim_time_s else 0.0
 
 
-def _not_ported(what: str):
-    raise NotImplementedError(f"{what} is not ported yet")
-
-
 class ServeEngine:
     def __init__(self, cfg: ModelConfig, params, *,
                  tables: Optional[BuddyTables] = None,
@@ -95,7 +100,8 @@ class ServeEngine:
                  seed: int = 0,
                  prefetch_min_saving: Optional[float] = None,
                  tier=None, upgrade_degraded: Optional[bool] = None,
-                 telemetry=None, n_devices: int = 1,
+                 telemetry: Optional[Telemetry] = None, n_devices: int = 1,
+                 ici_gbps: Optional[float] = None, peer_borrow: bool = True,
                  paged_kv: bool = False, kv_block: int = 16,
                  kv_blocks: Optional[int] = None, prefix_cache: bool = False,
                  placement=None):
@@ -112,16 +118,31 @@ class ServeEngine:
         footprint, ``batch * ceil(seq_len / kv_block)``); attention stacks
         without a sliding window only. prefix_cache: the radix tree over
         that pool, which lets an admitted request adopt the KV of a cached
-        prompt prefix (needs paged_kv)."""
+        prompt prefix (needs paged_kv).
+
+        telemetry: a runtime.telemetry.Telemetry bundle (flight-recorder
+        spans on the simulated clock, per-expert EMAs, miss-cost
+        calibration, the prefetch meter); a pure observer, so None runs
+        the same steps and decisions.
+
+        n_devices: expert-parallel mesh size (1-8). Experts are sharded
+        round-robin (owner[e] = e % D); device 0 computes, devices 1..D-1
+        are simulated peer HBM pools, each behind its own ICI link (hop-
+        priced) on the one event clock. A miss on an expert a peer holds
+        can be borrowed over ICI (the fifth miss outcome) and lands in
+        device 0's cache. ici_gbps: per-link bandwidth in GB/s (None:
+        hw.ici_bw). peer_borrow: False keeps the sharding but resolves
+        misses with the four single-device outcomes.
+
+        placement: a runtime.placement.PlacementController, fed each layer's
+        activity and ticked on the simulated clock (coverage re-picks,
+        background replicas, peer pushes at D > 1)."""
         if not cfg.is_moe:
             raise ValueError("ServeEngine's expert cache applies to MoE archs")
         if lookahead < 1:
             raise ValueError("lookahead: layers ahead to prefetch (>= 1)")
-        for what, on in (("telemetry", telemetry is not None),
-                         ("the multi-device mesh", int(n_devices) != 1),
-                         ("live placement", placement is not None)):
-            if on:
-                _not_ported(what)
+        if not 1 <= int(n_devices) <= 8:
+            raise ValueError(f"n_devices: 1-8 device mesh, got {n_devices}")
         if paged_kv:
             if kv_block < 1:
                 raise ValueError(f"kv_block must be >= 1, got {kv_block}")
@@ -143,7 +164,6 @@ class ServeEngine:
         self._prefix_hits = 0
         self._prefix_hit_tokens = 0
         self._prefix_novel_tokens = 0
-        self.telemetry = None          # read by serving.scheduler.summary
         self.tier = tier
         if tier is not None:
             if policy.quant_tier == "off":
@@ -172,7 +192,6 @@ class ServeEngine:
         self.prefetch_k = prefetch_k
         self.lookahead = lookahead
         self.hw = hw
-        self.cache.enable_mesh(1)
         self.window = window
         self._expert_bytes = expert_nbytes(cfg.d_model, cfg.moe.d_ff)
         self._active_params = cfg.active_param_count()
@@ -189,6 +208,13 @@ class ServeEngine:
         # residency commits and byte counts are driven by the same timeline
         self.scheduler.add_listener(self.cache.on_transfer_event)
         self.ledger.attach(self.scheduler)
+        self.n_devices = int(n_devices)
+        self.peer_borrow = bool(peer_borrow)
+        self._ici_bw = (hw.ici_bw if ici_gbps is None
+                        else float(ici_gbps) * 1e9)
+        self.cache.enable_mesh(self.n_devices)
+        self.peer_links = self._build_peer_links()
+        self._n_peer_borrow = 0
         if tier is not None:
             self.ledger.tier_upload(tier.quant_bytes)
         self.upgrade_degraded = (self._cost_mode and tier is not None
@@ -198,6 +224,11 @@ class ServeEngine:
         self._last_used: dict = {}
         self.last_prefetch_worthwhile: Optional[int] = None
         self._step_worthwhile: Optional[int] = None
+        self.telemetry = telemetry
+        self._wire_telemetry()
+        self.placement = placement
+        if placement is not None:
+            placement.attach(self)
         # temperature sampling (generate(greedy=False)) draws from here
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
 
@@ -215,34 +246,99 @@ class ServeEngine:
         self._table_dev = torch.from_numpy(self._table).to(self.device)
         self._q_dev = torch.from_numpy(self._q).to(self.device)
 
+    # ------------------------------------------------------------------
+    def _build_peer_links(self) -> dict:
+        """One ICI TransferScheduler per peer device (empty at D=1). Every
+        link shares the engine's event clock, commits borrowed experts into
+        device 0's cache on completion (the host link's listener protocol),
+        and books its bytes and stalls into the shared ledger."""
+        if self.n_devices <= 1:
+            return {}
+        links = make_ici_links(self.n_devices, self.hw, ici_bw=self._ici_bw)
+        for link in links.values():
+            link.add_listener(self._on_peer_link_event)
+            self.ledger.attach(link)
+        return links
+
+    def _on_peer_link_event(self, kind: str, t) -> None:
+        """ICI-link cache listener: a borrow lands in device 0's cache, but
+        a placement 'replicate' push lands in the target peer's HBM (its
+        mask flipped at submit time), so it leaves device 0's state alone."""
+        if t.cause == "replicate":
+            return
+        self.cache.on_transfer_event(kind, t)
+
+    def _links_busy_s(self) -> float:
+        return (self.scheduler.busy_s
+                + sum(l.busy_s for l in self.peer_links.values()))
+
+    def _wire_telemetry(self) -> None:
+        """Attach the telemetry bundle (if any) to the current scheduler
+        and links: the trace hook, the prefetch meter's listener, the
+        tier's counters and the default ExpertStats. Called from __init__
+        and again by reset_runtime, which rebuilds the scheduler."""
+        tele = self.telemetry
+        if tele is None:
+            return
+        self.scheduler.trace = tele.trace
+        self.scheduler.add_listener(tele.prefetch.on_transfer_event)
+        for link in self.peer_links.values():
+            # per-link trace lanes ("transfers:ici<d>"); peer borrows are
+            # demand-class, so the prefetch meter does not listen here
+            link.trace = tele.trace
+        if self.tier is not None:
+            self.tier.telemetry = tele
+        if tele.expert_stats is None:
+            tele.expert_stats = ExpertStats(self.num_moe_layers,
+                                            self.cfg.moe.num_experts)
+
+    def _tier_fidelity(self) -> Optional[np.ndarray]:
+        """[L, E] calibrated replica error with uncovered experts at inf,
+        or None without a tier."""
+        return None if self.tier is None else self.tier.effective_fidelity()
+
     def _buddy_state(self) -> BuddyState:
         res = self.cache.residency_mask()
         hop = np.stack([self.cache.hop_vector(l)
                         for l in range(self.num_moe_layers)])
-        quant_ok = fid_cost = fetch_cost = None
+        quant_ok = fid_cost = fetch_cost = peer_ok = peer_cost = None
+        peer_on = self.peer_borrow and bool(self.peer_links)
         if self._cost_mode:
             # unified cost mode: the in-model argmin consumes per-expert
             # stall-equivalent costs (no tier: the degraded option is inf)
             # expected stall of fetching each expert on a miss THIS step
             # (cold: the full modeled transfer; in flight: its tail)
             eta = self.costs.fetch_eta(self.scheduler)
-            fid = (None if self.tier is None
-                   else self.tier.effective_fidelity())
             fid_cost = torch.as_tensor(self.costs.degraded_cost(
-                fid, shape=eta.shape), dtype=torch.float32).to(self.device)
+                self._tier_fidelity(), shape=eta.shape),
+                dtype=torch.float32).to(self.device)
             fetch_cost = torch.as_tensor(eta, dtype=torch.float32) \
                 .to(self.device)
-        elif self.tier is not None:
-            # precedence mode: degrade a miss whose expected stall buys
-            # the replica's fidelity loss
-            quant_ok = torch.from_numpy(self.tier.degraded_ok(
-                res, self.costs.fetch_eta(self.scheduler))).to(self.device)
+            if peer_on:
+                # [L, E] peer borrow priced from the owning links' live
+                # queues; inf where no peer holds the expert
+                peer_cost = torch.as_tensor(self.costs.peer_eta(
+                    self.peer_links, self.cache.peer_resident),
+                    dtype=torch.float32).to(self.device)
+        else:
+            if self.tier is not None:
+                # precedence mode: degrade a miss whose expected stall buys
+                # the replica's fidelity loss
+                quant_ok = torch.from_numpy(self.tier.degraded_ok(
+                    res, self.costs.fetch_eta(self.scheduler))) \
+                    .to(self.device)
+            if peer_on:
+                # [L, E]: any expert a peer holds is borrowable (chain:
+                # buddy -> degraded -> peer -> fetch/drop)
+                peer_ok = torch.from_numpy(
+                    self.cache.peer_resident.any(axis=0)).to(self.device)
         return BuddyState(resident=torch.from_numpy(res).to(self.device),
                           table=self._table_dev, q=self._q_dev,
                           hop=torch.from_numpy(hop.astype(np.int32))
                           .to(self.device),
                           quant_ok=quant_ok, fid_cost=fid_cost,
-                          fetch_cost=fetch_cost)
+                          fetch_cost=fetch_cost, peer_ok=peer_ok,
+                          peer_cost=peer_cost)
 
     def init_caches(self, batch: int, seq_len: int):
         """Ring KV caches for ``batch`` rows of ``seq_len`` tokens, or in
@@ -290,11 +386,13 @@ class ServeEngine:
         return self.kv_pool.tables
 
     def advance_clock(self, to_time: float) -> None:
-        """Advance the simulated clock (the host PCIe link's timeline) to
-        ``to_time``: the serving schedulers' idle time between steps. The
-        reference also advances its mesh's links; at one device this is
-        exactly ``scheduler.advance``."""
+        """Advance every link of the mesh (host PCIe and each ICI link) to
+        the same simulated instant ``to_time``: the serving schedulers'
+        idle time between steps. At one device this is exactly
+        ``scheduler.advance``."""
         self.scheduler.advance(to_time)
+        for link in self.peer_links.values():
+            link.advance(to_time)
 
     # ------------------------------------------------------------------
     def step(self, token, caches, pos, active: Optional[np.ndarray] = None):
@@ -403,8 +501,6 @@ class ServeEngine:
             self.kv_pool.free_row(int(row))
 
     # -- prefix cache ---------------------------------------------------
-    # (the reference also feeds its telemetry from these two hooks; the
-    # port refuses telemetry for now, in __init__)
     def adopt_prefix(self, row: int, prompt) -> int:
         """Match ``prompt`` against the radix tree and map the longest
         cached prefix into ``row``'s block table (a refcount each; the
@@ -421,6 +517,17 @@ class ServeEngine:
             self._prefix_hits += 1
         self._prefix_hit_tokens += m
         self._prefix_novel_tokens += len(toks) - m
+        tele = self.telemetry
+        if tele is not None:
+            tele.metrics.counter("prefix_tokens", kind="hit").inc(m)
+            tele.metrics.counter("prefix_tokens",
+                                 kind="novel").inc(len(toks) - m)
+            self._prefix_gauges(tele)
+            if m > 0 and tele.trace is not None:
+                tele.trace.instant("engine", 0, "prefix_hit", f"row{row}",
+                                   self.scheduler.now, row=int(row),
+                                   hit_tokens=int(m),
+                                   novel_tokens=int(len(toks) - m))
         return m
 
     def insert_prefix(self, row: int, prompt) -> None:
@@ -431,22 +538,37 @@ class ServeEngine:
             return
         bs = self.kv_pool.block_size
         covered = (len(prompt) // bs) * bs
-        if covered:
-            self.prefix_tree.insert([int(t) for t in prompt[:covered]],
-                                    self.kv_pool.row_blocks(row, covered))
+        if covered == 0:
+            return
+        self.prefix_tree.insert([int(t) for t in prompt[:covered]],
+                                self.kv_pool.row_blocks(row, covered))
+        if self.telemetry is not None:
+            self._prefix_gauges(self.telemetry)
+
+    def _prefix_gauges(self, tele) -> None:
+        occ = self.kv_pool.occupancy()
+        tele.metrics.gauge("kv_pool_used_blocks").set(occ["used_blocks"])
+        tele.metrics.gauge("kv_pool_free_blocks").set(occ["free_blocks"])
+        if self.prefix_tree is not None:
+            tele.metrics.gauge("prefix_tree_nodes").set(
+                self.prefix_tree.n_nodes)
 
     # -- per-layer step timeline ---------------------------------------
     def _account(self, aux, active: np.ndarray) -> None:
         """Replay the step on the transfer timeline, layer by layer.
         ``active`` is a flat [T] token mask. Per-step compute is
-        ``hw.decode_compute_time(active_params, n_valid_tokens)``."""
+        ``hw.decode_compute_time(active_params, n_valid_tokens)``. The
+        telemetry, placement and peer rows read only the host arrays this
+        replay already holds."""
         n_active = int(active.sum())
         if n_active == 0:
             return
         self._step_worthwhile = None
+        tele = self.telemetry
+        trace = tele.trace if tele is not None else None
         sched = self.scheduler
         step_t0 = sched.now
-        busy0 = sched.busy_s
+        busy0 = self._links_busy_s()
         compute_total = self.hw.decode_compute_time(
             self._active_params, n_active)
         per_layer = compute_total / max(1, self.num_moe_layers)
@@ -464,7 +586,7 @@ class ServeEngine:
             for li in range(idx.shape[0]):
                 layer = layer_off + li
                 # transfers in flight overlap all earlier layers' compute
-                sched.advance(cursor)
+                self.advance_clock(cursor)
                 rows = idx[li][active]                        # [T_act, K]
                 used = rows.reshape(-1)
                 self._observe_layer(layer, used)
@@ -491,20 +613,55 @@ class ServeEngine:
                     # model, no transfer, no stall — event accounting only
                     self.ledger.drop(n_dr)
                     self.stats.n_miss_drop += n_dr
-                if peer_sl[li][active].any():
-                    _not_ported("peer borrowing (multi-device mesh)")
                 miss_row = np.bincount(rows[miss_sl[li][active]],
                                        minlength=e_n)
-                cursor, stall = self._resolve_misses(layer, miss_row, cursor)
+                peer_row = None
+                n_peer = 0
+                if peer_sl[li][active].any():
+                    # slots the routing resolved by peer-HBM borrow: a
+                    # demand-class ICI transfer from the owning device
+                    peer_row = np.bincount(rows[peer_sl[li][active]],
+                                           minlength=e_n)
+                    n_peer = int(peer_row.sum())
+                if tele is not None:
+                    self._record_layer_telemetry(
+                        layer, rows, used, res_used, miss_row, cursor,
+                        n_sub=n_sub, n_deg=n_deg, n_dr=n_dr, n_peer=n_peer,
+                        sub_slots=sub_sl[li][active],
+                        deg_slots=deg_sl[li][active])
+                if self.placement is not None:
+                    # the controller owns its own ExpertStats, so live
+                    # placement works with or without telemetry
+                    self.placement.observe_layer(
+                        layer, np.unique(used), res_used,
+                        np.flatnonzero(miss_row > 0),
+                        (np.unique(rows[deg_sl[li][active]])
+                         if n_deg else None))
+                stall_t0 = cursor
+                stall = 0.0
+                if peer_row is not None:
+                    cursor, pstall = self._resolve_peer(layer, peer_row,
+                                                        cursor)
+                    stall += pstall
+                cursor, fstall = self._resolve_misses(layer, miss_row,
+                                                      cursor)
+                stall += fstall
                 step_stall += stall
+                if trace is not None:
+                    if stall > 0.0:
+                        trace.span("layers", layer, "stall", "stall",
+                                   stall_t0, cursor, stall_s=stall,
+                                   n_fetch=int((miss_row > 0).sum()))
+                    trace.span("layers", layer, "compute", "compute",
+                               cursor, cursor + per_layer)
                 cursor += per_layer          # this layer's compute slice
                 self._issue_prefetches(layer, used)
                 self.cache.unpin(layer)
             layer_off += idx.shape[0]
 
-        sched.advance(cursor)               # drain overlap to end of step
+        self.advance_clock(cursor)          # drain overlap to end of step
         step_time = cursor - step_t0
-        overlapped = max(0.0, (sched.busy_s - busy0) - step_stall)
+        overlapped = max(0.0, (self._links_busy_s() - busy0) - step_stall)
         self.ledger.overlapped(overlapped)
 
         self.stats.steps += 1
@@ -512,6 +669,21 @@ class ServeEngine:
         self.stats.compute_s += compute_total
         self.stats.stall_s += step_stall
         self.stats.sim_time_s += step_time
+
+        if tele is not None:
+            m = tele.metrics
+            m.ema("step_time_s", alpha=0.05).update(step_time)
+            m.histogram("step_stall_s").observe(step_stall)
+            m.gauge("inflight_transfers").set(sched.n_in_flight)
+            if trace is not None:
+                trace.span("engine", 0, "step",
+                           f"step{self.stats.steps - 1}", step_t0, cursor,
+                           tokens=n_active, stall_s=step_stall,
+                           overlapped_s=overlapped)
+        if self.placement is not None:
+            # interval-gated on the simulated clock, so the continuous
+            # scheduler ticking it as well never fires a window twice
+            self.placement.maybe_tick(self)
 
     def _observe_layer(self, layer: int, used: np.ndarray) -> None:
         self.cache.touch(layer, used)
@@ -522,13 +694,69 @@ class ServeEngine:
             self.predictor.observe(layer, used)
         self._last_used[layer] = used
 
+    def _record_layer_telemetry(self, layer: int, rows, used, res_used,
+                                miss_row, t_layer: float, *, n_sub: int,
+                                n_deg: int, n_dr: int, sub_slots,
+                                deg_slots, n_peer: int = 0) -> None:
+        """One (layer, step)'s telemetry: the miss-outcome breakdown (trace
+        instant and counters), the per-expert EMAs, the prefetch meter's
+        used-in-time credit, and the zero-stall calibration rows of the
+        transfer-free outcomes (buddy, degraded, drop) with their quality
+        price. The fetch and peer rows are recorded where the realized
+        stall is known (_resolve_misses, _resolve_peer). Touches no engine,
+        cache or scheduler state."""
+        tele = self.telemetry
+        missing = np.flatnonzero(miss_row > 0)
+        uniq_used = np.unique(used)
+        deg_e = (np.unique(rows[deg_slots]) if n_deg else None)
+        if tele.expert_stats is not None:
+            tele.expert_stats.update(layer, uniq_used, res_used, missing,
+                                     deg_e)
+        tele.prefetch.note_used(layer, uniq_used)
+        m = tele.metrics
+        m.counter("slots", outcome="hit").inc(len(res_used))
+        for outcome, n in (("buddy", n_sub), ("degraded", n_deg),
+                           ("peer", n_peer),
+                           ("fetch", int(miss_row.sum())), ("drop", n_dr)):
+            if n:
+                m.counter("slots", outcome=outcome).inc(n)
+        cal = tele.calibration
+        if n_sub:
+            # buddy: zero stall by construction; the quality price is the
+            # cost model's host-side estimate at the substituted experts
+            bq = best_resident_q(self._table[layer], self._q[layer],
+                                 self.cache.resident[layer])
+            bc = self.costs.buddy_cost(bq)[np.asarray(rows[sub_slots])]
+            bc = bc[np.isfinite(bc)]
+            cal.record("buddy", 0.0, 0.0, n=n_sub,
+                       quality_cost=float(bc.mean()) if bc.size else 0.0)
+        if n_deg:
+            dc = self.costs.degraded_cost(self._tier_fidelity())[layer][deg_e]
+            dc = dc[np.isfinite(dc)]
+            cal.record("degraded", 0.0, 0.0, n=n_deg,
+                       quality_cost=float(dc.mean()) if dc.size else 0.0)
+        if n_dr:
+            cal.record("drop", 0.0, 0.0, n=n_dr,
+                       quality_cost=self.costs.drop_cost())
+        if tele.trace is not None:
+            extra = {"peer": n_peer} if self.n_devices > 1 else {}
+            tele.trace.instant(
+                "layers", layer, "outcomes", f"L{layer}", t_layer,
+                hit=len(res_used), buddy=n_sub, degraded=n_deg,
+                fetch=int(miss_row.sum()), drop=n_dr, **extra)
+
     def _resolve_misses(self, layer: int, miss_row: np.ndarray,
                         cursor: float):
         """Residual misses (post-substitution) block THIS layer only. An
         in-flight prefetch is escalated and waited for its tail (late
         prefetch); otherwise a demand fetch pays the full transfer."""
+        tele = self.telemetry
         if self.policy.fallback != "fetch":
-            self.ledger.drop(int(miss_row.sum()))
+            n_dropped = int(miss_row.sum())
+            self.ledger.drop(n_dropped)
+            if tele is not None and n_dropped:
+                tele.calibration.record("drop", 0.0, 0.0, n=n_dropped,
+                                        quality_cost=self.costs.drop_cost())
             return cursor, 0.0
         sched = self.scheduler
         stall = 0.0
@@ -538,9 +766,18 @@ class ServeEngine:
                 # arrived after this step's mask snapshot — already on device
                 continue
             t = sched.in_flight(layer, e)
+            # calibration: the cost model's predicted stall of the fetch at
+            # decision time (the in-flight tail, or the cold transfer)
+            predicted = None
+            if tele is not None:
+                predicted = (sched.eta_s(t) if t is not None else
+                             self.hw.transfer_time(self._expert_bytes))
+                if t is None:
+                    tele.prefetch.note_uncovered_miss(layer, e)
             if t is not None:
                 sched.escalate(t)
                 if t.cause in ("upgrade", "replicate"):
+                    # not a prediction: waiting on one is a demand stall
                     kind = "demand"
                 else:
                     kind = "late_prefetch"
@@ -551,9 +788,63 @@ class ServeEngine:
             done = sched.run_until_done(t)
             s = max(0.0, done - cursor)
             self.ledger.stall(kind, s)      # ledger owns the breakdown
+            if tele is not None:
+                tele.calibration.record("fetch", predicted, s)
+                tele.metrics.histogram("stall_s", kind=kind).observe(s)
             stall += s
             cursor = max(cursor, done)
             self.stats.n_miss_fetch += 1
+        return cursor, stall
+
+    def _resolve_peer(self, layer: int, peer_row: np.ndarray,
+                      cursor: float):
+        """Peer-HBM borrows block THIS layer until the ICI transfer lands.
+        Each borrowed expert comes from the cheapest live holder's link
+        (priced as costs.peer_eta: the in-flight tail, else queue backlog
+        plus the hop-priced transfer) and enters device 0's cache when it
+        lands. An expert no reachable peer holds any more falls back to a
+        host demand fetch, so the slot is never lost."""
+        tele = self.telemetry
+        stall = 0.0
+        for e in np.flatnonzero(peer_row > 0):
+            e = int(e)
+            if self.cache.resident[layer, e]:
+                # landed after this step's mask snapshot — already on device
+                continue
+            best_d = best_eta = t = None
+            for d in self.cache.peer_holders(layer, e):
+                link = self.peer_links.get(int(d))
+                if link is None:
+                    continue
+                tf = link.in_flight(layer, e)
+                eta = (link.eta_s(tf) if tf is not None else
+                       link.backlog_s()
+                       + link.transfer_time(self._expert_bytes))
+                if best_eta is None or eta < best_eta:
+                    best_d, best_eta, t = int(d), eta, tf
+            if best_d is None:
+                # raced out of every peer (eviction churn): demand-fetch
+                t = self.scheduler.submit(layer, e, self._expert_bytes,
+                                          "demand")
+                done = self.scheduler.run_until_done(t)
+                s = max(0.0, done - cursor)
+                self.ledger.stall("demand", s)
+                stall += s
+                cursor = max(cursor, done)
+                self.stats.n_miss_fetch += 1
+                continue
+            link = self.peer_links[best_d]
+            if t is None:
+                t = link.submit(layer, e, self._expert_bytes, "peer")
+            done = link.run_until_done(t)
+            s = max(0.0, done - cursor)
+            self.ledger.stall("peer", s)
+            if tele is not None:
+                tele.calibration.record("peer", best_eta, s)
+                tele.metrics.histogram("stall_s", kind="peer").observe(s)
+            stall += s
+            cursor = max(cursor, done)
+            self._n_peer_borrow += 1
         return cursor, stall
 
     def _upgrade_degraded(self, layer: int, experts: np.ndarray) -> None:
@@ -583,7 +874,12 @@ class ServeEngine:
         best_q = (None if self.policy.mode == "none" else
                   best_resident_q(self._table[tgt], self._q[tgt],
                                   self.cache.resident[tgt]))
-        risk = self.costs.miss_cost(eta, fid_row, best_q)
+        # a miss a peer can absorb over ICI is cheap: its saving shrinks to
+        # the peer ETA, freeing PCIe bytes for experts only the host has
+        peer_row = (self.costs.peer_eta(self.peer_links,
+                                        self.cache.peer_resident)[tgt]
+                    if self.peer_borrow and self.peer_links else None)
+        risk = self.costs.miss_cost(eta, fid_row, best_q, peer_eta=peer_row)
         score = self.costs.prefetch_scores(p_use, risk,
                                            self.cache.resident[tgt])
         new_score = np.where(self.cache.inflight[tgt], 0.0, score)
@@ -591,6 +887,9 @@ class ServeEngine:
         order = np.argsort(-score, kind="stable")
         want = [int(e) for e in order[:self.prefetch_k]
                 if score[e] > self.prefetch_min_saving]
+        # for the prefetch meter: _issue_prefetches credits each new
+        # submission's score (expected stall saved) to the telemetry
+        self._last_rank_scores = score
         return want, worthwhile
 
     def _issue_prefetches(self, layer: int, used: np.ndarray) -> None:
@@ -600,8 +899,10 @@ class ServeEngine:
         if self.predictor is None or self.prefetch_k <= 0:
             return
         tgt = (layer + self.lookahead) % self.num_moe_layers
+        scores = None
         if self._cost_mode and hasattr(self.predictor, "predict_proba"):
             want, w = self._rank_prefetch(tgt, used)
+            scores = self._last_rank_scores
             self._step_worthwhile = (w if self._step_worthwhile is None
                                      else max(self._step_worthwhile, w))
             self.last_prefetch_worthwhile = self._step_worthwhile
@@ -616,6 +917,8 @@ class ServeEngine:
                 continue
             self.scheduler.submit(tgt, e, self._expert_bytes, "prefetch")
             self.stats.n_prefetch_issued += 1
+            if self.telemetry is not None and scores is not None:
+                self.telemetry.prefetch.add_expected_saving(scores[e])
 
     # ------------------------------------------------------------------
     def reset_runtime(self, cache: Optional[ExpertCache] = None,
@@ -623,7 +926,11 @@ class ServeEngine:
         """Fresh serving state (clock, ledger, cache, predictor, stats) on
         the same model, e.g. to reuse one engine across runs. The tier's
         replicas are static: it is repointed at the fresh cache and its
-        one-time upload is paid again."""
+        one-time upload is paid again. The mesh keeps its size (a fresh
+        cache is sharded and fresh links built), an attached telemetry
+        bundle keeps accumulating and is wired to the new scheduler, and an
+        attached placement controller starts a fresh run on its unchanged
+        configuration."""
         e = self.cfg.moe.num_experts
         if cache is None:
             old = self.cache
@@ -647,12 +954,21 @@ class ServeEngine:
         self.scheduler = TransferScheduler(self.hw)
         self.scheduler.add_listener(self.cache.on_transfer_event)
         self.ledger.attach(self.scheduler)
+        if self.cache.n_devices != self.n_devices:
+            # a fresh cache arrives un-sharded: seed the home shard and the
+            # peer pools as __init__ did
+            self.cache.enable_mesh(self.n_devices)
+        self.peer_links = self._build_peer_links()
+        self._n_peer_borrow = 0
         if self.tier is not None:
             self.ledger.tier_upload(self.tier.quant_bytes)
         self.stats = EngineStats()
         self._last_used = {}
         self.last_prefetch_worthwhile = None
         self._step_worthwhile = None
+        self._wire_telemetry()
+        if self.placement is not None:
+            self.placement.attach(self)
 
     # ------------------------------------------------------------------
     def sample_tokens(self, logits, greedy: bool, temperature: float = 1.0):
@@ -712,11 +1028,15 @@ class ServeEngine:
         return nll / n
 
     def stall_breakdown(self) -> dict:
-        return {
+        """The ledger's attribution; the peer key only on a mesh (D > 1)."""
+        d = {
             "demand_stall_s": self.ledger.demand_stall_s,
             "late_prefetch_stall_s": self.ledger.late_prefetch_stall_s,
             "overlapped_s": self.ledger.overlapped_s,
         }
+        if self.n_devices > 1:
+            d["peer_stall_s"] = self.ledger.peer_stall_s
+        return d
 
     def summary(self) -> dict:
         s = {
@@ -738,6 +1058,19 @@ class ServeEngine:
                 "upgrade_degraded": self.upgrade_degraded,
                 "prefetch_worthwhile_last": self.last_prefetch_worthwhile,
             }
+        if self.n_devices > 1:
+            total = self.stats.n_hit + self.stats.n_sub + \
+                self.stats.n_miss_fetch + self._n_peer_borrow
+            s["mesh"] = {
+                "n_devices": self.n_devices,
+                "ici_bw": self._ici_bw,
+                "peer_borrow": self.peer_borrow,
+                "n_peer_borrow": self._n_peer_borrow,
+                "peer_share": (self._n_peer_borrow / total if total else 0.0),
+                "peer_stall_s": self.ledger.peer_stall_s,
+                "links": [self.peer_links[d].utilization()
+                          for d in sorted(self.peer_links)],
+            }
         if self._paged:
             s["prefix"] = {
                 "paged_kv": True,
@@ -751,4 +1084,8 @@ class ServeEngine:
             }
             if self.prefix_tree is not None:
                 s["prefix"]["tree"] = self.prefix_tree.stats()
+        if self.placement is not None:
+            s["placement"] = self.placement.summary()
+        if self.telemetry is not None:
+            s["telemetry"] = self.telemetry.summary()
         return s

@@ -2,8 +2,8 @@
 
 Counterpart of ``repro/serving/scheduler.py``: the same host-side (numpy)
 scheduling on the simulated clock; the engine's steps run on its device.
-The request-lifecycle trace spans are emitted only with a telemetry bundle,
-which the port's engine does not take yet.
+The request-lifecycle trace spans are emitted only when the engine carries a
+telemetry bundle with a flight recorder.
 
 The paper's llama.cpp harness serves fixed static batches: a batch forms,
 decodes in lockstep to completion, and only then does the next batch start.

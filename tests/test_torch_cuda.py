@@ -873,3 +873,100 @@ def test_prefix_hit_on_card_matches_cold_recompute(dev):
     cold = _paged_engine(dev, prefix=True)
     _, want = prefill(cold, cold.init_caches(2, 32), 1, adopter, 0)
     torch.testing.assert_close(hit, want, rtol=1e-3, atol=1e-3)
+
+
+# ---------------------------------------------------------------------------
+# Telemetry, the simulated mesh and live placement on the card, on the same
+# fixture
+# ---------------------------------------------------------------------------
+def _observed_engine(d, **kw):
+    from repro_torch.runtime.cache import ExpertCache
+    from repro_torch.runtime.prefetch import PrevStepPredictor
+    from repro_torch.serving.engine import ServeEngine
+    cfg, params, tables = _fixture(d)
+    n, e = cfg.num_layers, cfg.moe.num_experts
+    policy = kw.pop("policy", BuddyPolicy(use_fused_dispatch=True))
+    if "tier" not in kw:
+        kw["cache"] = ExpertCache(n, e, 0.5)
+    return ServeEngine(cfg, params, tables=tables, policy=policy,
+                       predictor=PrevStepPredictor(n, e), prefetch_k=15,
+                       **kw)
+
+
+def test_telemetry_off_and_on_on_card_agree(dev):
+    """The observer reads host arrays only: on the card, telemetry on gives
+    the tokens, stats and ledger of telemetry off, one outcomes instant per
+    MoE layer per step and one step span per step."""
+    import numpy as np
+    from repro_torch.runtime.telemetry import Telemetry
+    from repro_torch.training.data import MarkovLM
+    prompts = MarkovLM(512, seed=0).sample(4, 8)
+    out = []
+    for tele in (None, Telemetry.with_trace(num_layers=2, num_experts=64)):
+        eng = _observed_engine(dev, telemetry=tele)
+        toks = eng.generate(prompts, 6)
+        s = eng.summary()
+        out.append((toks, s["stats"], s["ledger"]))
+    assert np.array_equal(out[0][0], out[1][0])
+    assert out[0][1:] == out[1][1:]
+    evs = tele.trace.sorted_events()
+    steps = out[1][1]["steps"]
+    assert sum(e["kind"] == "outcomes" for e in evs) == 2 * steps
+    assert sum(e["kind"] == "step" for e in evs) == steps
+
+
+@pytest.mark.parametrize("miss_policy", ["precedence", "cost"])
+def test_mesh_steps_on_card_match_cpu(dev, miss_policy):
+    """A 4-device mesh: the peer inputs reach route on the card, and the
+    tokens, stats, ledger and mesh summary equal the CPU's."""
+    import numpy as np
+    from repro_torch.training.data import MarkovLM
+    prompts = MarkovLM(512, seed=0).sample(4, 8)
+    pol = BuddyPolicy(use_fused_dispatch=True, miss_policy=miss_policy,
+                      stall_per_quality=2e-4)
+    out = []
+    for d in ("cpu", dev):
+        eng = _observed_engine(d, policy=pol, n_devices=4)
+        before = ops.launch_counts()["route"]
+        toks = eng.generate(prompts, 6)
+        s = eng.summary()
+        out.append((toks, s["stats"], s["ledger"], s["mesh"]))
+        routes = ops.launch_counts()["route"] - before
+        assert routes == (0 if d == "cpu" else 2 * s["stats"]["steps"])
+    assert np.array_equal(out[0][0], out[1][0])
+    assert out[0][1:] == out[1][1:]
+    assert out[1][3]["n_peer_borrow"] > 0
+
+
+def test_placement_tick_on_card_moves_no_tensor(dev):
+    """A placement controller ticking on the card re-picks the int8 tier's
+    coverage on the host: the replicas stay where they were, and the
+    tokens and placement summary equal the CPU's."""
+    import numpy as np
+    from repro_torch.runtime.placement import PlacementController
+    from repro_torch.runtime.tiers import TieredExpertStore
+    from repro_torch.serving import scheduler as S
+    from repro_torch.training.data import MarkovLM
+    out = []
+    for d in ("cpu", dev):
+        tier = TieredExpertStore(2, 64, 1.1, bits=8, d_model=128, d_ff=64,
+                                 coverage=0.25)
+        tier.set_coverage(np.random.default_rng(3).random((2, 64)))
+        eng = _observed_engine(
+            d, tier=tier, policy=BuddyPolicy(quant_tier="int8"),
+            placement=PlacementController(refresh_interval_s=5e-5,
+                                          hot_windows=1,
+                                          replicate_margin=1.0))
+        quant = [t for g in eng.params["groups"] if "quant" in g["moe"]
+                 for t in g["moe"]["quant"].values()]
+        ptrs = [t.data_ptr() for t in quant]
+        lm, rng = MarkovLM(512, seed=1), np.random.default_rng(1)
+        reqs = S.make_requests(
+            [lm.sample(1, int(rng.integers(4, 12)))[0] for _ in range(12)],
+            S.PoissonArrivals(2000.0, seed=2), 8)
+        s = S.ContinuousScheduler(eng, slots=4, prefill_chunk=4).run(
+            S.RequestQueue(reqs))
+        assert [t.data_ptr() for t in quant] == ptrs
+        out.append(([r.tokens for r in reqs], s["engine"]["placement"]))
+    assert out[0] == out[1]
+    assert out[1][1]["coverage_repicks"] > 0

@@ -114,39 +114,40 @@ def test_temperature_sampling_is_seeded():
         run(greedy=False, temperature=0.0)
 
 
-@pytest.mark.parametrize("kw", [dict(telemetry=object()),
-                                dict(n_devices=2),
+@pytest.mark.parametrize("kw", [dict(n_devices=0),
+                                dict(n_devices=9),
                                 dict(paged_kv=True, window=8),
                                 dict(prefix_cache=True),
-                                dict(placement=object())])
+                                dict(n_devices=-1)])
 def test_unported_subsystems_raise(kw):
-    """The quant tier is ported: its configuration errors are held against
-    the reference's in tests/test_torch_tier_engine.py. So are paged KV and
-    the prefix cache (tests/test_torch_paged.py): what the reference
-    refuses there (a sliding window on paged KV, the prefix cache without
-    it) raises ValueError."""
+    """Every subsystem of the reference engine is ported; what the
+    reference refuses, the port raises ValueError for: a mesh outside 1..8
+    devices (the mesh itself is held in tests/test_torch_mesh.py), a
+    sliding window on paged KV and the prefix cache without it
+    (tests/test_torch_paged.py). The quant tier's configuration errors are
+    in tests/test_torch_tier_engine.py."""
     params = load_npz(str(FIXTURE / "model.npz"), "cpu")
-    err = (ValueError if {"paged_kv", "prefix_cache"} & set(kw)
-           else NotImplementedError)
-    with pytest.raises(err):
+    with pytest.raises(ValueError):
         ServeEngine(profiling(), params, **kw)
 
 
-@pytest.mark.parametrize("flag", [["--n-devices", "2"],
+@pytest.mark.parametrize("flag", [["--n-devices", "0"],
                                   ["--paged-kv", "--kv-block", "0"],
                                   ["--prefix-cache"],
-                                  ["--placement", "live"],
-                                  ["--telemetry", "on"],
-                                  ["--trace-out", "t.json"]])
+                                  ["--placement", "bogus"],
+                                  ["--telemetry", "bogus"],
+                                  ["--n-devices", "9"]])
 def test_serve_refuses_unported_flags(flag, capsys):
-    """The paged-KV flags are ported; the launcher still refuses a block
-    of no tokens and, as the reference does, the prefix cache without
-    paged KV."""
+    """Every flag of the reference launcher is ported; the launcher still
+    refuses what the reference refuses: a mesh outside 1..8 devices, a
+    block of no tokens, the prefix cache without paged KV, and a
+    placement or telemetry mode that is not a choice."""
     with pytest.raises(SystemExit):
         serve.parse_args(flag)
     want = {"--paged-kv": "--kv-block must be",
-            "--prefix-cache": "requires --paged-kv"}.get(flag[0],
-                                                         "not ported yet")
+            "--prefix-cache": "requires --paged-kv",
+            "--n-devices": "--n-devices must be in 1..8"}.get(
+                flag[0], "invalid choice")
     assert want in capsys.readouterr().err
 
 

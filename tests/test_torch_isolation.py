@@ -24,7 +24,8 @@ NEW = ("repro_torch.core.quantize", "repro_torch.runtime.tiers",
        "repro_torch.training.optimizer", "repro_torch.training.train_loop",
        "repro_torch.launch.train", "repro_torch.serving.scheduler",
        "repro_torch.serving.requests", "repro_torch.runtime.paged_kv",
-       "repro_torch.serving.prefix")
+       "repro_torch.serving.prefix", "repro_torch.runtime.trace",
+       "repro_torch.runtime.telemetry", "repro_torch.runtime.placement")
 names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                 "repro_torch.")]
 for n in names:
@@ -41,7 +42,7 @@ def test_importing_every_module_loads_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     n, tier, bad = out.stdout.strip().split(" ", 2)
-    assert int(n) >= 44, out.stdout          # the walk found the package
+    assert int(n) >= 47, out.stdout          # the walk found the package
     assert tier == "1", out.stdout           # ... the later slices' too
     assert bad == "[]", f"modules loaded by repro_torch: {bad}"
 

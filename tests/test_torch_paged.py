@@ -21,9 +21,12 @@ live reference calls:
     session requests sharing a prefix that is not block-aligned and one
     preemption: equal tokens per request, an equal prefix summary, and
     the simulated-clock summary allclose at rel 1e-9;
-  * the configuration errors the reference refuses, and the subsystems
-    the port still refuses next to the paged flags.
+  * the configuration errors the reference refuses; telemetry, the mesh
+    and live placement beside paged KV and the prefix cache, held against
+    the reference through the scheduler; their flags beside the paged
+    ones.
 """
+import json
 import math
 from pathlib import Path
 
@@ -43,7 +46,9 @@ from repro.core.policy import BuddyPolicy as JPolicy  # noqa: E402
 from repro.models import attention as JA  # noqa: E402
 from repro.models import transformer as JT  # noqa: E402
 from repro.runtime import paged_kv as JP  # noqa: E402
+from repro.runtime import placement as JPlace  # noqa: E402
 from repro.runtime import prefetch as JF  # noqa: E402
+from repro.runtime import telemetry as JTel  # noqa: E402
 from repro.runtime.cache import ExpertCache as JCache  # noqa: E402
 from repro.serving import prefix as JX  # noqa: E402
 from repro.serving import scheduler as JS  # noqa: E402
@@ -56,7 +61,9 @@ from repro_torch.core.policy import BuddyPolicy  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import attention as A  # noqa: E402
 from repro_torch.runtime import paged_kv as P  # noqa: E402
+from repro_torch.runtime import placement as Place  # noqa: E402
 from repro_torch.runtime import prefetch as F  # noqa: E402
+from repro_torch.runtime import telemetry as Tel  # noqa: E402
 from repro_torch.runtime.cache import ExpertCache  # noqa: E402
 from repro_torch.serving import prefix as X  # noqa: E402
 from repro_torch.serving import scheduler as S  # noqa: E402
@@ -450,25 +457,78 @@ def test_paged_configuration_errors_match_reference(fixture_models, kw):
         ServeEngine(pcfg, tp, **kw)
 
 
-@pytest.mark.parametrize("kw", [dict(telemetry=object()), dict(n_devices=2),
-                                dict(placement=object())])
+def _subsystem(name, mod):
+    """The observer or extension of one package that joins paged KV."""
+    if name == "telemetry":
+        tel = JTel if mod == "jax" else Tel
+        return dict(telemetry=tel.Telemetry.with_trace(num_layers=2,
+                                                       num_experts=64))
+    if name == "n_devices":
+        return dict(n_devices=2)
+    ctrl = JPlace if mod == "jax" else Place
+    return dict(placement=ctrl.PlacementController(
+        refresh_interval_s=5e-5, hot_windows=1, replicate_margin=1.0))
+
+
+@pytest.mark.parametrize("kw", ["telemetry", "n_devices", "placement"])
 def test_paged_engine_still_refuses_unported(fixture_models, kw):
-    _, _, pcfg, tp = fixture_models
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        ServeEngine(pcfg, tp, paged_kv=True, prefix_cache=True, **kw)
+    """Telemetry, the mesh and live placement were refused next to paged KV
+    until they were ported; now each runs beside paged KV and the prefix
+    cache, and the fixture's session requests through the scheduler give
+    the reference's tokens and engine summary (floats at rel 1e-9)."""
+    cfg, jp, pcfg, tp = fixture_models
+    n, e = cfg.num_layers, cfg.moe.num_experts
+    out = []
+    for mod, engine, cache, pred, policy, tables, c, params in (
+            (JS, JEngine, JCache, JF.PrevStepPredictor, JPolicy,
+             jload_tables, cfg, jp),
+            (S, ServeEngine, ExpertCache, F.PrevStepPredictor, BuddyPolicy,
+             load_tables, pcfg, tp)):
+        ec = cache(n, e, 0.5)
+        eng = engine(c, params, tables=tables(TABLES),
+                     policy=policy(use_fused_dispatch=True), cache=ec,
+                     predictor=pred(n, e), prefetch_k=ec.capacity // 2,
+                     paged_kv=True, kv_block=8, prefix_cache=True,
+                     **_subsystem(kw, "jax" if mod is JS else "torch"))
+        reqs = _session_requests(mod, c.vocab_size)
+        s = mod.ContinuousScheduler(eng, slots=2, prefill_chunk=4).run(
+            mod.RequestQueue(reqs))
+        eng.kv_pool.check(eng.prefix_tree.block_holders())
+        out.append(([r.tokens for r in reqs], s))
+    (jtok, js), (ptok, ps) = out
+    assert ptok == jtok
+    _assert_same(json.loads(json.dumps(js, default=str)),
+                 json.loads(json.dumps(ps, default=str)))
+    eng_s = ps["engine"]
+    assert ps["completed"] == 4 and eng_s["prefix"]["hits"] >= 1
+    assert {"telemetry": "telemetry", "n_devices": "mesh",
+            "placement": "placement"}[kw] in eng_s
 
 
-@pytest.mark.parametrize("flag,msg", [
-    (["--n-devices", "2"], "not ported yet"),
-    (["--placement", "live"], "not ported yet"),
-    (["--telemetry", "on"], "not ported yet"),
-    (["--trace-out", "t.json"], "not ported yet"),
+@pytest.mark.parametrize("flag,want", [
+    (["--n-devices", "2", "--ici-gbps", "50", "--no-peer-borrow"],
+     dict(n_devices=2, ici_gbps=50.0, no_peer_borrow=True)),
+    (["--placement", "live", "--placement-interval-ms", "0.5",
+      "--placement-hot-windows", "2", "--placement-top-k", "4"],
+     dict(placement="live", placement_interval_ms=0.5,
+          placement_hot_windows=2, placement_top_k=4)),
+    (["--telemetry", "on"], dict(telemetry="on", trace_out=None)),
+    (["--trace-out", "t.json"], dict(telemetry="off", trace_out="t.json")),
     (["--kv-blocks", "-1"], "--kv-blocks >= 0")])
-def test_launcher_paged_flags(flag, msg, capsys):
+def test_launcher_paged_flags(flag, want, capsys):
+    """The mesh, placement and telemetry flags parse beside the paged ones
+    (with the reference's defaults for what is not given); a pool of
+    negative size is refused."""
     ok = serve.parse_args(["--paged-kv", "--kv-block", "4", "--kv-blocks",
                            "0", "--prefix-cache"])
     assert (ok.paged_kv, ok.kv_block, ok.kv_blocks, ok.prefix_cache) == \
         (True, 4, 0, True)
-    with pytest.raises(SystemExit):
-        serve.parse_args(["--paged-kv", "--prefix-cache"] + flag)
-    assert msg in capsys.readouterr().err
+    argv = ["--paged-kv", "--prefix-cache"] + flag
+    if isinstance(want, str):
+        with pytest.raises(SystemExit):
+            serve.parse_args(argv)
+        assert want in capsys.readouterr().err
+        return
+    args = serve.parse_args(argv)
+    assert args.paged_kv and args.prefix_cache
+    assert {k: getattr(args, k) for k in want} == want
