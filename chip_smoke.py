@@ -33,7 +33,15 @@ committed fixture under ``results/bench``). Phases, one JSON line each:
            (torch.profiler); wkv_chunk at the train shape and at head dim
            128 (dynamic shared memory), each with its device time, ring
            depth and a SHA-256 of its outputs' bytes, and its autograd
-           backward on the card against the same on the CPU
+           backward on the card against the same on the CPU; and the FFN
+           kernels and route at Mixtral-8x7B's shapes (one line,
+           kernel "mixtral_shapes"): expert_ffn on the capacity branch's
+           decode buffer [8, 4 x 2, 4096] and a chunk-8 step's [8, 4 x 16,
+           4096] (d_ff 14336), grouped_ffn on a fused decode step's
+           [16, 8, 4096] with row counts, quant_ffn on the int8 tier's
+           degraded slots [8, 8, 4096] with counts, route at E = 8, K = 2,
+           R = 7, T = 4 and 32; each with ms, device_us and its bound,
+           the FFN cases with their plain version's device ops by name
   parity   the committed profiling fixture (results/bench/model.npz with
            tables_a0.95_k16.npz) served on the CPU through the plain versions
            and on the card through the kernels, without and with the int8
@@ -43,7 +51,10 @@ committed fixture under ``results/bench``). Phases, one JSON line each:
            in 8-token blocks with the prefix cache and the int8 tier,
            session requests on a 20-token shared prefix through the
            continuous scheduler, with equal prefix summaries (hits,
-           copy-on-write copies, evictions, tree) besides
+           copy-on-write copies, evictions, tree) besides; and reduced
+           Mixtral (window 128) from weights made on the CPU, 4 x 124
+           prompt + 8 new tokens, capacity and fused, without and with
+           the int8 tier, held the same way
   serve    deepseek-v2-lite-buddy at full width cut to 8 layers, random
            weights from seed 0, two paths, each in its own launch-count
            window: (1) buddy profiling, a fused-dispatch batch (4 x 8 prompt
@@ -113,9 +124,35 @@ committed fixture under ``results/bench``). Phases, one JSON line each:
            push at two devices, the int8 replicas where they were and no
            more device memory held after the run or at its peak than
            without placement; expert_ffn and quant_ffn launches
+  mixtral  after placement, with the DeepSeek weights freed:
+           mixtral-8x7b at full width (d_model 4096, 32 query heads over 8
+           KV heads, 8 experts x 14336, top-2, window 4096, f32) cut to 4
+           of its 32 layers, random weights from seed 0 on the card, four
+           paths through the launcher's entry points, each in its own
+           launch-count window: (1) the default batch (4 x 8 prompt + 8
+           new tokens), every decode step in the capacity branch
+           (expert_ffn); (2) --fused-dispatch (grouped_ffn); (3) --quant-
+           tier int8 --tier-coverage 0.5 (quant_ffn on the degraded
+           slots); (4) --mode continuous --slots 4 --num-requests 8
+           --prefill-chunk 8. Every request completes, every step launches
+           route once per MoE layer and no standalone routing kernel, and
+           every step off the fused path expert_ffn once per layer; wall
+           ms per step (synchronized host clock), peak memory, parameter
+           count (reduced Mixtral's CPU-vs-card parity is in the parity
+           phase)
+  similarity  expert output similarity, the path in its own launch-count
+           window: the committed fixture's all_layer_similarities on the
+           card, and every Mixtral layer's [8, 256, 4096] calibration rows
+           through expert_output_similarity. Then every expert_ffn call of
+           the path against expert_ffn_plain on its own operands (within
+           TOL_F32 x (1 + max |plain|)), the fixture's cosine means against
+           the CPU's and each Mixtral layer's against the plain version's
+           on the card, within SIM_TOL; the plain version's device ops at
+           Mixtral's shape by name
   train_parity  the reduced rwkv6 config, weights from seed 0 made on the
            CPU: one train step on the CPU (plain) and one on the card
-           (kernel); loss, grad norm and every gradient agree
+           (kernel); loss, grad norm and every gradient agree; then the
+           same for the reduced smollm-360m (tied embeddings, no kernel)
   train    rwkv6-1.6b at full width and depth (24 layers, d_model 2048,
            vocab 65536, f32), random weights from seed 0, through
            launch/train.py's entry points: --batch 4 --seq 512 --steps 3 in
@@ -125,6 +162,16 @@ committed fixture under ``results/bench``). Phases, one JSON line each:
   decode   the trained full-width weights: forward_train (chunked, through
            the kernel) against 31 decode_steps (per-token recurrence) on 2 x
            32 tokens
+  dense_train  internlm2-1.8b at full width and depth (24 layers, d_model
+           2048, 16 query heads over 8 KV heads, vocab 92544, f32) through
+           launch/train.py, --batch 4 --seq 512 --steps 3: finite loss and
+           grad norm at every step; wall per step, tokens/s, the forward /
+           backward / optimizer split, peak memory
+
+The line new_phase_seconds gives the seconds of the phases and the
+kernel cases that Mixtral and the dense configs added (parity_mixtral: the
+parity phase's reduced-Mixtral cases) and their sum, every phase's seconds
+(all_phases), and main's seconds in all and outside the phases.
 
 Then the kernels table line, the card's name and power limit as nvidia-smi
 prints them, and the result line. Without a CUDA card, or outside a checkout,
@@ -132,6 +179,7 @@ it exits nonzero before printing a result.
 """
 from __future__ import annotations
 
+import functools
 import hashlib
 import json
 import statistics
@@ -175,6 +223,13 @@ CONTINUOUS_FLAGS = ["--arch", "deepseek-v2-lite-buddy", "--layers", "8",
                     "--steps", "8", "--prefill-chunk", "8"]
 TIER_FLAGS = ["--quant-tier", "int8", "--tier-coverage", "0.5"]
 OUT_DIR = ROOT / "chiprun_out"     # trace exports (git ignores it)
+# the mixtral phase: Mixtral-8x7B at full width, 4 of its 32 layers
+MIXTRAL_FLAGS = ["--arch", "mixtral-8x7b", "--layers", "4", "--cache-rate",
+                 "0.5", "--policy", "buddy", "--predictor", "prev-step",
+                 "--batch", "4", "--steps", "8"]
+SIM_TOL = 1e-5                 # output cosine means, card vs CPU and kernel
+#                                vs plain: f32 sums over D and N in another
+#                                order, each cosine in [-1, 1]
 
 
 def emit(obj) -> None:
@@ -246,6 +301,13 @@ def device_us(fn, n: int = 10, by_op: bool = False) -> dict:
                                           for e in evts}
             return out
     return {"device_us": None, "device_ops_per_call": None}
+
+
+def device_ops(fn) -> list:
+    """The names of the device ops of one call of ``fn`` (torch.profiler;
+    empty if the window caught none): which library kernels ran."""
+    return sorted(device_us(fn, n=1, by_op=True).get("device_us_by_op")
+                  or {})
 
 
 def bound(nbytes: float, flops: float):
@@ -870,39 +932,194 @@ def kernel_route(dev, gen):
 
 
 # ---------------------------------------------------------------------------
+def _ffn_case(name, fn, plain, args, moved: float, flops: float,
+              reps: int = 20, inner: int = 1) -> dict:
+    """One FFN call against its plain version on the same operands: error
+    (within TOL_F32 x (1 + the plain output's largest entry)), times, the
+    device's own time, the plain version's device ops, and the bound of
+    ``moved`` bytes and ``flops``."""
+    got, want = fn(*args), plain(*args)
+    err, top = max_err(got, want), float(want.abs().max())
+    require(err <= TOL_F32 * (1 + top),
+            f"{name} at {tuple(args[0].shape)}: err {err}")
+    b_ms, b_by = bound(moved, flops)
+    ms = time_ms(lambda: fn(*args), reps, inner)
+    return {"shape": list(args[0].shape), "max_abs_err": err,
+            "max_abs_plain": top, "ms": ms,
+            "plain_ms": time_ms(lambda: plain(*args), reps),
+            "plain_ops": device_ops(lambda: plain(*args)),
+            "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+            **ffn_rate(moved, ms, b_ms), **device_us(lambda: fn(*args))}
+
+
+def kernel_mixtral(dev, gen):
+    """The FFN kernels and route at Mixtral-8x7B's shapes (8 experts, top-2,
+    d_model 4096, d_ff 14336, f32; weights random on the card): expert_ffn
+    on the capacity branch's decode buffer (4 rows x cap 2 = [8, 8, 4096])
+    and a chunk-8 step's dropless one ([8, 4 x 16, 4096]); grouped_ffn on
+    a fused decode step's [16, 8, 4096] with row counts; quant_ffn on the
+    int8 tier's degraded half of a decode step's slots, binned by expert
+    into [8, 8, 4096] with counts; route at E = 8, K = 2, R = 7, T = 4 and
+    32, with the tier's mask. No kernel has row counts in the capacity
+    branch, so expert_ffn's bound counts every row; the others count the
+    live groups' weights and the filled rows."""
+    import torch
+    from repro_torch.kernels.expert_ffn import expert_ffn_cuda, expert_ffn_plain
+    from repro_torch.kernels.grouped_ffn import (grouped_ffn_cuda,
+                                                 grouped_ffn_plain)
+    from repro_torch.kernels.quant_ffn import quant_ffn_cuda, quant_ffn_plain
+    from repro_torch.kernels.route import route_cuda, route_plain
+    e_n, k_n, d_n, f_n, t_n = 8, 2, 4096, 14336, 4
+    wgen = torch.Generator(device=dev).manual_seed(8)
+    w1, w3, w2 = (torch.randn(e_n, a, b, generator=wgen, device=dev)
+                  .mul_(0.02) for a, b in ((d_n, f_n), (d_n, f_n),
+                                           (f_n, d_n)))
+    w_bytes = nbytes(w1, w3, w2)
+    out = {"phase": "kernels", "kernel": "mixtral_shapes", "E": e_n,
+           "K": k_n, "D": d_n, "F": f_n, "weight_bytes": w_bytes}
+    rows = {}
+    for name, tokens in (("decode", t_n), ("chunk8", 4 * 8)):
+        x = _capacity_binned(gen, torch.randn(tokens, d_n, generator=gen), 4,
+                             e_n, k_n, dev)
+        rows[name] = dict(_ffn_case(
+            "expert_ffn", expert_ffn_cuda, expert_ffn_plain, (x, w1, w3, w2),
+            nbytes(x) * 2 + w_bytes, 2 * x.numel() * f_n * 3),
+            **ffn_plan(x, e_n, f_n, (x, w1, w3, w2)))
+    out["expert_ffn"] = rows
+    buf, counts = _binned(gen, torch.randn(t_n, d_n, generator=gen), e_n,
+                          k_n, t_n * k_n, 0.0, dev)
+    live = counts.cpu()
+    n_live, filled = int((live > 0).sum()), int(live.sum())
+    out["grouped_ffn"] = {"decode": dict(_ffn_case(
+        "grouped_ffn", lambda *a: grouped_ffn_cuda(*a, None, counts),
+        lambda *a: grouped_ffn_plain(*a, None, counts), (buf, w1, w3, w2),
+        n_live * w_bytes // e_n + filled * d_n * 4 + nbytes(buf, counts),
+        2 * filled * d_n * f_n * 3),
+        live_groups=n_live, filled_rows=filled,
+        **ffn_plan(buf, 2 * e_n, f_n, (buf, w1, w3, w2)))}
+    quant = _replicas(w1, w3, w2)
+    buf, counts = _binned(gen, torch.randn(t_n, d_n, generator=gen), e_n,
+                          k_n, t_n * k_n, 0.5, dev)
+    buf, counts = buf[e_n:].contiguous(), counts[e_n:].contiguous()
+    live = counts.cpu()
+    n_live, filled = int((live > 0).sum()), int(live.sum())
+    require(filled > 0, "quant_ffn at Mixtral's width: no degraded slot")
+    out["quant_ffn"] = {"decode_degraded": dict(_ffn_case(
+        "quant_ffn", lambda *a: quant_ffn_cuda(*a, counts),
+        lambda *a: quant_ffn_plain(*a, counts), (buf, *quant),
+        n_live * (3 * d_n * f_n + (2 * f_n + d_n) * 4) + filled * d_n * 4
+        + nbytes(buf) + nbytes(counts), 2 * filled * d_n * f_n * 3,
+        inner=10), live_experts=n_live, filled_rows=filled,
+        **ffn_plan(buf, e_n, f_n, (buf, *quant[::2]), fp=False, int8=True))}
+    del quant, w1, w3, w2
+    r_n, tau, beta = 7, 0.2, 1.1
+    by_t = {}
+    for t in (t_n, 4 * 8):
+        z = torch.randn(t, e_n, generator=gen).to(dev)
+        resident = (torch.rand(e_n, generator=gen) < 0.5).to(dev)
+        table, q = _buddy_tables(gen, e_n, r_n, dev)
+        quant_ok = (torch.rand(e_n, generator=gen) < 0.5).to(dev)
+        args = (z, tau, beta, resident, table, q)
+        kw = dict(k=k_n, h=8, rho=3, substitute=True, quant_ok=quant_ok)
+        got, want = route_cuda(*args, **kw), route_plain(*args, **kw)
+        require(all(torch.equal(getattr(got, f), getattr(want, f))
+                    for f in ROUTE_EXACT),
+                f"route at E={e_n}, K={k_n}, T={t}: an int or bool output "
+                "differs from route_plain")
+        err = max(max_err(getattr(got, f), getattr(want, f))
+                  for f in ("topk_logits", "probs", "tae"))
+        require(err <= TOL_GATE, f"route at E={e_n}, T={t}: err {err}")
+        b_ms, b_by = _route_bound(args, kw, got)
+        by_t[t] = {"max_abs_err": err, "ints_and_masks_equal": True,
+                   "n_sub": int(got.substituted.sum()),
+                   "n_degraded": int(got.degraded.sum()),
+                   "n_missed": int(got.missed.sum()),
+                   "ms": time_ms(lambda: route_cuda(*args, **kw), inner=10),
+                   "plain_ms": time_ms(lambda: route_plain(*args, **kw),
+                                       inner=10),
+                   "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+                   **device_us(lambda: route_cuda(*args, **kw))}
+    out["route"] = by_t
+    emit(out)
+    return out
+
+
+# ---------------------------------------------------------------------------
+def _fixture_model(device) -> tuple:
+    """The committed profiling fixture on ``device``: (cfg, params, buddy
+    tables, activity to rank the tier's coverage (None: the store's
+    default), 4 x 8 prompt tokens)."""
+    from repro_torch.checkpoint.io import load_npz
+    from repro_torch.configs.deepseek_v2_lite_buddy import profiling
+    from repro_torch.core.buddies import load_tables
+    from repro_torch.training.data import MarkovLM
+    cfg = profiling()
+    return (cfg, load_npz(str(FIXTURE / "model.npz"), device),
+            load_tables(str(FIXTURE / "tables_a0.95_k16.npz")), None,
+            MarkovLM(cfg.vocab_size, seed=0).sample(4, 8))
+
+
+@functools.cache
+def _reduced_mixtral_cpu() -> tuple:
+    """Reduced Mixtral (window 128), made once on the CPU: weights from
+    seed 0, the launcher's buddy profile and activity, 4 x 124 prompt
+    tokens (prompt + 8 new tokens pass the window)."""
+    import torch
+    from repro_torch.configs.base import get_reduced
+    from repro_torch.launch.serve import profile_buddies
+    from repro_torch.models import transformer
+    from repro_torch.training.data import MarkovLM
+    cfg = get_reduced("mixtral-8x7b")
+    params = transformer.init_params(cfg, torch.Generator().manual_seed(0),
+                                     "cpu")
+    tables, rec = profile_buddies(cfg, params,
+                                  MarkovLM(cfg.vocab_size, seed=0))
+    return (cfg, params, tables, rec.A,
+            MarkovLM(cfg.vocab_size, seed=3).sample(4, 124))
+
+
+def _reduced_mixtral(device) -> tuple:
+    """_reduced_mixtral_cpu with the weights copied to ``device``."""
+    from repro_torch.models.common import tree_map
+    cfg, params, tables, activity, prompts = _reduced_mixtral_cpu()
+    return (cfg, tree_map(lambda t: t.to(device, copy=True), params),
+            tables, activity, prompts)
+
+
+MODELS = {"fixture": _fixture_model, "mixtral": _reduced_mixtral}
+
+
 def _fixture_run(device, fused: bool, tier: bool = False, paged=False,
-                 n_devices: int = 1, **policy):
-    """Serve the committed profiling fixture, with the int8 tier when asked
-    for, on a simulated mesh of ``n_devices``, and ``policy``'s further
-    BuddyPolicy fields; returns (tokens, summary, per-step logits).
-    ``paged``: paged KV in 8-token blocks with
+                 n_devices: int = 1, model: str = "fixture", **policy):
+    """Serve ``model`` (a key of MODELS; by default the committed profiling
+    fixture), with the int8 tier when asked for, on a simulated mesh of
+    ``n_devices``, and ``policy``'s further BuddyPolicy fields: 8 new
+    tokens after the model's prompts. Returns (tokens, summary, per-step
+    logits). ``paged`` (the fixture): paged KV in 8-token blocks with
     the prefix cache, serving six requests on a 20-token shared prefix
     through the continuous scheduler (2 slots, chunks of 4), so that
     later arrivals adopt it and copy its tail block on write."""
     import numpy as np
     import torch
-    from repro_torch.checkpoint.io import load_npz
-    from repro_torch.configs.deepseek_v2_lite_buddy import profiling
-    from repro_torch.core.buddies import load_tables
     from repro_torch.core.policy import BuddyPolicy
     from repro_torch.runtime.cache import ExpertCache
     from repro_torch.runtime.prefetch import PrevStepPredictor
     from repro_torch.runtime.tiers import TieredExpertStore
     from repro_torch.serving.engine import ServeEngine
-    from repro_torch.training.data import MarkovLM
-    cfg = profiling()
+    cfg, params, tables, activity, prompts = MODELS[model](device)
     n_moe, e_n = cfg.num_layers, cfg.moe.num_experts
     store = None
     if tier:
-        # half coverage: the cache keeps 15 full slots, so hits, buddies,
-        # fetches and degraded slots all occur
+        # half coverage: the fixture's cache keeps 15 full slots, so hits,
+        # buddies, fetches and degraded slots all occur
         store = TieredExpertStore(n_moe, e_n, 0.5, bits=8, coverage=0.5,
                                   d_model=cfg.d_model, d_ff=cfg.moe.d_ff)
+        if activity is not None:
+            store.set_coverage(activity)
         cache = store.cache
     else:
         cache = ExpertCache(n_moe, e_n, 0.5)
-    eng = ServeEngine(cfg, load_npz(str(FIXTURE / "model.npz"), device),
-                      tables=load_tables(str(FIXTURE / "tables_a0.95_k16.npz")),
+    eng = ServeEngine(cfg, params, tables=tables,
                       policy=BuddyPolicy(use_fused_dispatch=fused,
                                          quant_tier="int8" if tier else "off",
                                          **policy),
@@ -939,7 +1156,6 @@ def _fixture_run(device, fused: bool, tier: bool = False, paged=False,
         return out
 
     eng.step = logged
-    prompts = MarkovLM(cfg.vocab_size, seed=0).sample(4, 8)
     toks = eng.generate(prompts, 8)
     return toks, eng.summary(), torch.stack(logits)
 
@@ -954,7 +1170,9 @@ def _tier_counters_equal(a: dict, b: dict) -> bool:
 # (tag, fused, tier, policy): cost mode as tests/test_torch_engine.py
 # (cost_fused: a quality price low enough that buddies and drops beat
 # fetches) and tests/test_torch_tier_engine.py (cost_upgrade_gather, whose
-# engine upgrades degraded slots) configure it
+# engine upgrades degraded slots) configure it; the mixtral_ cases serve
+# reduced Mixtral (window 128) past its window, decode on the capacity
+# branch or fused
 PARITY_CASES = (
     ("fused", True, False, {}), ("gather", False, False, {}),
     ("fused_int8", True, True, {}), ("gather_int8", False, True, {}),
@@ -962,7 +1180,11 @@ PARITY_CASES = (
                                      stall_per_quality=2e-4)),
     ("cost_gather_int8", False, True, dict(miss_policy="cost",
                                            stall_per_quality=0.05)),
-    ("paged_prefix", True, True, dict(paged=True)))
+    ("paged_prefix", True, True, dict(paged=True)),
+    ("mixtral_capacity", False, False, dict(model="mixtral")),
+    ("mixtral_fused", True, False, dict(model="mixtral")),
+    ("mixtral_capacity_int8", False, True, dict(model="mixtral")),
+    ("mixtral_fused_int8", True, True, dict(model="mixtral")))
 
 
 def phase_parity():
@@ -970,17 +1192,20 @@ def phase_parity():
     from repro_torch.kernels import ops
     out = {"phase": "parity"}
     for tag, fused, tier, policy in PARITY_CASES:
+        t0 = time.perf_counter()
         policy = dict(policy)
         paged = policy.pop("paged", False)
+        model = policy.pop("model", "fixture")
         before = ops.launch_counts()
         t_cpu, s_cpu, l_cpu = _fixture_run("cpu", fused, tier, paged,
-                                           **policy)
+                                           model=model, **policy)
         require(ops.launch_counts() == before, "CPU run launched a kernel")
         t_gpu, s_gpu, l_gpu = _fixture_run("cuda", fused, tier, paged,
-                                           **policy)
+                                           model=model, **policy)
         err = max_err(l_gpu, l_cpu)
         st = s_gpu["stats"]
-        out[tag] = {"tokens_equal": bool(np.array_equal(t_cpu, t_gpu)),
+        out[tag] = {"seconds": time.perf_counter() - t0,
+                    "tokens_equal": bool(np.array_equal(t_cpu, t_gpu)),
                     "stats_equal": s_cpu["stats"] == st,
                     "ledger_equal": s_cpu["ledger"] == s_gpu["ledger"],
                     "cost_policy_equal": s_cpu.get("cost_policy")
@@ -1014,6 +1239,7 @@ def phase_parity():
         require(ok, f"parity ({tag}): CPU and card disagree: {out[tag]}")
         require(err <= LOGIT_TOL, f"parity ({tag}): logits err {err}")
     emit(out)
+    return out
 
 
 def _serve_path(serve, flags, params, gather_steps: int) -> dict:
@@ -1885,10 +2111,219 @@ def phase_placement(params):
 
 
 # ---------------------------------------------------------------------------
-def phase_train_parity():
-    """One reduced rwkv6 train step on the CPU (plain) and on the card."""
+# (tag, extra flags, kernels the path must launch, mode)
+MIXTRAL_PATHS = (
+    ("capacity", [], ("route", "expert_ffn")),
+    ("fused", ["--fused-dispatch"], ("route", "grouped_ffn")),
+    ("int8_tier", TIER_FLAGS, ("route", "expert_ffn", "quant_ffn")),
+    ("continuous", ["--mode", "continuous", "--slots", "4",
+                    "--num-requests", "8", "--prefill-chunk", "8"],
+     ("route", "expert_ffn")))
+
+
+def _mixtral_path(serve, argv, params) -> tuple:
+    """One Mixtral path through the launcher's entry points, in its own
+    launch-count window (buddy profiling included): a batch of 4 x 8
+    prompt + 8 new tokens through build_engine and generate, or
+    serve.main in continuous mode. Returns (row, step log, counts)."""
+    import contextlib
+    import io
+    import numpy as np
     import torch
-    from repro_torch.configs.rwkv6_1p6b import reduced
+    from repro_torch.kernels import ops
+    torch.cuda.reset_peak_memory_stats()
+    args = serve.parse_args(argv)
+    ops.reset_launch_counts()                  # this path starts here
+    t0 = time.perf_counter()
+    with StepLog() as log:
+        if args.mode == "continuous":
+            with contextlib.redirect_stdout(io.StringIO()):
+                s = serve.main(argv, params=params)
+            eng = log.engine
+            done, wanted = s["completed"], s["num_requests"]
+        else:
+            eng, lm = serve.build_engine(args, params=params)
+            toks = eng.generate(lm.sample(args.batch, 8), args.steps)
+            s = eng.summary()
+            done = int(np.all((toks[:, 8:] >= 0)
+                              & (toks[:, 8:] < eng.cfg.vocab_size), axis=1)
+                       .sum())
+            wanted = args.batch
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()               # ... and ends here
+    st = s["stats"] if "stats" in s else s["engine"]["stats"]
+    ms = [x["ms"] for x in log.steps]
+    row = {"run_s": time.perf_counter() - t0, "completed": done,
+           "requests": wanted, "steps": len(ms),
+           "wall_ms_per_step_median": statistics.median(ms),
+           "wall_ms_per_step_mean": statistics.fmean(ms),
+           "chunk_steps": sum(x["kind"] == "chunk" for x in log.steps),
+           "n_sub": st["n_sub"], "n_hit": st["n_hit"],
+           "n_miss_fetch": st["n_miss_fetch"],
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "launches": counts}
+    if eng.tier is not None:
+        row["degraded_slots"] = eng.tier.degraded_tokens
+    return row, log, counts
+
+
+def phase_mixtral():
+    """Mixtral-8x7B at full width cut to 4 layers; see the module note.
+    Returns (launches, params, cfg)."""
+    import gc
+    import torch
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer
+    from repro_torch.models.common import resolve_device, tree_leaves
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    args = serve.parse_args(MIXTRAL_FLAGS)
+    cfg, dev = serve.model_config(args), resolve_device(args.device)
+    t0 = time.perf_counter()
+    # the launcher's own weights (build_engine's: seed 0 on the card),
+    # made once and given to every path
+    params = transformer.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    torch.cuda.synchronize()
+    out = {"phase": "mixtral", "arch": cfg.arch_id, "layers": cfg.num_layers,
+           "d_model": cfg.d_model, "heads": cfg.num_heads,
+           "kv_heads": cfg.num_kv_heads, "head_dim": cfg.head_dim,
+           "experts": cfg.moe.num_experts, "d_ff_expert": cfg.moe.d_ff,
+           "top_k": cfg.moe.top_k, "window": cfg.sliding_window,
+           "rope_theta": cfg.rope_theta, "vocab": cfg.vocab_size,
+           "params": sum(t.numel() for t in tree_leaves(params)),
+           "weight_gb": sum(t.numel() * t.element_size()
+                            for t in tree_leaves(params)) / 1e9,
+           "init_s": time.perf_counter() - t0}
+    total = None
+    for tag, extra, kernels in MIXTRAL_PATHS:
+        row, log, counts = _mixtral_path(serve, MIXTRAL_FLAGS + extra, params)
+        out[tag] = row
+        require(row["completed"] == row["requests"] > 0,
+                f"mixtral ({tag}): {row['completed']} of {row['requests']} "
+                "requests completed")
+        require(all(counts[k] > 0 for k in kernels),
+                f"mixtral ({tag}): a kernel of the path did not launch: "
+                f"{counts}")
+        for st in log.steps:
+            d = st["launches"]
+            require(d["route"] == st["layers"] and d["topk_gate"] == 0
+                    and d["buddy_substitute"] == 0,
+                    f"mixtral ({tag}): want route once per MoE layer and no "
+                    f"standalone routing kernel in every step, got {st}")
+            require(tag == "fused" or d["expert_ffn"] == st["layers"],
+                    f"mixtral ({tag}): a step left the capacity branch: "
+                    f"{st}")
+        total = counts if total is None else {k: total[k] + counts[k]
+                                              for k in total}
+    require(out["int8_tier"]["degraded_slots"] > 0,
+            "mixtral (int8_tier): the tier served no slot")
+    require(out["continuous"]["chunk_steps"] > 0,
+            "mixtral (continuous): no chunk step")
+    out["launches"] = total
+    out["seconds"] = time.perf_counter() - t_phase
+    emit(out)
+    return total, params, cfg
+
+
+def phase_similarity(params, cfg) -> dict:
+    """Expert output similarity. The path, in its own launch-count window:
+    all_layer_similarities on the committed fixture on the card, and on the
+    Mixtral phase's weights collect_layer_inputs and every layer's
+    expert_output_similarity on its calibration rows (4 x 64 tokens:
+    [8, 256, 4096] per layer). Then the checks: every expert_ffn call the
+    path made, held raw against expert_ffn_plain on its own operands
+    (TOL_F32 x (1 + the plain output's largest entry)); the fixture's
+    cosine means against the CPU's, and each Mixtral layer's against the
+    plain version's on the card (SIM_TOL). Times last. Returns the path's
+    launches."""
+    from unittest import mock
+    import numpy as np
+    import torch
+    from repro_torch.checkpoint.io import load_npz
+    from repro_torch.configs.deepseek_v2_lite_buddy import profiling
+    from repro_torch.core import similarity as sim
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.expert_ffn import expert_ffn_plain
+    from repro_torch.training.data import MarkovLM
+    t_phase = time.perf_counter()
+    out = {"phase": "similarity", "tol": SIM_TOL}
+    pcfg = profiling()
+    toks = MarkovLM(pcfg.vocab_size, num_blocks=8, seed=0).sample(4, 64)
+    fixture = {d: load_npz(str(FIXTURE / "model.npz"), d)
+               for d in ("cpu", "cuda")}
+    gp = params["groups"][0]["moe"]
+    moes = [{k: gp[k][li] for k in ("w1", "w3", "w2")}
+            for li in range(gp["w1"].shape[0])]
+    calls, kernel_ffn = [], ops.expert_ffn
+
+    def recorded(*a):
+        y = kernel_ffn(*a)
+        calls.append((a, y.clone()))
+        return y
+
+    with mock.patch.object(ops, "expert_ffn", recorded):
+        ops.reset_launch_counts()              # the path starts here
+        got = {"cuda": sim.all_layer_similarities(pcfg, fixture["cuda"],
+                                                  toks)}
+        xs = sim.collect_layer_inputs(
+            cfg, params, MarkovLM(cfg.vocab_size, seed=0).sample(4, 64))
+        kern = [sim.expert_output_similarity(m, x) for m, x in zip(moes, xs)]
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()           # ... and ends here
+    require(counts["expert_ffn"] > 0, "similarity: expert_ffn never ran")
+    raw = {}
+    for a, y in calls:
+        want = expert_ffn_plain(*a)
+        err, top = max_err(y, want), float(want.abs().max())
+        require(err <= TOL_F32 * (1 + top),
+                f"similarity: expert_ffn at {tuple(a[0].shape)} x "
+                f"{a[1].shape[-1]}: err {err} (max |plain| {top})")
+        r = raw.setdefault(str(list(a[0].shape) + [a[1].shape[-1]]),
+                           {"calls": 0, "max_abs_err": 0.0,
+                            "max_abs_plain": 0.0})
+        r["calls"] += 1
+        r["max_abs_err"] = max(r["max_abs_err"], err)
+        r["max_abs_plain"] = max(r["max_abs_plain"], top)
+    # which cuBLAS kernels the plain version ran at the Mixtral shape
+    out["plain_ops"] = device_ops(lambda: expert_ffn_plain(*calls[-1][0]))
+    del calls
+    out["expert_ffn_raw"] = raw
+    got["cpu"] = sim.all_layer_similarities(pcfg, fixture["cpu"], toks)
+    err = float(abs(got["cuda"] - got["cpu"]).max())
+    off = ~np.eye(pcfg.moe.num_experts, dtype=bool)
+    out["fixture"] = {"max_abs_err": err,
+                      "mean_off_diagonal": float(got["cuda"][:, off].mean())}
+    require(err <= SIM_TOL, f"similarity (fixture): CPU and card differ "
+                            f"by {err}")
+    off = ~np.eye(cfg.moe.num_experts, dtype=bool)
+    layers = []
+    for m, x, k in zip(moes, xs, kern):
+        with mock.patch.object(ops, "expert_ffn", expert_ffn_plain):
+            plain = sim.expert_output_similarity(m, x)
+            plain_ms = time_ms(lambda: sim.expert_output_similarity(m, x),
+                               reps=3)
+        e = float(abs(k - plain).max())
+        require(e <= SIM_TOL, f"similarity (mixtral layer {len(layers)}): "
+                              f"kernel and plain differ by {e}")
+        layers.append({"max_abs_err": e, "ms": time_ms(
+            lambda: sim.expert_output_similarity(m, x), reps=3),
+            "plain_ms": plain_ms, "mean_off_diagonal": float(k[off].mean())})
+    out["mixtral"] = {"rows": list(xs.shape[1:]), "layers": layers}
+    out["launches"] = counts
+    out["seconds"] = time.perf_counter() - t_phase
+    emit(out)
+    return counts
+
+
+# ---------------------------------------------------------------------------
+def phase_train_parity(arch: str = "rwkv6-1.6b"):
+    """One reduced train step of ``arch`` on the CPU (plain) and on the
+    card (the RWKV6 stack through wkv_chunk; a dense stack launches no
+    kernel of this repo)."""
+    import torch
+    from repro_torch.configs.base import get_reduced
     from repro_torch.kernels import ops
     from repro_torch.models import transformer
     from repro_torch.training.data import MarkovLM
@@ -1896,7 +2331,7 @@ def phase_train_parity():
     from repro_torch.training.optimizer import AdamWConfig, init_opt_state
     from repro_torch.training.train_loop import (loss_and_grads,
                                                  make_train_step)
-    cfg = reduced()
+    cfg = get_reduced(arch)
     params = transformer.init_params(cfg, torch.Generator().manual_seed(0),
                                      "cpu")
     toks = torch.from_numpy(MarkovLM(cfg.vocab_size, seed=0).sample(2, 65))
@@ -1917,12 +2352,14 @@ def phase_train_parity():
                    for a, b in zip(gc, gg))
     out = {"phase": "train_parity", "arch": cfg.arch_id,
            "layers": cfg.num_layers, "d_model": cfg.d_model,
+           "tie_embeddings": cfg.tie_embeddings,
            "loss_cpu": lc, "loss_cuda": lg, "grad_norm_cpu": nc,
            "grad_norm_cuda": ng, "grad_max_rel_err": grad_rel,
            "grad_rtol": GRAD_RTOL, "loss_rtol": LOSS_RTOL,
            "wkv_launches_cpu": kc, "wkv_launches_cuda": kg}
     emit(out)
-    require(kc == 0 and kg == 2 * cfg.num_layers,
+    wkv = 2 * cfg.num_layers if cfg.family == "ssm" else 0
+    require(kc == 0 and kg == wkv,
             f"train parity: wkv_chunk launches {kc} / {kg}")
     require(abs(lg - lc) <= LOSS_RTOL * abs(lc)
             and abs(ng - nc) <= LOSS_RTOL * abs(nc),
@@ -1952,23 +2389,7 @@ def phase_train(wkv_ms: float):
     ops.reset_launch_counts()                  # the train path starts here
     params, hist = trainer.run(log_every=1, log_fn=lambda _: None)
     counts = ops.launch_counts()               # ... and ends here
-    steps = []
-    for h in hist:
-        # wall_s: the host's wall time of the whole loop pass (taking and
-        # copying the batch, the step, reading the metrics back); the
-        # three phases are spans between CUDA events inside the step
-        phases = h["forward_s"] + h["backward_s"] + h["optimizer_s"]
-        steps.append({"step": h["step"], "loss": h["loss"],
-                      "grad_norm": h["grad_norm"], "lr": h["lr"],
-                      "wall_s": h["step_s"], "forward_s": h["forward_s"],
-                      "backward_s": h["backward_s"],
-                      "optimizer_s": h["optimizer_s"],
-                      "device_phases_s": phases,
-                      "host_gap_s": h["step_s"] - phases,
-                      "tokens_per_s": args.batch * args.seq / h["step_s"]})
-    steady = steps[1:] or steps
-    step_s = statistics.median(s["wall_s"] for s in steady)
-    fwd_s = statistics.median(s["forward_s"] for s in steady)
+    steps, step_s, fwd_s = _train_steps(hist, args)
     out = {"phase": "train", "arch": cfg.arch_id, "layers": cfg.num_layers,
            "d_model": cfg.d_model, "heads": cfg.ssm.num_heads,
            "head_dim": cfg.ssm.head_dim, "d_ff": cfg.d_ff,
@@ -1989,6 +2410,74 @@ def phase_train(wkv_ms: float):
             f"train: wkv_chunk launched {counts['wkv_chunk']} times, "
             f"want {cfg.num_layers} per forward")
     return counts["wkv_chunk"], params, cfg
+
+
+def _train_steps(hist, args) -> tuple:
+    """Per-step rows of a train run's history; (rows, median wall s,
+    median forward s) over the steps after the first."""
+    steps = []
+    for h in hist:
+        # wall_s: the host's wall time of the whole loop pass (taking and
+        # copying the batch, the step, reading the metrics back); the
+        # three phases are spans between CUDA events inside the step
+        phases = h["forward_s"] + h["backward_s"] + h["optimizer_s"]
+        steps.append({"step": h["step"], "loss": h["loss"],
+                      "grad_norm": h["grad_norm"], "lr": h["lr"],
+                      "wall_s": h["step_s"], "forward_s": h["forward_s"],
+                      "backward_s": h["backward_s"],
+                      "optimizer_s": h["optimizer_s"],
+                      "device_phases_s": phases,
+                      "host_gap_s": h["step_s"] - phases,
+                      "tokens_per_s": args.batch * args.seq / h["step_s"]})
+    steady = steps[1:] or steps
+    return (steps, statistics.median(s["wall_s"] for s in steady),
+            statistics.median(s["forward_s"] for s in steady))
+
+
+def phase_dense_train():
+    """internlm2-1.8b at full width and depth through launch/train.py: a
+    dense GQA stack (16 query heads over 8 KV heads), no kernel of this
+    repo on its path."""
+    import gc
+    import math
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as launch
+    from repro_torch.models.common import tree_leaves
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    args = launch.parse_args(["--arch", "internlm2-1.8b", "--batch", "4",
+                              "--seq", "512", "--steps", "3"])
+    trainer = launch.build_trainer(args)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t_phase
+    cfg = trainer.cfg
+    n_params = sum(t.numel() for t in tree_leaves(trainer.params))
+    ops.reset_launch_counts()                  # the train path starts here
+    _, hist = trainer.run(log_every=1, log_fn=lambda _: None)
+    counts = ops.launch_counts()               # ... and ends here
+    del trainer
+    steps, step_s, _ = _train_steps(hist, args)
+    out = {"phase": "dense_train", "arch": cfg.arch_id,
+           "layers": cfg.num_layers, "d_model": cfg.d_model,
+           "heads": cfg.num_heads, "kv_heads": cfg.num_kv_heads,
+           "d_ff": cfg.d_ff, "vocab": cfg.vocab_size, "params": n_params,
+           "batch": args.batch, "seq": args.seq, "setup_s": setup_s,
+           "steps": steps, "median_step_s": step_s,
+           "median_tokens_per_s": args.batch * args.seq / step_s,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "launches": counts,
+           **{f"median_{k}": statistics.median(s[k] for s in steps[1:])
+              for k in ("forward_s", "backward_s", "optimizer_s")},
+           "seconds": time.perf_counter() - t_phase}
+    emit(out)
+    require(len(hist) == 3, f"dense_train: {len(hist)} steps")
+    require(all(math.isfinite(s["loss"]) and math.isfinite(s["grad_norm"])
+                for s in steps), "dense_train: non-finite loss or grad norm")
+    require(cfg.num_layers == 24 and cfg.d_model == 2048,
+            f"dense_train: not internlm2-1.8b's full shape: {cfg}")
 
 
 def phase_decode(params, cfg):
@@ -2057,30 +2546,55 @@ def main() -> int:
     import repro_torch  # noqa: F401  (fails outside a checkout)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    smi = phase_device()
-    phase_build()
+    t_start = time.perf_counter()
+    phase_s = {}                # every phase's seconds, in order
+
+    def timed(name, fn, *a):
+        t0 = time.perf_counter()
+        res = fn(*a)
+        phase_s[name] = time.perf_counter() - t0
+        return res
+
+    smi = timed("device", phase_device)
+    timed("build", phase_build)
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(0)
-    rows = {"topk_gate": kernel_topk(dev, gen),
-            "buddy_substitute": kernel_buddy(dev, gen),
-            "expert_ffn": kernel_expert_ffn(dev, gen),
-            "grouped_ffn": kernel_grouped_ffn(dev, gen),
-            "quant_ffn": kernel_quant_ffn(dev, gen),
-            "wkv_chunk": kernel_wkv(dev, gen),
-            "route": kernel_route(dev, gen)}
-    phase_parity()
-    counts, params = phase_serve()
-    cont, ring_row = phase_continuous(params)
-    paged = phase_paged(params, ring_row)
-    tele = phase_telemetry(params)
-    mesh = phase_mesh(params)
-    place = phase_placement(params)
+    rows = {name: timed(name, fn, dev, gen) for name, fn in (
+        ("topk_gate", kernel_topk), ("buddy_substitute", kernel_buddy),
+        ("expert_ffn", kernel_expert_ffn), ("grouped_ffn", kernel_grouped_ffn),
+        ("quant_ffn", kernel_quant_ffn), ("wkv_chunk", kernel_wkv),
+        ("route", kernel_route))}
+    timed("kernels_mixtral", kernel_mixtral, dev, gen)
+    parity = timed("parity", phase_parity)
+    counts, params = timed("serve", phase_serve)
+    cont, ring_row = timed("continuous", phase_continuous, params)
+    paged = timed("paged", phase_paged, params, ring_row)
+    tele = timed("telemetry", phase_telemetry, params)
+    mesh = timed("mesh", phase_mesh, params)
+    place = timed("placement", phase_placement, params)
+    del params
+    mix, params, cfg = timed("mixtral", phase_mixtral)
+    sims = timed("similarity", phase_similarity, params, cfg)
     del params
     counts = {k: counts[k] + cont[k] + paged[k] + tele[k] + mesh[k]
-              + place[k] for k in counts}
-    phase_train_parity()
-    counts["wkv_chunk"], params, cfg = phase_train(rows["wkv_chunk"]["ms"])
-    phase_decode(params, cfg)
+              + place[k] + mix[k] + sims[k] for k in counts}
+    timed("train_parity", phase_train_parity)
+    timed("train_parity_smollm", phase_train_parity, "smollm-360m")
+    counts["wkv_chunk"], params, cfg = timed(
+        "train", phase_train, rows["wkv_chunk"]["ms"])
+    timed("decode", phase_decode, params, cfg)
+    del params
+    timed("dense_train", phase_dense_train)
+    # the phases and kernel cases that Mixtral and the dense configs added
+    new_s = {k: phase_s[k] for k in ("kernels_mixtral", "mixtral",
+                                     "similarity", "train_parity_smollm",
+                                     "dense_train")}
+    new_s["parity_mixtral"] = sum(v["seconds"] for k, v in parity.items()
+                                  if k.startswith("mixtral_"))
+    total = time.perf_counter() - t_start
+    emit({"phase": "new_phase_seconds", "by_phase": new_s,
+          "sum": sum(new_s.values()), "all_phases": phase_s,
+          "main_s": total, "outside_phases_s": total - sum(phase_s.values())})
     table = []
     for name, src, replaces in KERNELS:
         r = rows[name]

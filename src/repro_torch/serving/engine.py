@@ -98,6 +98,7 @@ class ServeEngine:
                  hw: HardwareModel = DEFAULT_HW,
                  window: int = -1,
                  seed: int = 0,
+                 latency_cfg: Optional[ModelConfig] = None,
                  prefetch_min_saving: Optional[float] = None,
                  tier=None, upgrade_degraded: Optional[bool] = None,
                  telemetry: Optional[Telemetry] = None, n_devices: int = 1,
@@ -108,6 +109,10 @@ class ServeEngine:
         """Same knobs as the reference engine for what is ported. The
         params live on the device the engine runs on (their ``embed``
         tensor's device).
+
+        latency_cfg: the full-scale config whose expert size and active
+        params price the simulated transfer and compute clock, so that a
+        reduced model is timed as its deployment target (None: cfg).
 
         tier: a TieredExpertStore; ``policy.quant_tier`` must name its
         precision. upgrade_degraded: background-fetch the true expert of
@@ -193,8 +198,10 @@ class ServeEngine:
         self.lookahead = lookahead
         self.hw = hw
         self.window = window
-        self._expert_bytes = expert_nbytes(cfg.d_model, cfg.moe.d_ff)
-        self._active_params = cfg.active_param_count()
+        ref_cfg = latency_cfg or cfg
+        self._expert_bytes = expert_nbytes(ref_cfg.d_model, ref_cfg.moe.d_ff)
+        self._latency_cfg = ref_cfg
+        self._active_params = ref_cfg.active_param_count()
         self._cost_mode = policy.miss_policy == "cost"
         self.costs = MissCostModel(
             self.num_moe_layers, e, expert_bytes=self._expert_bytes, hw=hw,

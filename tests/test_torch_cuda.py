@@ -970,3 +970,153 @@ def test_placement_tick_on_card_moves_no_tensor(dev):
         out.append(([r.tokens for r in reqs], s["engine"]["placement"]))
     assert out[0] == out[1]
     assert out[1][1]["coverage_repicks"] > 0
+
+
+# ---------------------------------------------------------------------------
+# Mixtral-8x7B's shapes (8 experts x d_model 4096 x d_ff 14336, top-2), and
+# reduced Mixtral (window 128) served on the card against the CPU
+# ---------------------------------------------------------------------------
+MIX_E, MIX_K, MIX_D, MIX_F = 8, 2, 4096, 14336
+
+
+@pytest.fixture(scope="module")
+def mixtral_weights():
+    """w1, w3, w2 at Mixtral's width, random on the card (5.6 GB f32)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is False)")
+    g = torch.Generator(device="cuda").manual_seed(8)
+    return [torch.randn(MIX_E, a, b, generator=g, device="cuda").mul_(0.02)
+            for a, b in ((MIX_D, MIX_F), (MIX_D, MIX_F), (MIX_F, MIX_D))]
+
+
+def _mixtral_rows(c, counts, g):
+    """[groups, c, D] rows, each group's rows past its count zero."""
+    x = torch.randn(len(counts), c, MIX_D, generator=g)
+    x[torch.arange(c)[None, :] >= counts[:, None]] = 0.0
+    return x.to("cuda")
+
+
+@pytest.mark.parametrize("c", [8, 64])       # decode (4 x cap 2), chunk 8
+def test_expert_ffn_at_mixtral_width(dev, mixtral_weights, c):
+    g = _gen(c)
+    counts = torch.randint(0, c + 1, (MIX_E,), generator=g)
+    x = _mixtral_rows(c, counts, g)
+    assert launch_plan(4, MIX_E, c, MIX_D, MIX_F)["instance"] == "vec16"
+    torch.testing.assert_close(expert_ffn_cuda(x, *mixtral_weights),
+                               expert_ffn_plain(x, *mixtral_weights),
+                               rtol=TOL[torch.float32],
+                               atol=TOL[torch.float32])
+
+
+def test_grouped_ffn_at_mixtral_width(dev, mixtral_weights):
+    """A fused decode step's [2E, T*K, D] buffer: 8 slots over the fp half,
+    the degraded half empty."""
+    g = _gen(16)
+    counts = torch.bincount(torch.randint(0, MIX_E, (4 * MIX_K,),
+                                          generator=g),
+                            minlength=2 * MIX_E).to(torch.int32)
+    x = _mixtral_rows(4 * MIX_K, counts, g)
+    counts = counts.to("cuda")
+    got = grouped_ffn_cuda(x, *mixtral_weights, None, counts)
+    torch.testing.assert_close(
+        got, grouped_ffn_plain(x, *mixtral_weights, None, counts),
+        rtol=TOL[torch.float32], atol=TOL[torch.float32])
+    assert torch.all(got[MIX_E:] == 0)
+
+
+def test_quant_ffn_at_mixtral_width(dev, mixtral_weights):
+    """The int8 tier's degraded slots of a decode step binned by expert."""
+    g = _gen(17)
+    quant = _replicas(mixtral_weights)
+    counts = torch.bincount(torch.randint(0, MIX_E, (4,), generator=g),
+                            minlength=MIX_E).to(torch.int32)
+    x = _mixtral_rows(4 * MIX_K, counts, g)
+    counts = counts.to("cuda")
+    got = quant_ffn_cuda(x, *quant, counts)
+    torch.testing.assert_close(got, quant_ffn_plain(x, *quant, counts),
+                               rtol=TOL[torch.float32],
+                               atol=TOL[torch.float32])
+    assert torch.all(got[(counts == 0).nonzero()[:, 0]] == 0)
+
+
+@pytest.mark.parametrize("t", [4, 32])
+def test_route_at_mixtral_shape(dev, t):
+    """E = 8, K = 2 and a 7-deep buddy table, with the tier's mask."""
+    g = _gen(t + 8)
+    e, r = MIX_E, MIX_E - 1
+    table = torch.stack([torch.randperm(e, generator=g)[:r]
+                         for _ in range(e)]).to(torch.int32)
+    table[:, 3:][torch.rand(e, r - 3, generator=g) < 0.3] = -1
+    q = torch.rand(e, r, generator=g).sort(-1, descending=True).values
+    args = (torch.randn(t, e, generator=g).to(dev), 0.2, 1.1,
+            (torch.rand(e, generator=g) < 0.5).to(dev), table.to(dev),
+            q.to(dev))
+    _route_check(args, dict(k=MIX_K, h=8, rho=3, substitute=True,
+                            quant_ok=(torch.rand(e, generator=g)
+                                      < 0.5).to(dev)))
+
+
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("tier", [False, True])
+def test_reduced_mixtral_engine_on_card_matches_cpu(dev, fused, tier):
+    """Reduced Mixtral from weights made on the CPU, 4 x 124 prompt + 8
+    new tokens (decode passes the 128-token window), on the capacity or
+    fused path, without and with the int8 tier at coverage 0.5: equal
+    tokens and counters, logits within 1e-3; route once per MoE layer per
+    step on the card."""
+    import numpy as np
+    from repro_torch.configs.base import get_reduced
+    from repro_torch.launch.serve import profile_buddies
+    from repro_torch.models import transformer as T
+    from repro_torch.models.common import tree_map
+    from repro_torch.runtime.cache import ExpertCache
+    from repro_torch.runtime.prefetch import PrevStepPredictor
+    from repro_torch.runtime.tiers import TieredExpertStore
+    from repro_torch.serving.engine import ServeEngine
+    from repro_torch.training.data import MarkovLM
+    cfg = get_reduced("mixtral-8x7b")
+    n, e = cfg.num_layers, cfg.moe.num_experts
+    params = T.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    tables, rec = profile_buddies(cfg, params, MarkovLM(cfg.vocab_size,
+                                                        seed=0))
+    prompts = MarkovLM(cfg.vocab_size, seed=3).sample(4, 124)
+    out = []
+    for d in ("cpu", dev):
+        store = None
+        if tier:
+            store = TieredExpertStore(n, e, 0.5, bits=8, coverage=0.5,
+                                      d_model=cfg.d_model, d_ff=cfg.moe.d_ff)
+            store.set_coverage(rec.A)
+        cache = store.cache if tier else ExpertCache(n, e, 0.5)
+        eng = ServeEngine(
+            cfg, tree_map(lambda t: t.to(d, copy=True), params),
+            tables=tables, policy=BuddyPolicy(
+                use_fused_dispatch=fused,
+                quant_tier="int8" if tier else "off"),
+            cache=None if tier else cache, tier=store,
+            predictor=PrevStepPredictor(n, e),
+            prefetch_k=max(1, cache.capacity // 2))
+        logits, step = [], eng.step
+
+        def logged(*a, **kw):
+            res = step(*a, **kw)
+            logits.append(res[0].detach().cpu())
+            return res
+
+        eng.step = logged
+        before = ops.launch_counts()["route"]
+        toks = eng.generate(prompts, 8)
+        routes = ops.launch_counts()["route"] - before
+        s = eng.summary()
+        assert routes == (0 if d == "cpu" else n * s["stats"]["steps"])
+        out.append((toks, s, torch.stack(logits)))
+    (ct, cs, cl), (gt, gs, gl) = out
+    assert np.array_equal(ct, gt)
+    assert cs["stats"] == gs["stats"] and cs["ledger"] == gs["ledger"]
+    torch.testing.assert_close(gl, cl, rtol=1e-3, atol=1e-3)
+    if tier:
+        assert gs["tier"]["degraded_tokens"] > 0
+        fc = cs["tier"].pop("mean_fidelity_loss")
+        fg = gs["tier"].pop("mean_fidelity_loss")
+        assert cs["tier"] == gs["tier"]
+        assert abs(fc - fg) <= 1e-5 * abs(fc)

@@ -1,7 +1,8 @@
 """The port stands alone: importing every ``repro_torch`` module pulls in no
 JAX and nothing of the JAX package (checked in a fresh interpreter, since
-the test process itself has JAX loaded), and no source file of the port or
-the chip smoke script imports either."""
+the test process itself has JAX loaded), and no source file of the port,
+its examples (``examples/torch_*.py``) or the chip smoke script imports
+either."""
 import os
 import re
 import subprocess
@@ -25,7 +26,13 @@ NEW = ("repro_torch.core.quantize", "repro_torch.runtime.tiers",
        "repro_torch.launch.train", "repro_torch.serving.scheduler",
        "repro_torch.serving.requests", "repro_torch.runtime.paged_kv",
        "repro_torch.serving.prefix", "repro_torch.runtime.trace",
-       "repro_torch.runtime.telemetry", "repro_torch.runtime.placement")
+       "repro_torch.runtime.telemetry", "repro_torch.runtime.placement",
+       "repro_torch.core.similarity", "repro_torch.configs.mixtral_8x7b",
+       "repro_torch.configs.mixtral_8x22b",
+       "repro_torch.configs.internlm2_1p8b",
+       "repro_torch.configs.internlm2_20b",
+       "repro_torch.configs.phi3_medium_14b",
+       "repro_torch.configs.smollm_360m")
 names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                 "repro_torch.")]
 for n in names:
@@ -53,6 +60,8 @@ _IMPORT = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|repro)(\.|\s|$)",
 
 @pytest.mark.parametrize("path", sorted(
     [str(p.relative_to(ROOT)) for p in PORT.rglob("*.py")]
+    + [str(p.relative_to(ROOT))
+       for p in (ROOT / "examples").glob("torch_*.py")]
     + ["chip_smoke.py"]))
 def test_source_imports_no_jax(path):
     text = (ROOT / path).read_text()

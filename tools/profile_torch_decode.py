@@ -4,11 +4,16 @@ spends its time on the card.
 
     PYTHONPATH=src python tools/profile_torch_decode.py [--layers 8] [--steps 6] \
         [--quant-tier int8] [--prefill-chunk 128] [--paged-kv [--prefix-cache]]
+    # Mixtral-8x7B's decode step (the capacity branch at batch 4)
+    PYTHONPATH=src python tools/profile_torch_decode.py --arch mixtral-8x7b \
+        --layers 4
 
-Builds the same engine as chip_smoke.py's serve phase (deepseek-v2-lite-buddy
-at full width, cut to --layers layers, random weights from seed 0, buddy
-profiling, cache-rate 0.5, prev-step predictor), warms it up, then for the
-fused and the gather dispatch times --steps decode steps three ways: wall
+Builds the same engine as chip_smoke.py's serve phase (--arch, by default
+deepseek-v2-lite-buddy, at full width, cut to --layers layers, random
+weights from seed 0, buddy profiling, cache-rate 0.5, prev-step predictor),
+warms it up, then for the fused and the unfused dispatch (the gather
+branch at batch 4 when 4 x top-k < experts, as in DeepSeek, else the
+capacity branch, as in Mixtral) times --steps decode steps three ways: wall
 clock (synchronized), the host-side timeline replay inside the engine
 (``ServeEngine._account``), and torch.profiler's device time per kernel.
 With --quant-tier the engines carry the replica tier at coverage 0.5
@@ -55,9 +60,10 @@ HIT = 60                                     # adopted tokens per prefix hit
 
 
 def profile_dispatch(serve, params, layers: int, steps: int, fused: bool,
-                     tier_flags=(), chunk: int = 1, kv_flags=()):
+                     tier_flags=(), chunk: int = 1, kv_flags=(),
+                     arch: str = "deepseek-v2-lite-buddy"):
     from repro_torch.models import attention
-    flags = ["--layers", str(layers), "--cache-rate", "0.5", "--policy",
+    flags = ["--arch", arch, "--layers", str(layers), "--cache-rate", "0.5", "--policy",
              "buddy", "--predictor", "prev-step", "--batch", "4"]
     eng, lm = serve.build_engine(
         serve.parse_args(flags + list(tier_flags) + list(kv_flags)
@@ -165,10 +171,12 @@ def _profile(eng, lm, steps, fused, tier_flags, chunk, kv_flags, layers,
             and e.key not in RANGES]
     busy_us = sum(r[1] for r in rows)
     rows.sort(key=lambda r: -r[1])
+    moe = eng.cfg.moe
     return {
-        "dispatch": "fused" if fused else ("gather" if chunk == 1
-                                           else "capacity"),
-        "layers": layers, "steps": steps, "chunk_tokens": 4 * chunk,
+        "dispatch": "fused" if fused else (
+            "gather" if chunk == 1 and 4 * moe.top_k < moe.num_experts
+            else "capacity"),
+        "arch": eng.cfg.arch_id, "layers": layers, "steps": steps, "chunk_tokens": 4 * chunk,
         "tier": " ".join(tier_flags) or "off",
         "kv": ("paged, prefix hit steps" if hits else
                "paged" if kv_flags else "ring"),
@@ -195,6 +203,8 @@ def _profile(eng, lm, steps, fused, tier_flags, chunk, kv_flags, layers,
 
 def main() -> int:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="deepseek-v2-lite-buddy",
+                    help="a MoE arch id of repro_torch.configs")
     ap.add_argument("--layers", type=int, default=8)
     ap.add_argument("--steps", type=int, default=6)
     ap.add_argument("--quant-tier", choices=["off", "int8", "int4"],
@@ -221,7 +231,8 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     from repro_torch.launch import serve
     from repro_torch.models import transformer
-    cfg = serve.model_config(serve.parse_args(["--layers",
+    cfg = serve.model_config(serve.parse_args(["--arch", args.arch,
+                                               "--layers",
                                                str(args.layers)]))
     params = transformer.init_params(
         cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
@@ -233,7 +244,8 @@ def main() -> int:
            "results": []}
     for fused in (True, False):
         res = profile_dispatch(serve, params, args.layers, args.steps, fused,
-                               tier_flags, args.prefill_chunk, kv_flags)
+                               tier_flags, args.prefill_chunk, kv_flags,
+                               args.arch)
         print(json.dumps(res), flush=True)
         out["results"].append(res)
     if args.out:
