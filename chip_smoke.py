@@ -41,7 +41,15 @@ committed fixture under ``results/bench``). Phases, one JSON line each:
            [16, 8, 4096] with row counts, quant_ffn on the int8 tier's
            degraded slots [8, 8, 4096] with counts, route at E = 8, K = 2,
            R = 7, T = 4 and 32; each with ms, device_us and its bound,
-           the FFN cases with their plain version's device ops by name
+           the FFN cases with their plain version's device ops by name;
+           and the train path's two kernels at DeepSeek-V2-Lite's train
+           shapes (kernel "train_grads"): expert_ffn on the capacity
+           buffer of a 4 x 512 batch [64, 4 x 64, 2048] x 1408 and
+           topk_gate at T = 2048, E = 64, K = 6, each forward against its
+           plain version and its autograd Function's backward against
+           autograd through the plain version on the same card tensors
+           (every gradient within GRAD_RTOL of its largest entry), with
+           forward and backward ms beside their bounds
   parity   the committed profiling fixture (results/bench/model.npz with
            tables_a0.95_k16.npz) served on the CPU through the plain versions
            and on the card through the kernels, without and with the int8
@@ -152,7 +160,13 @@ committed fixture under ``results/bench``). Phases, one JSON line each:
   train_parity  the reduced rwkv6 config, weights from seed 0 made on the
            CPU: one train step on the CPU (plain) and one on the card
            (kernel); loss, grad norm and every gradient agree; then the
-           same for the reduced smollm-360m (tied embeddings, no kernel)
+           same for the reduced smollm-360m (tied embeddings, no kernel);
+           after dense_train, for deepseek-v2-lite-buddy's profiling config
+           (64 experts, top-6): topk_gate and expert_ffn once per MoE layer
+           per forward on the card and never on the CPU, every MoE leaf's
+           card gradient finite and nonzero where the CPU's is, the
+           smallest gap between a token's K-th and (K+1)-th router logit
+           printed beside the error
   train    rwkv6-1.6b at full width and depth (24 layers, d_model 2048,
            vocab 65536, f32), random weights from seed 0, through
            launch/train.py's entry points: --batch 4 --seq 512 --steps 3 in
@@ -167,11 +181,19 @@ committed fixture under ``results/bench``). Phases, one JSON line each:
            launch/train.py, --batch 4 --seq 512 --steps 3: finite loss and
            grad norm at every step; wall per step, tokens/s, the forward /
            backward / optimizer split, peak memory
+  moe_train  deepseek-v2-lite-buddy at full width (d_model 2048, 16 heads
+           x 128, 64 experts x 1408, top-6, 2 shared experts, vocab 102400,
+           f32) cut to 4 of its 27 layers, random weights from seed 0,
+           through launch/train.py --layers 4 --batch 4 --seq 512 --steps
+           3 in its own launch-count window: finite loss and grad norm at
+           every step, topk_gate and expert_ffn 4 times per forward;
+           parameters, setup s, per-step wall and forward / backward /
+           optimizer s, median tokens/s, peak memory
 
-The line new_phase_seconds gives the seconds of the phases and the
-kernel cases that Mixtral and the dense configs added (parity_mixtral: the
-parity phase's reduced-Mixtral cases) and their sum, every phase's seconds
-(all_phases), and main's seconds in all and outside the phases.
+The line new_phase_seconds gives the seconds of the phases and the kernel
+cases that MoE training added and their sum, every phase's seconds
+(all_phases), and main's seconds in all and outside the phases. The kernels
+line's topk_gate and expert_ffn launches include moe_train's.
 
 Then the kernels table line, the card's name and power limit as nvidia-smi
 prints them, and the result line. Without a CUDA card, or outside a checkout,
@@ -546,6 +568,131 @@ def kernel_expert_ffn(dev, gen):
     emit({"phase": "kernels", "kernel": "expert_ffn",
           "shape": [e_n, "C", d_n, f_n], "by_case": rows})
     return rows["full_32"]
+
+
+TRAIN_ROWS, TRAIN_SEQ = 4, 512        # moe_train's batch: 4 x 512 tokens
+
+
+def _train_capacity_buffer(gen, e_n: int, k_n: int, d_n: int, dev):
+    """The capacity branch's buffer of a DeepSeek train forward at batch
+    TRAIN_ROWS x TRAIN_SEQ: each token's K distinct experts binned per
+    batch row in slot order into [E, rows x cap, D], cap = 64 (1.25 x the
+    mean load, rounded up to 8), slots past cap dropped, as models/moe.py
+    bins them. Returns (buffer, filled rows)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.models.moe import _capacity
+    rows, s_n = TRAIN_ROWS, TRAIN_SEQ
+    cap = _capacity(s_n, k_n, e_n, 1.25)
+    x_tok = torch.randn(rows * s_n, d_n, generator=gen)
+    row_e = _route_slots(gen, rows * s_n, e_n, k_n, "cpu").long() \
+        .reshape(rows, s_n * k_n)
+    onehot = F.one_hot(row_e, e_n)
+    pos = (onehot.cumsum(1) * onehot).sum(-1) - 1
+    kept = pos < cap
+    b_idx = torch.arange(rows)[:, None]
+    flat = torch.where(kept, row_e * (rows * cap) + b_idx * cap + pos,
+                       e_n * rows * cap).reshape(-1)
+    buf = torch.zeros(e_n * rows * cap + 1, d_n)
+    buf[flat] = x_tok.repeat_interleave(k_n, 0)
+    return (buf[:-1].view(e_n, rows * cap, d_n).to(dev),
+            int(kept.sum()))
+
+
+def _grad_rel(got, want) -> float:
+    """Largest |got - want| over want's largest entry."""
+    return max_err(got, want) / max(float(want.abs().max()), 1e-30)
+
+
+def kernel_train_grads(dev, gen):
+    """The train path's two kernels at DeepSeek-V2-Lite's train shapes
+    (batch 4 x 512): forward against the plain version, and the autograd
+    Function's backward (torch ops) against autograd through the plain
+    version on the same card tensors. expert_ffn on the capacity buffer
+    [64, 4 x 64, 2048] x 1408; topk_gate at T = 2048, E = 64, K = 6."""
+    import torch
+    from repro_torch.kernels.expert_ffn import (ExpertFFN,
+                                                expert_ffn_backward,
+                                                expert_ffn_cuda,
+                                                expert_ffn_plain)
+    from repro_torch.kernels.topk_gate import (TopkGate, topk_gate_cuda,
+                                               topk_gate_plain)
+    e_n, k_n, d_n, f_n, tau = 64, 6, 2048, 1408, 0.2
+    out = {"phase": "kernels", "kernel": "train_grads", "tol": GRAD_RTOL}
+    # ---- expert_ffn -------------------------------------------------------
+    x, filled = _train_capacity_buffer(gen, e_n, k_n, d_n, dev)
+    ws = _ffn_weights(gen, e_n, d_n, f_n, dev, torch.float32)
+    dy = torch.randn(x.shape, generator=gen).to(dev)
+    got, want = expert_ffn_cuda(x, *ws), expert_ffn_plain(x, *ws)
+    fwd_err = max_err(got, want)
+    require(fwd_err <= TOL_F32 * (1 + float(want.abs().max())),
+            f"train_grads: expert_ffn forward err {fwd_err}")
+    del got, want
+    grads = []
+    for fn in (lambda *a: ExpertFFN.apply(expert_ffn_cuda, *a),
+               expert_ffn_plain):
+        leaves = [t.detach().requires_grad_(True) for t in (x, *ws)]
+        fn(*leaves).backward(dy)
+        grads.append([t.grad for t in leaves])
+    rel = {nm: _grad_rel(g, w) for nm, g, w in
+           zip(("dx", "dw1", "dw3", "dw2"), *grads)}
+    finite = all(bool(torch.isfinite(g).all()) for g in grads[0])
+    del grads
+    c_n = x.shape[1]
+    mm = 2 * e_n * c_n * d_n * f_n               # one [C, D] x [D, F] product
+    fwd_b = bound(nbytes(x, *ws, x), 3 * mm)
+    bwd_b = bound(nbytes(x, *ws, dy) + nbytes(x, *ws), 8 * mm)
+    leaves = [t.detach().requires_grad_(True) for t in (x, *ws)]
+    y_plain = expert_ffn_plain(*leaves)
+    ffn = {"shape": list(x.shape) + [f_n], "filled_rows": filled,
+           "forward_max_abs_err": fwd_err,
+           **ffn_plan(x, e_n, f_n, (x, *ws)),
+           "forward_ms": time_ms(lambda: expert_ffn_cuda(x, *ws), reps=10),
+           "forward_plain_ms": time_ms(lambda: expert_ffn_plain(x, *ws),
+                                       reps=10),
+           "forward_bound_ms": fwd_b[0], "forward_bound_by": fwd_b[1],
+           "backward_ms": time_ms(lambda: expert_ffn_backward(x, *ws, dy),
+                                  reps=10),
+           "backward_plain_autograd_ms": time_ms(
+               lambda: torch.autograd.grad(y_plain, leaves, dy,
+                                           retain_graph=True), reps=10),
+           "backward_bound_ms": bwd_b[0], "backward_bound_by": bwd_b[1],
+           "grad_rel_err": rel, "grads_finite": finite}
+    del y_plain, leaves, x, ws, dy
+    torch.cuda.empty_cache()
+    out["expert_ffn"] = ffn
+    # ---- topk_gate --------------------------------------------------------
+    t_n = TRAIN_ROWS * TRAIN_SEQ
+    z = torch.randn(t_n, e_n, generator=gen).to(dev)
+    g_v, g_p = (torch.randn(t_n, k_n, generator=gen).to(dev)
+                for _ in range(2))
+    got, want = topk_gate_cuda(z, tau, k=k_n), topk_gate_plain(z, tau, k=k_n)
+    require(torch.equal(got[0], want[0]) and torch.equal(got[4], want[4]),
+            "train_grads: topk_gate indices or gate differ")
+    gate_err = max(max_err(g, w) for g, w in zip(got[1:4], want[1:4]))
+    require(gate_err <= TOL_GATE, f"train_grads: topk_gate err {gate_err}")
+    grads = []
+    for fn in (lambda a: TopkGate.apply(topk_gate_cuda, a, tau, k_n),
+               lambda a: topk_gate_plain(a, tau, k=k_n)):
+        a = z.detach().requires_grad_(True)
+        _, vals, probs, _, _ = fn(a)
+        (torch.sum(vals * g_v) + torch.sum(probs * g_p)).backward()
+        grads.append(a.grad)
+    gb = bound(nbytes(z, *got), t_n * e_n * k_n)
+    out["topk_gate"] = {
+        "T": t_n, "E": e_n, "K": k_n, "forward_max_abs_err": gate_err,
+        "grad_rel_err": _grad_rel(*grads),
+        "forward_ms": time_ms(lambda: topk_gate_cuda(z, tau, k=k_n),
+                              inner=10),
+        "forward_plain_ms": time_ms(lambda: topk_gate_plain(z, tau, k=k_n),
+                                    inner=10),
+        "forward_bound_ms": gb[0], "forward_bound_by": gb[1]}
+    emit(out)
+    require(finite and max(rel.values()) <= GRAD_RTOL,
+            f"train_grads: expert_ffn gradients differ: {ffn}")
+    require(out["topk_gate"]["grad_rel_err"] <= GRAD_RTOL,
+            f"train_grads: topk_gate gradient differs: {out['topk_gate']}")
+    return out
 
 
 def kernel_quant_ffn(dev, gen):
@@ -2318,53 +2465,108 @@ def phase_similarity(params, cfg) -> dict:
 
 
 # ---------------------------------------------------------------------------
+TRAIN_KERNELS = ("wkv_chunk", "topk_gate", "expert_ffn")
+
+
+def _topk_gap(logits, k: int) -> float:
+    """The smallest gap between a token's K-th and (K+1)-th router logit:
+    how close the routing is to a flip."""
+    import torch
+    v = torch.sort(logits.float(), dim=-1, descending=True).values
+    return float((v[:, k - 1] - v[:, k]).min())
+
+
 def phase_train_parity(arch: str = "rwkv6-1.6b"):
-    """One reduced train step of ``arch`` on the CPU (plain) and on the
-    card (the RWKV6 stack through wkv_chunk; a dense stack launches no
-    kernel of this repo)."""
+    """One train step of ``arch`` on the CPU (plain) and on the card: the
+    reduced config, or for deepseek-v2-lite-buddy the profiling config (64
+    experts, top-6, the committed fixture's shape). The RWKV6 stack runs
+    wkv_chunk, a MoE stack topk_gate and expert_ffn once per MoE layer per
+    forward, a dense stack no kernel of this repo. For a MoE stack every
+    MoE leaf's card gradient is finite and nonzero where the CPU's is, and
+    the smallest top-K router-logit gap is printed beside the error: a
+    flip between CPU and card would change whole gradients."""
+    import numpy as np
     import torch
     from repro_torch.configs.base import get_reduced
+    from repro_torch.configs.deepseek_v2_lite_buddy import profiling
+    from repro_torch.checkpoint.io import params_to_numpy
     from repro_torch.kernels import ops
     from repro_torch.models import transformer
     from repro_torch.training.data import MarkovLM
-    from repro_torch.models.common import tree_leaves, tree_map
+    from repro_torch.models.common import tree_map
     from repro_torch.training.optimizer import AdamWConfig, init_opt_state
     from repro_torch.training.train_loop import (loss_and_grads,
                                                  make_train_step)
-    cfg = get_reduced(arch)
+    cfg = profiling() if arch == "deepseek-v2-lite-buddy" \
+        else get_reduced(arch)
     params = transformer.init_params(cfg, torch.Generator().manual_seed(0),
                                      "cpu")
     toks = torch.from_numpy(MarkovLM(cfg.vocab_size, seed=0).sample(2, 65))
     step_fn = make_train_step(cfg, AdamWConfig(total_steps=3,
                                                warmup_steps=10))
+    gate = ops.topk_gate
     res = {}
     for d in ("cpu", "cuda"):
-        before = ops.launch_counts()["wkv_chunk"]
+        seen = []
+
+        def spy(logits, tau, *, k):            # the router logits it routes
+            seen.append(logits.detach().cpu())
+            return gate(logits, tau, k=k)
+        before = ops.launch_counts()
         p = tree_map(lambda t: t.to(d, copy=True), params)
         x, y = toks[:, :-1].to(d), toks[:, 1:].to(d)
-        _, _, grads = loss_and_grads(p, cfg, x, y)
+        ops.topk_gate = spy
+        try:
+            _, _, grads = loss_and_grads(p, cfg, x, y)
+        finally:
+            ops.topk_gate = gate
         _, _, m = step_fn(p, init_opt_state(p), x, y)
+        after = ops.launch_counts()
         res[d] = (float(m["loss"]), float(m["grad_norm"]),
-                  [g.cpu() for g in tree_leaves(grads)],
-                  ops.launch_counts()["wkv_chunk"] - before)
-    (lc, nc, gc, kc), (lg, ng, gg, kg) = res["cpu"], res["cuda"]
-    grad_rel = max(max_err(b, a) / max(float(a.abs().max()), 1e-30)
-                   for a, b in zip(gc, gg))
+                  params_to_numpy(grads),
+                  {k: after[k] - before[k] for k in TRAIN_KERNELS}, seen)
+    (lc, nc, gc, kc, zc), (lg, ng, gg, kg, zg) = res["cpu"], res["cuda"]
+    grad_rel = max(float(abs(gg[k] - gc[k]).max())
+                   / max(float(abs(gc[k]).max()), 1e-30) for k in gc)
+    n_moe = cfg.num_layers if cfg.is_moe else 0
     out = {"phase": "train_parity", "arch": cfg.arch_id,
            "layers": cfg.num_layers, "d_model": cfg.d_model,
            "tie_embeddings": cfg.tie_embeddings,
            "loss_cpu": lc, "loss_cuda": lg, "grad_norm_cpu": nc,
            "grad_norm_cuda": ng, "grad_max_rel_err": grad_rel,
            "grad_rtol": GRAD_RTOL, "loss_rtol": LOSS_RTOL,
-           "wkv_launches_cpu": kc, "wkv_launches_cuda": kg}
+           "launches_cpu": kc, "launches_cuda": kg}
+    if n_moe:
+        moe_keys = [k for k in gc if "/moe/" in k]
+        out.update(
+            experts=cfg.moe.num_experts, top_k=cfg.moe.top_k,
+            moe_leaves=len(moe_keys),
+            moe_leaves_zero_on_card=[k for k in moe_keys
+                                     if abs(gc[k]).max() > 0
+                                     and not abs(gg[k]).max() > 0],
+            grads_finite_on_card=all(bool(np.isfinite(v).all())
+                                     for v in gg.values()),
+            min_topk_logit_gap_cpu=min(_topk_gap(z, cfg.moe.top_k)
+                                       for z in zc),
+            min_topk_logit_gap_cuda=min(_topk_gap(z, cfg.moe.top_k)
+                                        for z in zg),
+            router_logit_max_abs_diff=max(max_err(a, b)
+                                          for a, b in zip(zc, zg)))
     emit(out)
-    wkv = 2 * cfg.num_layers if cfg.family == "ssm" else 0
-    require(kc == 0 and kg == wkv,
-            f"train parity: wkv_chunk launches {kc} / {kg}")
+    # two forwards per device: loss_and_grads, then the train step's
+    want = {"wkv_chunk": 2 * cfg.num_layers if cfg.family == "ssm" else 0,
+            "topk_gate": 2 * n_moe, "expert_ffn": 2 * n_moe}
+    require(kc == dict.fromkeys(TRAIN_KERNELS, 0) and kg == want,
+            f"train parity: launches {kc} / {kg}, want 0 / {want}")
     require(abs(lg - lc) <= LOSS_RTOL * abs(lc)
             and abs(ng - nc) <= LOSS_RTOL * abs(nc),
             f"train parity: loss or grad norm differ: {out}")
     require(grad_rel <= GRAD_RTOL, f"train parity: gradients differ: {out}")
+    if n_moe:
+        require(out["moe_leaves"] > 0 and not out["moe_leaves_zero_on_card"]
+                and out["grads_finite_on_card"],
+                f"train parity: a MoE gradient is zero or not finite on the "
+                f"card: {out}")
 
 
 def phase_train(wkv_ms: float):
@@ -2480,6 +2682,70 @@ def phase_dense_train():
             f"dense_train: not internlm2-1.8b's full shape: {cfg}")
 
 
+MOE_TRAIN_FLAGS = ["--arch", "deepseek-v2-lite-buddy", "--layers", "4",
+                   "--batch", str(TRAIN_ROWS), "--seq", str(TRAIN_SEQ),
+                   "--steps", "3"]
+
+
+def phase_moe_train():
+    """DeepSeek-V2-Lite at full width (d_model 2048, 16 heads x 128, 64
+    experts x 1408, top-6, 2 shared, vocab 102400, f32) cut to 4 of its 27
+    layers, through launch/train.py (--layers 4 --batch 4 --seq 512
+    --steps 3): every forward runs topk_gate and expert_ffn once per MoE
+    layer, and their Functions' backward in torch ops."""
+    import gc
+    import math
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as launch
+    from repro_torch.models.common import tree_leaves
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    args = launch.parse_args(MOE_TRAIN_FLAGS)
+    t0 = time.perf_counter()
+    trainer = launch.build_trainer(args)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    cfg = trainer.cfg
+    n_params = sum(t.numel() for t in tree_leaves(trainer.params))
+    ops.reset_launch_counts()                  # the train path starts here
+    _, hist = trainer.run(log_every=1, log_fn=lambda _: None)
+    counts = ops.launch_counts()               # ... and ends here
+    del trainer
+    steps, step_s, _ = _train_steps(hist, args)
+    n = len(hist)
+    out = {"phase": "moe_train", "arch": cfg.arch_id,
+           "layers": cfg.num_layers, "d_model": cfg.d_model,
+           "heads": cfg.num_heads, "head_dim": cfg.head_dim,
+           "experts": cfg.moe.num_experts, "expert_d_ff": cfg.moe.d_ff,
+           "top_k": cfg.moe.top_k, "shared_experts":
+           cfg.moe.num_shared_experts, "vocab": cfg.vocab_size,
+           "params": n_params, "batch": args.batch, "seq": args.seq,
+           "setup_s": setup_s, "steps": steps, "median_step_s": step_s,
+           "median_tokens_per_s": args.batch * args.seq / step_s,
+           **{f"median_{k}": statistics.median(s[k] for s in steps[1:])
+              for k in ("forward_s", "backward_s", "optimizer_s")},
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "launches_per_forward": {k: counts[k] / n
+                                    for k in ("topk_gate", "expert_ffn")},
+           "launches": counts}
+    emit(out)
+    require(n == 3, f"moe_train: {n} steps")
+    require(all(math.isfinite(s["loss"]) and math.isfinite(s["grad_norm"])
+                for s in steps), "moe_train: non-finite loss or grad norm")
+    require(abs(steps[0]["loss"] - math.log(cfg.vocab_size)) < 1.0,
+            f"moe_train: first loss {steps[0]['loss']} far from ln(vocab)")
+    require((cfg.d_model, cfg.moe.num_experts, cfg.moe.d_ff, cfg.moe.top_k,
+             cfg.num_layers) == (2048, 64, 1408, 6, 4),
+            f"moe_train: not DeepSeek-V2-Lite's width at 4 layers: {cfg}")
+    require(counts["topk_gate"] == counts["expert_ffn"]
+            == cfg.num_layers * n,
+            f"moe_train: launches {counts}, want {cfg.num_layers} topk_gate "
+            f"and expert_ffn per forward")
+    return counts
+
+
 def phase_decode(params, cfg):
     """Chunked full-sequence forward against per-token decode, full width."""
     import torch
@@ -2565,7 +2831,8 @@ def main() -> int:
         ("quant_ffn", kernel_quant_ffn), ("wkv_chunk", kernel_wkv),
         ("route", kernel_route))}
     timed("kernels_mixtral", kernel_mixtral, dev, gen)
-    parity = timed("parity", phase_parity)
+    timed("kernels_train_grads", kernel_train_grads, dev, gen)
+    timed("parity", phase_parity)
     counts, params = timed("serve", phase_serve)
     cont, ring_row = timed("continuous", phase_continuous, params)
     paged = timed("paged", phase_paged, params, ring_row)
@@ -2585,12 +2852,14 @@ def main() -> int:
     timed("decode", phase_decode, params, cfg)
     del params
     timed("dense_train", phase_dense_train)
-    # the phases and kernel cases that Mixtral and the dense configs added
-    new_s = {k: phase_s[k] for k in ("kernels_mixtral", "mixtral",
-                                     "similarity", "train_parity_smollm",
-                                     "dense_train")}
-    new_s["parity_mixtral"] = sum(v["seconds"] for k, v in parity.items()
-                                  if k.startswith("mixtral_"))
+    timed("train_parity_deepseek", phase_train_parity,
+          "deepseek-v2-lite-buddy")
+    moe = timed("moe_train", phase_moe_train)
+    for k in ("topk_gate", "expert_ffn"):
+        counts[k] += moe[k]
+    # the phases and kernel cases that MoE training added
+    new_s = {k: phase_s[k] for k in ("kernels_train_grads",
+                                     "train_parity_deepseek", "moe_train")}
     total = time.perf_counter() - t_start
     emit({"phase": "new_phase_seconds", "by_phase": new_s,
           "sum": sum(new_s.values()), "all_phases": phase_s,

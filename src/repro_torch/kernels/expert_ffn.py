@@ -7,6 +7,11 @@ x.dtype inputs, f32 accumulation and the hidden product cast back to x.dtype
 between the two matmuls. Bound on the H100: the weight bytes at the capacity
 path's shapes; see the source note in the .cu file for the design. One call
 is two launches (gate/up, then down); ``launches`` counts calls.
+
+The JAX package has no backward kernel (it trains on the jnp einsums), so
+``ExpertFFN``'s gradient is torch ops, the same on both devices: it
+recomputes the two hidden products in f32, then forms six batched
+products: dhg, dw2, dw1, dw3 and dx's two.
 """
 from __future__ import annotations
 
@@ -70,6 +75,45 @@ def expert_ffn_plain(x, w1, w3, w2):
     g = torch.matmul(x.float(), w3.float())
     hg = (h * g).to(x.dtype)
     return torch.matmul(hg.float(), w2.float()).to(x.dtype)
+
+
+def expert_ffn_backward(x, w1, w3, w2, dy, need=(True,) * 4):
+    """Gradients (dx, dw1, dw3, dw2) of expert_ffn(x, w1, w3, w2) given dy,
+    in the inputs' dtypes; ``need`` flags which to form (None otherwise).
+    Rows of x that are zero (empty capacity slots) give zero rows of dx and
+    add nothing to the weights' gradients."""
+    xf, dyf = x.float(), dy.float()
+    w1f, w3f, w2f = w1.float(), w3.float(), w2.float()
+    h1, h3 = torch.matmul(xf, w1f), torch.matmul(xf, w3f)
+    sig = torch.sigmoid(h1)
+    s = h1 * sig                                         # silu(h1)
+    dhg = torch.matmul(dyf, w2f.transpose(-1, -2))
+    hg = (s * h3).to(x.dtype).float()      # as the forward rounds it
+    dw2 = torch.matmul(hg.transpose(-1, -2), dyf) if need[3] else None
+    dh1 = dhg * h3 * (sig * (1 + h1 * (1 - sig)))        # silu'(h1)
+    dh3 = dhg * s
+    del h1, h3, sig, s, hg, dhg
+    dx = (torch.matmul(dh1, w1f.transpose(-1, -2))
+          + torch.matmul(dh3, w3f.transpose(-1, -2))) if need[0] else None
+    dw1 = torch.matmul(xf.transpose(-1, -2), dh1) if need[1] else None
+    dw3 = torch.matmul(xf.transpose(-1, -2), dh3) if need[2] else None
+    return tuple(None if g is None else g.to(t.dtype)
+                 for g, t in zip((dx, dw1, dw3, dw2), (x, w1, w3, w2)))
+
+
+class ExpertFFN(torch.autograd.Function):
+    """expert_ffn through ``forward_fn`` (the kernel or the plain version),
+    with the recomputing gradient of ``expert_ffn_backward``."""
+
+    @staticmethod
+    def forward(ctx, forward_fn, x, w1, w3, w2):
+        ctx.save_for_backward(x, w1, w3, w2)
+        return forward_fn(x, w1, w3, w2)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return (None, *expert_ffn_backward(*ctx.saved_tensors, dy,
+                                           ctx.needs_input_grad[1:]))
 
 
 def _lib():

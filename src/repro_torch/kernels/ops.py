@@ -2,6 +2,12 @@
 tensor on a CUDA device, the plain PyTorch version for a tensor on the CPU,
 and an error for anything else. There is no fallback between the two: a
 CUDA tensor launches its kernel or raises.
+
+``topk_gate``, ``expert_ffn`` and ``wkv_chunk`` are differentiable: the
+forward is the kernel or the plain version, the backward torch ops on
+either device. ``route``, ``grouped_ffn`` and ``quant_ffn`` serve only: on
+CUDA they raise when autograd would need their gradient, since a kernel's
+output has none and the inputs would silently get zero.
 """
 from __future__ import annotations
 
@@ -9,12 +15,14 @@ import torch
 
 from repro_torch.kernels.buddy_substitute import (buddy_substitute_cuda,
                                                   buddy_substitute_plain)
-from repro_torch.kernels.expert_ffn import expert_ffn_cuda, expert_ffn_plain
+from repro_torch.kernels.expert_ffn import (ExpertFFN, expert_ffn_cuda,
+                                            expert_ffn_plain)
 from repro_torch.kernels.grouped_ffn import (grouped_ffn_cuda,
                                              grouped_ffn_plain)
 from repro_torch.kernels.quant_ffn import quant_ffn_cuda, quant_ffn_plain
 from repro_torch.kernels.route import route_cuda, route_plain
-from repro_torch.kernels.topk_gate import topk_gate_cuda, topk_gate_plain
+from repro_torch.kernels.topk_gate import (TopkGate, topk_gate_cuda,
+                                           topk_gate_plain)
 from repro_torch.kernels.wkv_chunk import (WKVChunk, wkv_chunk_cuda,
                                            wkv_chunk_plain)
 
@@ -35,10 +43,21 @@ def _on_cuda(t: torch.Tensor, name: str) -> bool:
     raise RuntimeError(f"{name}: no kernel for device {t.device}")
 
 
+def _no_grad_needed(name: str, *tensors) -> None:
+    """A serve-only kernel on CUDA: raise if autograd would need its
+    gradient with respect to any floating input."""
+    if torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad
+            for t in tensors):
+        raise RuntimeError(f"{name}: the CUDA kernel has no gradient; call "
+                           "it under torch.no_grad() or on detached inputs")
+
+
 def topk_gate(logits, tau, *, k: int):
-    if _on_cuda(logits, "topk_gate"):
-        return topk_gate_cuda(logits, tau, k=k)
-    return topk_gate_plain(logits, tau, k=k)
+    """Differentiable in logits through vals and probs."""
+    fwd = topk_gate_cuda if _on_cuda(logits, "topk_gate") \
+        else topk_gate_plain
+    return TopkGate.apply(fwd, logits, tau, k)
 
 
 def buddy_substitute(s, gate, resident, table, q, *, h: int = 8,
@@ -54,24 +73,29 @@ def route(logits, tau, beta, resident, table, q, *, k: int, **policy):
     route_plain's keyword arguments (substitution mode, miss policy, miss
     masks and costs, Psi's terms, the token gate's temperature and
     margin)."""
-    fn = route_cuda if _on_cuda(logits, "route") else route_plain
+    fn = route_plain
+    if _on_cuda(logits, "route"):
+        _no_grad_needed("route", logits, q, *policy.values())
+        fn = route_cuda
     return fn(logits, tau, beta, resident, table, q, k=k, **policy)
 
 
 def expert_ffn(x, w1, w3, w2):
-    if _on_cuda(x, "expert_ffn"):
-        return expert_ffn_cuda(x, w1, w3, w2)
-    return expert_ffn_plain(x, w1, w3, w2)
+    """Differentiable in x and the three weights."""
+    fwd = expert_ffn_cuda if _on_cuda(x, "expert_ffn") else expert_ffn_plain
+    return ExpertFFN.apply(fwd, x, w1, w3, w2)
 
 
 def grouped_ffn(x, w1, w3, w2, quant=None, counts=None):
     if _on_cuda(x, "grouped_ffn"):
+        _no_grad_needed("grouped_ffn", x, w1, w3, w2, *(quant or ()))
         return grouped_ffn_cuda(x, w1, w3, w2, quant, counts)
     return grouped_ffn_plain(x, w1, w3, w2, quant, counts)
 
 
 def quant_ffn(x, w1_q, w1_s, w3_q, w3_s, w2_q, w2_s, counts=None):
     if _on_cuda(x, "quant_ffn"):
+        _no_grad_needed("quant_ffn", x, w1_s, w3_s, w2_s)
         return quant_ffn_cuda(x, w1_q, w1_s, w3_q, w3_s, w2_q, w2_s, counts)
     return quant_ffn_plain(x, w1_q, w1_s, w3_q, w3_s, w2_q, w2_s, counts)
 

@@ -6,6 +6,11 @@ Top-k is by iterative max with ties going to the smallest expert index;
 ``torch.topk`` does not promise that order, so the plain version takes a
 stable descending sort. Bound on the H100: launch latency (a few KB per
 call); see the source note in the .cu file for the design.
+
+The JAX package has no backward kernel (it trains on ``lax.top_k`` and a
+softmax), so ``TopkGate``'s gradient is torch ops, the same on both
+devices: the incoming gradients of vals and of probs (through the top-k
+softmax's Jacobian) scattered into [T, E] at idx.
 """
 from __future__ import annotations
 
@@ -34,6 +39,42 @@ def topk_gate_plain(logits: torch.Tensor, tau: float, *, k: int):
     else:
         tae = torch.zeros(z.shape[0], dtype=torch.float32, device=z.device)
     return idx.to(torch.int32), vals, p, tae, tae > tau
+
+
+def topk_gate_backward(idx, probs, e_n: int, g_vals, g_probs):
+    """d logits [T, E] of (vals, probs) = topk_gate(logits) given their
+    incoming gradients (either may be None): the reference's gradient of
+    ``softmax(lax.top_k(logits))``, scattered at idx."""
+    g = torch.zeros_like(probs) if g_vals is None else g_vals.float()
+    if g_probs is not None:
+        gp = g_probs.float()
+        g = g + probs * (gp - (gp * probs).sum(-1, keepdim=True))
+    out = torch.zeros((idx.shape[0], e_n), dtype=torch.float32,
+                      device=idx.device)
+    return out.scatter_(1, idx.long(), g)
+
+
+class TopkGate(torch.autograd.Function):
+    """topk_gate through ``forward_fn`` (the kernel or the plain version),
+    differentiable in logits through vals and probs; idx, tae and allow
+    carry no gradient."""
+
+    @staticmethod
+    def forward(ctx, forward_fn, logits, tau, k):
+        idx, vals, probs, tae, allow = forward_fn(logits, tau, k=k)
+        ctx.e_n = logits.shape[-1]
+        ctx.save_for_backward(idx, probs)
+        ctx.mark_non_differentiable(idx, tae, allow)
+        ctx.set_materialize_grads(False)
+        return idx, vals, probs, tae, allow
+
+    @staticmethod
+    def backward(ctx, _g_idx, g_vals, g_probs, _g_tae, _g_allow):
+        idx, probs = ctx.saved_tensors
+        if g_vals is None and g_probs is None:
+            return None, None, None, None
+        return (None, topk_gate_backward(idx, probs, ctx.e_n, g_vals,
+                                         g_probs), None, None)
 
 
 def _lib():

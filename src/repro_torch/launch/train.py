@@ -1,19 +1,27 @@
 """Training launcher, on the card by default.
 
-    # RWKV6-1.6B at full width on the GPU
+    # DeepSeek-V2-Lite at full width, 4 of its 27 layers, on the GPU
+    PYTHONPATH=src python -m repro_torch.launch.train --layers 4 \
+        --steps 3 --batch 4 --seq 512
+
+    # RWKV6-1.6B at full width and depth on the GPU
     PYTHONPATH=src python -m repro_torch.launch.train --arch rwkv6-1.6b \
         --steps 3 --batch 4 --seq 512
+
+    # the reduced DeepSeek on the CPU, through the kernels' plain versions
+    PYTHONPATH=src python -m repro_torch.launch.train --reduced \
+        --device cpu --steps 20
 
     # the reduced config on the CPU, through the kernels' plain versions
     PYTHONPATH=src python -m repro_torch.launch.train --arch rwkv6-1.6b \
         --reduced --device cpu --steps 20 --batch 4 --seq 64 \
         --save chiprun_out/rwkv.npz
 
-Counterpart of ``repro/launch/train.py``, with ``--device`` added and
-``rwkv6-1.6b`` as the default arch: stacks with MoE layers raise
-NotImplementedError until the MoE kernels have gradients. ``--save`` writes
-the reference's npz key scheme, which ``repro.checkpoint.io.load_pytree``
-reads back.
+Counterpart of ``repro/launch/train.py``, with the same default arch
+(``deepseek-v2-lite-buddy``), ``--device`` added, and ``--layers N``
+(keep the first N layers; 0: all), as the serve launcher's. ``--save``
+writes the reference's npz key scheme, which
+``repro.checkpoint.io.load_pytree`` reads back.
 """
 from __future__ import annotations
 
@@ -29,20 +37,25 @@ from repro_torch.models import transformer
 from repro_torch.models.common import resolve_device
 from repro_torch.training.data import MarkovLM
 from repro_torch.training.optimizer import AdamWConfig
-from repro_torch.training.train_loop import check_trainable, train
+from repro_torch.training.train_loop import train
 
 
 def parse_args(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="rwkv6-1.6b")
+    ap.add_argument("--arch", default="deepseek-v2-lite-buddy")
     ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--layers", type=int, default=0,
+                    help="keep only the first N layers (0: all)")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=64)
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--save", default=None)
     ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
-    return ap.parse_args(argv)
+    args = ap.parse_args(argv)
+    if args.layers < 0:
+        ap.error("--layers must be >= 0")
+    return args
 
 
 @dataclasses.dataclass
@@ -64,7 +77,8 @@ def build_trainer(args) -> Trainer:
     settings and synthetic batches for the flags."""
     dev = resolve_device(args.device)
     cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
-    check_trainable(cfg)
+    if args.layers:
+        cfg = dataclasses.replace(cfg, num_layers=args.layers)
     params = transformer.init_params(
         cfg, torch.Generator(device=dev).manual_seed(0), dev)
     lm = MarkovLM(cfg.vocab_size, seed=0)

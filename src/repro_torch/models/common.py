@@ -78,6 +78,15 @@ def embed_init(gen: torch.Generator, vocab: int, dim: int, dtype,
     return (normal(gen, (vocab, dim), device) * 0.02).to(dtype)
 
 
+def fold_in(seed: int, i: int, device) -> torch.Generator:
+    """A fresh generator on ``device`` for stream ``i`` of ``seed`` (the
+    role of jax.random.fold_in: the same (seed, i) gives the same draws,
+    other i other draws). Its seed is a host integer, so making it never
+    waits for the device."""
+    return torch.Generator(device=device).manual_seed(
+        (seed * 0x9E3779B97F4A7C15 + i + 1) % (2 ** 63))
+
+
 # ---------------------------------------------------------------------------
 # Norms
 # ---------------------------------------------------------------------------

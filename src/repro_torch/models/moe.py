@@ -201,17 +201,21 @@ def moe_forward(params: dict, x: torch.Tensor, cfg: MoEConfig, *,
                 policy: Optional[BuddyPolicy] = None,
                 buddy: Optional[BuddyState] = None,
                 capacity_factor: float = 1.25,
-                dropless: bool = False) -> tuple:
+                dropless: bool = False,
+                rng: Optional[torch.Generator] = None) -> tuple:
     """x: [B, S, D] (or [T, D]). Returns (y, MoEAux). Same branches and
     contract as the reference (see the module note for the differences).
+
+    With ``cfg.router_jitter`` > 0 and a generator ``rng`` on x's device,
+    the router logits get U(-jitter, jitter) noise before the top-k, as the
+    reference's ``router_topk`` adds it with its jitter key (the draws
+    differ from JAX's PRNG; the same generator state gives the same ones).
 
     The quant tier runs when ``policy.quant_tier`` is on and the params
     carry a ``quant`` sub-dict: a miss the tier's ``buddy.quant_ok`` mask
     (precedence) or ``buddy.fid_cost`` argmin (cost mode) sends there is
     computed against the resident replica. Otherwise the graph is the
     pre-tier one."""
-    if cfg.router_jitter > 0:
-        raise NotImplementedError("router jitter is not ported yet")
     orig_shape = x.shape
     d = x.shape[-1]
     x_flat = x.reshape(-1, d)
@@ -225,6 +229,9 @@ def moe_forward(params: dict, x: torch.Tensor, cfg: MoEConfig, *,
                      else None)
 
     logits = torch.matmul(x_flat.float(), params["router"].float())
+    if rng is not None and cfg.router_jitter > 0:
+        logits = logits + torch.empty_like(logits).uniform_(
+            -cfg.router_jitter, cfg.router_jitter, generator=rng)
     if policy is not None and buddy is not None:
         res = route_layer(logits, buddy, policy, k_n, quant_ok, tier_fid_cost)
         idx, probs, new_idx = res.idx, res.probs, res.new_idx

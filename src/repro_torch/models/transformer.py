@@ -23,15 +23,16 @@ from __future__ import annotations
 from typing import Any, NamedTuple, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ATTN_DENSE, ATTN_MOE, RWKV, ModelConfig
 from repro_torch.core.policy import BuddyPolicy
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rwkv as rw
-from repro_torch.models.common import (dense_init, embed_init, resolve_device,
-                                       rmsnorm, swiglu, torch_dtype,
-                                       tree_leaves, tree_map)
+from repro_torch.models.common import (dense_init, embed_init, fold_in,
+                                       resolve_device, rmsnorm, swiglu,
+                                       torch_dtype, tree_leaves, tree_map)
 
 _COUNTERS = ("lb", "n_sub", "n_miss", "n_drop", "n_degraded", "n_miss_drop",
              "n_peer", "miss_per_expert")
@@ -135,6 +136,8 @@ class StepCtx(NamedTuple):
     tok_valid: Any = None          # [B, C] prefix validity mask (chunk mode)
     plan: Optional[attn.ChunkPlan] = None   # the chunk's device indices
     paged: Optional[attn.PagedPlan] = None  # the paged step's (None = ring)
+    rng: Optional[torch.Generator] = None   # router jitter (a layer's own)
+    remat: bool = False            # checkpoint each block (training)
 
 
 def _attn_kwargs(cfg: ModelConfig):
@@ -211,7 +214,7 @@ def block_forward(kind: str, p, x, cache, ctx: StepCtx, buddy=None):
         y, moe_aux = moe_mod.moe_forward(
             p["moe"], xn, cfg.moe, policy=ctx.policy, buddy=buddy,
             capacity_factor=2.0 if ctx.mode == "step" else 1.25,
-            dropless=ctx.mode == "chunk")
+            dropless=ctx.mode == "chunk", rng=ctx.rng)
         aux = _moe_aux_dict(moe_aux, ctx.record)
     else:
         y = swiglu(xn, p["ffn"]["w1"], p["ffn"]["w3"], p["ffn"]["w2"])
@@ -229,7 +232,17 @@ def _zero_moe_aux(cfg: ModelConfig, device) -> dict:
 
 def _run_group(kind: str, gparams, x, gcache, ctx: StepCtx, gbuddy=None):
     """One homogeneous group, layer by layer over the stacked [R, ...]
-    params. Returns (x, cache, reduced aux)."""
+    params. Layer i's router jitter draws from ``fold_in`` of the ctx
+    generator's seed and i, as the reference folds its key per layer; the
+    generator is made inside the layer, so that under ``ctx.remat``
+    (torch.utils.checkpoint per block, as the reference's jax.checkpoint)
+    the recomputed forward draws the same noise and routes the same.
+    Returns (x, cache, reduced aux)."""
+    def layer(lp, x, lc, lb, i):
+        lctx = ctx if ctx.rng is None else ctx._replace(
+            rng=fold_in(ctx.rng.initial_seed(), i, ctx.rng.device))
+        return block_forward(kind, lp, x, lc, lctx, buddy=lb)
+
     r = gparams["ln1"].shape[0]
     # one unbind per stacked leaf: its backward stacks the layers' gradients
     # once, where indexing would scatter each into a zero [R, ...] tensor
@@ -242,7 +255,11 @@ def _run_group(kind: str, gparams, x, gcache, ctx: StepCtx, gbuddy=None):
         lb = (moe_mod.BuddyState(*[None if a is None else a[i]
                                    for a in gbuddy])
               if gbuddy is not None else None)
-        x, _, aux = block_forward(kind, lp, x, lc, ctx, buddy=lb)
+        if ctx.remat:
+            x, _, aux = checkpoint(layer, lp, x, lc, lb, i,
+                                   use_reentrant=False)
+        else:
+            x, _, aux = layer(lp, x, lc, lb, i)
         auxs.append(aux if aux is not None
                     else _zero_moe_aux(ctx.cfg, x.device))
     red = {k: torch.stack([a[k] for a in auxs]).sum(0) for k in _COUNTERS}
@@ -329,8 +346,12 @@ def _accumulate(total, aux, rec, record: bool):
 
 def forward_train(params, cfg: ModelConfig, tokens, *,
                   policy: Optional[BuddyPolicy] = None, buddies=None,
-                  record: bool = False, window: int = -1):
-    """Full-sequence forward. tokens [B, S] on the params' device.
+                  rng: Optional[torch.Generator] = None,
+                  record: bool = False, window: int = -1,
+                  remat: bool = False):
+    """Full-sequence forward. tokens [B, S] on the params' device; ``rng``
+    a generator on that device for the router jitter (None: no jitter);
+    ``remat`` recomputes each block's activations in the backward.
     Returns (logits [B, S, V] f32, aux)."""
     _check_stack(cfg)
     if window < 0:
@@ -338,7 +359,8 @@ def forward_train(params, cfg: ModelConfig, tokens, *,
     b, s = tokens.shape
     x = params["embed"][tokens]
     positions = torch.arange(s, device=x.device).expand(b, s)
-    ctx = StepCtx(cfg, "full", window, policy, positions, record)
+    ctx = StepCtx(cfg, "full", window, policy, positions, record, rng=rng,
+                  remat=remat)
     total = _zero_moe_aux(cfg, x.device)
     rec = []
     for kind, gp, _, gb in _iter_groups(params, cfg, None, buddies):

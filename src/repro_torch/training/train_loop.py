@@ -1,12 +1,17 @@
 """Training loop: loss, train step and loop, on ``torch.autograd``.
 
-Counterpart of ``repro/training/train_loop.py``. Stacks with MoE layers are
-refused: the port's MoE kernels write their outputs through ctypes, outside
-autograd, so router and expert weights would silently get no gradient.
-Gradients for ``topk_gate``, ``expert_ffn`` and ``grouped_ffn`` are
-ROADMAP.md's "MoE training" item. ``train`` trains the weights it is
-given (the reference makes them from a seed inside ``train``; here
-``launch/train.build_trainer`` makes them, on the chosen device).
+Counterpart of ``repro/training/train_loop.py``, for every ported stack:
+RWKV6, dense attention and MoE attention. A MoE layer's train forward
+runs the router's ``topk_gate`` and the capacity branch's ``expert_ffn``
+(the kernels on the card), whose autograd Functions carry the gradient to
+the router and expert weights (``kernels/topk_gate.py``,
+``kernels/expert_ffn.py``). ``rng`` (a torch.Generator on the params'
+device) drives the router jitter and ``remat`` recomputes each block in
+the backward, as the reference's ``rng`` and ``remat``. ``train`` trains
+the weights it is given (the reference makes them from a seed inside
+``train``; here ``launch/train.build_trainer`` makes them, on the chosen
+device); its per-step generator is ``fold_in(seed, step + 1)``, as the
+reference folds its key.
 """
 from __future__ import annotations
 
@@ -16,24 +21,16 @@ import torch
 
 from repro_torch.configs.base import ATTN_MOE, ModelConfig
 from repro_torch.models import transformer
-from repro_torch.models.common import tree_leaves, tree_map
+from repro_torch.models.common import fold_in, tree_leaves, tree_map
 from repro_torch.training.optimizer import (AdamWConfig, OptState,
                                             apply_updates, init_opt_state)
 
 
-def check_trainable(cfg: ModelConfig) -> None:
-    if any(kind == ATTN_MOE for kind, _ in cfg.stack()):
-        raise NotImplementedError(
-            f"{cfg.arch_id}: training a stack with MoE layers needs "
-            "gradients through the topk_gate, expert_ffn and grouped_ffn "
-            "kernels, which are not written yet (ROADMAP.md, 'MoE "
-            "training')")
-
-
-def lm_loss(params, cfg: ModelConfig, tokens, targets, *,
-            lb_coef: float = 0.01):
+def lm_loss(params, cfg: ModelConfig, tokens, targets, *, rng=None,
+            lb_coef: float = 0.01, remat: bool = False):
     """Mean next-token cross entropy plus the load-balance term."""
-    logits, aux = transformer.forward_train(params, cfg, tokens)
+    logits, aux = transformer.forward_train(params, cfg, tokens, rng=rng,
+                                            remat=remat)
     logp = torch.log_softmax(logits.float(), dim=-1)
     nll = -torch.gather(logp, -1, targets[..., None])[..., 0]
     ce = nll.mean()
@@ -66,8 +63,8 @@ def _mark(device: torch.device):
     return time.perf_counter()
 
 
-def loss_and_grads(params, cfg: ModelConfig, tokens, targets, *,
-                   lb_coef: float = 0.01):
+def loss_and_grads(params, cfg: ModelConfig, tokens, targets, *, rng=None,
+                   lb_coef: float = 0.01, remat: bool = False):
     """(loss, metrics, grads): grads has the params' tree structure; the
     metrics' forward_s and backward_s are ``Span``s."""
     leaves = tree_leaves(params)
@@ -75,8 +72,8 @@ def loss_and_grads(params, cfg: ModelConfig, tokens, targets, *,
         p.requires_grad_(True)
     try:
         m0 = _mark(tokens.device)
-        loss, metrics = lm_loss(params, cfg, tokens, targets,
-                                lb_coef=lb_coef)
+        loss, metrics = lm_loss(params, cfg, tokens, targets, rng=rng,
+                                lb_coef=lb_coef, remat=remat)
         m1 = _mark(tokens.device)
         flat = torch.autograd.grad(loss, leaves, allow_unused=True)
         m2 = _mark(tokens.device)
@@ -92,15 +89,16 @@ def loss_and_grads(params, cfg: ModelConfig, tokens, targets, *,
 
 
 def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
-                    lb_coef: float = 0.01):
-    """train_step(params, opt_state, tokens, targets) -> (params, opt_state,
-    metrics); forward_s, backward_s and optimizer_s in the metrics are
-    ``Span``s of the three phases, read when converted with ``float()``."""
-    check_trainable(cfg)
+                    lb_coef: float = 0.01, remat: bool = False):
+    """train_step(params, opt_state, tokens, targets, rng=None) ->
+    (params, opt_state, metrics); forward_s, backward_s and optimizer_s in
+    the metrics are ``Span``s of the three phases, read when converted
+    with ``float()``."""
 
-    def train_step(params, opt_state: OptState, tokens, targets):
+    def train_step(params, opt_state: OptState, tokens, targets, rng=None):
         loss, metrics, grads = loss_and_grads(params, cfg, tokens, targets,
-                                              lb_coef=lb_coef)
+                                              rng=rng, lb_coef=lb_coef,
+                                              remat=remat)
         m0 = _mark(tokens.device)
         params, opt_state, opt_metrics = apply_updates(params, grads,
                                                        opt_state, opt_cfg)
@@ -112,14 +110,15 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
 
 
 def train(cfg: ModelConfig, opt_cfg: AdamWConfig, data_iter, params, *,
-          log_every: int = 10, lb_coef: float = 0.01, log_fn=print):
+          seed: int = 0, log_every: int = 10, lb_coef: float = 0.01,
+          log_fn=print):
     """The training loop from ``params`` (trained in place, on their
-    device): one train step per [B, S+1] token batch of ``data_iter``.
+    device): one train step per [B, S+1] token batch of ``data_iter``,
+    step i's router jitter drawn from ``fold_in(seed, i + 1)``.
     Returns (params, history of the logged steps). Each logged step's
     ``step_s`` is the host's wall time per step since the previous logged
     step (or the loop's start): taking the batch, copying it to the device,
     the step, and reading its metrics back, which waits for the device."""
-    check_trainable(cfg)
     dev = tree_leaves(params)[0].device
     opt_state = init_opt_state(params)
     step_fn = make_train_step(cfg, opt_cfg, lb_coef=lb_coef)
@@ -128,7 +127,8 @@ def train(cfg: ModelConfig, opt_cfg: AdamWConfig, data_iter, params, *,
     for i, batch in enumerate(data_iter):
         batch = torch.as_tensor(batch, dtype=torch.int64).to(dev)
         tokens, targets = batch[:, :-1], batch[:, 1:]
-        params, opt_state, m = step_fn(params, opt_state, tokens, targets)
+        params, opt_state, m = step_fn(params, opt_state, tokens, targets,
+                                       fold_in(seed, i + 1, dev))
         n_steps += 1
         if i % log_every == 0:
             m = {k: float(v) for k, v in m.items()}

@@ -1120,3 +1120,125 @@ def test_reduced_mixtral_engine_on_card_matches_cpu(dev, fused, tier):
         fg = gs["tier"].pop("mean_fidelity_loss")
         assert cs["tier"] == gs["tier"]
         assert abs(fc - fg) <= 1e-5 * abs(fc)
+
+
+# ---------------------------------------------------------------------------
+# MoE training: the autograd Functions around topk_gate and expert_ffn, a
+# reduced DeepSeek train step card against CPU, and the serve-only kernels'
+# refusal to run where autograd would need their gradient
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("e,c,d,f,empty", [(4, 37, 200, 136, 5),
+                                           (64, 256, 256, 128, 64),
+                                           (2, 8, 32, 64, 0)])
+def test_expert_ffn_backward_on_card_matches_plain_autograd(dev, e, c, d, f,
+                                                            empty):
+    from repro_torch.kernels.expert_ffn import ExpertFFN
+    g = _gen(e + c + d)
+    x = torch.randn(e, c, d, generator=g)
+    x[:, c - empty:] = 0                       # unfilled capacity rows
+    x = x.to(dev)
+    ws = _weights(g, e, d, f, torch.float32, dev)
+    dy = torch.randn(e, c, d, generator=g).to(dev)
+    grads = []
+    for i, fn in enumerate((lambda *a: ExpertFFN.apply(expert_ffn_cuda, *a),
+                            expert_ffn_plain)):
+        before = expert_ffn_cuda.launches
+        leaves = [t.detach().requires_grad_(True) for t in (x, *ws)]
+        fn(*leaves).backward(dy)
+        grads.append([t.grad for t in leaves])
+        assert expert_ffn_cuda.launches == before + (i == 0)
+    for got, want in zip(*grads):
+        assert float((got - want).abs().max()) \
+            <= 1e-4 * float(want.abs().max())
+    if empty:
+        assert torch.all(grads[0][0][:, c - empty:] == 0)
+
+
+@pytest.mark.parametrize("t,e,k", [(2048, 64, 6), (37, 8, 2), (5, 4, 1)])
+def test_topk_gate_backward_on_card_matches_plain_autograd(dev, t, e, k):
+    from repro_torch.kernels.topk_gate import TopkGate
+    g = _gen(t + e)
+    z = torch.randn(t, e, generator=g).to(dev)
+    g_v = torch.randn(t, k, generator=g).to(dev)
+    g_p = torch.randn(t, k, generator=g).to(dev)
+    grads = []
+    for fn in (lambda a: TopkGate.apply(topk_gate_cuda, a, 0.3, k),
+               lambda a: topk_gate_plain(a, 0.3, k=k)):
+        a = z.detach().requires_grad_(True)
+        _, vals, probs, _, _ = fn(a)
+        (torch.sum(vals * g_v) + torch.sum(probs * g_p)).backward()
+        grads.append(a.grad)
+    torch.testing.assert_close(grads[0], grads[1], rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("remat", [False, True])
+def test_moe_loss_and_grads_on_card_match_cpu(dev, remat):
+    """Reduced DeepSeek (4 experts, top-2): one forward and backward on
+    the CPU (plain versions) and on the card (the kernels), with a jitter
+    generator on each device: jitter 0 leaves the routing as the
+    reference's. Under remat the kernels' forwards run twice per layer."""
+    import dataclasses
+    from repro_torch.configs.deepseek_v2_lite_buddy import reduced
+    from repro_torch.models import transformer as T
+    from repro_torch.models.common import fold_in, tree_leaves, tree_map
+    from repro_torch.training.train_loop import loss_and_grads
+    cfg = reduced()
+    assert cfg.moe.router_jitter == 0
+    params = T.init_params(cfg, _gen(0), "cpu")
+    toks = torch.randint(0, cfg.vocab_size, (2, 65), generator=_gen(1))
+    out = []
+    for d in ("cpu", dev):
+        before = ops.launch_counts()
+        p = tree_map(lambda t: t.to(d), params)
+        t = toks.to(d)
+        out.append(loss_and_grads(p, cfg, t[:, :-1], t[:, 1:],
+                                  rng=fold_in(0, 1, d), remat=remat))
+        after = ops.launch_counts()
+        want = cfg.num_layers * (1 + remat) if d == dev else 0
+        assert after["topk_gate"] - before["topk_gate"] == want
+        assert after["expert_ffn"] - before["expert_ffn"] == want
+    (lc, mc, gc), (lg, mg, gg) = out
+    assert abs(float(lg) - float(lc)) <= 1e-5 * abs(float(lc))
+    assert abs(float(mg["lb"]) - float(mc["lb"])) <= 1e-5 * float(mc["lb"])
+    for a, b in zip(tree_leaves(gc), tree_leaves(gg)):
+        assert float((b.cpu() - a).abs().max()) <= 1e-4 * float(a.abs().max())
+        assert bool(torch.isfinite(b).all())
+    # with jitter on, the card's own generator: remat routes its recompute
+    # the same, so the gradients equal those without remat
+    jcfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, router_jitter=0.5))
+    p = tree_map(lambda t: t.to(dev), params)
+    t = toks.to(dev)
+    runs = [loss_and_grads(p, jcfg, t[:, :-1], t[:, 1:],
+                           rng=fold_in(3, 1, dev), remat=r)
+            for r in (False, True)]
+    assert float(runs[0][0]) == float(runs[1][0])
+    for a, b in zip(tree_leaves(runs[0][2]), tree_leaves(runs[1][2])):
+        assert torch.equal(a, b)
+
+
+def test_serve_only_kernels_raise_under_grad_on_card(dev):
+    g = _gen(9)
+    e, k, c, d, f = 8, 2, 4, 64, 48
+    ws = _weights(g, e, d, f, torch.float32, dev)
+    quant = _replicas(ws)
+    x = torch.randn(e, c, d, generator=g).to(dev)
+    logits = torch.randn(4, e, generator=g).to(dev)
+    resident = torch.ones(e, dtype=torch.bool, device=dev)
+    table = torch.full((e, 2), -1, dtype=torch.int32, device=dev)
+    q = torch.zeros(e, 2, device=dev)
+    calls = {                                  # grouped_ffn's x is [2E, C, D]
+        "grouped_ffn": lambda w, xx, z: ops.grouped_ffn(
+            torch.cat([xx, xx]), w, *ws[1:]),
+        "quant_ffn": lambda w, xx, z: ops.quant_ffn(xx, *quant),
+        "route": lambda w, xx, z: ops.route(z, 0.3, 0.1, resident, table, q,
+                                            k=k)}
+    for name, call in calls.items():
+        w1 = ws[0].detach().requires_grad_(True)
+        xx = x.detach().requires_grad_(True)
+        z = logits.detach().requires_grad_(True)
+        with pytest.raises(RuntimeError, match=name):
+            call(w1, xx, z)
+        with torch.no_grad():                  # serving: no gradient needed
+            call(w1, xx, z)
+        call(ws[0], x, logits)                 # inputs that need none

@@ -4,8 +4,8 @@ WKV Function against ``jax.value_and_grad``), and the optimizer apart from
 them (``schedule`` and ``apply_updates`` fed the same numpy gradients,
 since AdamW's first step is about +-lr per element whatever a gradient's
 size, so a whole-step comparison would flip on near-zero gradients); the
-launcher on the CPU with its checkpoint read back by the reference; and
-the refusal to train MoE stacks.
+launcher on the CPU with its checkpoint read back by the reference. MoE
+stacks train too: tests/test_torch_moe_train.py.
 
 Tolerances: loss 1e-5 relative; each gradient leaf within 1e-4 of its
 largest entry (f32 sums in another order through two layers and the
@@ -147,9 +147,9 @@ def test_launcher_trains_on_cpu_and_checkpoint_loads_in_reference(
 
 def test_train_history_and_phase_times(models):
     _, _, cfg, _ = models
-    args = launch.parse_args(["--reduced", "--device", "cpu", "--steps",
-                              "4", "--seq", "32", "--batch", "2",
-                              "--lr", "1e-2"])
+    args = launch.parse_args(["--arch", "rwkv6-1.6b", "--reduced",
+                              "--device", "cpu", "--steps", "4", "--seq",
+                              "32", "--batch", "2", "--lr", "1e-2"])
     trainer = launch.build_trainer(args)
     _, hist = trainer.run(log_every=1, log_fn=lambda _: None)
     assert [h["step"] for h in hist] == [0, 1, 2, 3]
@@ -162,21 +162,9 @@ def test_train_history_and_phase_times(models):
     assert hist[-1]["loss"] < hist[0]["loss"]
 
 
-def test_moe_training_raises():
-    from repro_torch.configs.deepseek_v2_lite_buddy import reduced
-    cfg = reduced()
-    with pytest.raises(NotImplementedError, match="MoE training"):
-        L.make_train_step(cfg, O.AdamWConfig())
-    with pytest.raises(NotImplementedError, match="MoE training"):
-        L.train(cfg, O.AdamWConfig(), iter([]), {})
-    with pytest.raises(NotImplementedError, match="MoE training"):
-        launch.build_trainer(launch.parse_args(
-            ["--arch", "deepseek-v2-lite-buddy", "--reduced", "--device",
-             "cpu"]))
-
-
 def test_cuda_device_raises_without_a_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present")
     with pytest.raises(RuntimeError, match="is_available"):
-        launch.build_trainer(launch.parse_args(["--reduced"]))
+        launch.build_trainer(launch.parse_args(["--arch", "rwkv6-1.6b",
+                                                "--reduced"]))
