@@ -190,10 +190,48 @@ committed fixture under ``results/bench``). Phases, one JSON line each:
            parameters, setup s, per-step wall and forward / backward /
            optimizer s, median tokens/s, peak memory
 
-The line new_phase_seconds gives the seconds of the phases and the kernel
-cases that MoE training added and their sum, every phase's seconds
-(all_phases), and main's seconds in all and outside the phases. The kernels
-line's topk_gate and expert_ffn launches include moe_train's.
+The hybrid, VLM and audio families run plain torch ops: each of their
+phases resets the launch counts before its path and requires that none of
+the seven kernels launched; each frees its weights before the next.
+  families_parity  the reduced zamba2-7b, llama-3.2-vision-11b and
+           musicgen-large, weights from seed 0 made on the CPU,
+           conditioning from a seed where the config has it: forward (S =
+           32: the hybrid's chunked scan), 4 decode steps (its per-token
+           recurrence) and one train step on the CPU and on the card agree
+           (LOGIT_TOL, LOSS_RTOL, GRAD_RTOL)
+  hybrid   zamba2-7b at full width and depth (81 layers, d_model 3584,
+           Mamba2 56 heads x 128, state 64; 13 super-blocks of 6 Mamba2
+           layers and the shared attention block, then 3 Mamba2 layers;
+           f32, seed 0): prefill of 4 x 512 tokens (twice), 32 teacher-
+           forced decode steps, wall per step (synchronized host clock),
+           tokens/s, one decode step's device ms, device ops and its
+           eight longest device ops (torch.profiler) and the idle share,
+           peak memory; decode
+           against the prefill's logits at full depth (printed); then the
+           15-layer cut's decode against its forward on 2 x 32 tokens,
+           within DECODE_TOL
+  vlm      llama-3.2-vision-11b at full width and depth (40 layers:
+           8 super-blocks of 4 self-attention layers and a cross-attention
+           layer), conditioning [4, 1601, 4096] from a seed: prefill of
+           4 x 512 with it (twice) and without it, 16 decode steps as
+           above; finite logits, the image changes them by more than
+           LOGIT_TOL, and decode (over zero cross keys and values, as the
+           reference's) equals a forward on zero conditioning within
+           DECODE_TOL
+  audio    musicgen-large at full width and depth (48 layers, d_model
+           2048), conditioning [4, 256, 2048] as the causal prefix: prefill
+           of 4 x 512 (logits [4, 512, 2048]: the tokens only), 16 decode
+           steps at positions shifted by the prefix, as above
+  hybrid_train  zamba2-7b --layers 15 (2 super-blocks and 3 Mamba2
+           layers, 1.60 B parameters) at full width through launch/
+           train.py --batch 4 --seq 512 --steps 3: finite loss and grad
+           norm at every step; wall per step, the forward / backward /
+           optimizer split, tokens/s, peak memory
+
+The line new_phase_seconds gives the seconds of the five family phases and
+their sum, every phase's seconds (all_phases), and main's seconds in all
+and outside the phases. The kernels line's topk_gate and expert_ffn
+launches include moe_train's.
 
 Then the kernels table line, the card's name and power limit as nvidia-smi
 prints them, and the result line. Without a CUDA card, or outside a checkout,
@@ -2779,6 +2817,363 @@ def phase_decode(params, cfg):
 
 
 # ---------------------------------------------------------------------------
+# The hybrid, VLM and audio families: plain torch ops, none of the seven
+# kernels on their paths (each phase resets the counts and requires zero)
+FAMILIES = ("zamba2-7b", "llama-3.2-vision-11b", "musicgen-large")
+FAMILY_ROWS, FAMILY_PROMPT = 4, 512
+HYBRID_TRAIN_FLAGS = ["--arch", "zamba2-7b", "--layers", "15", "--batch",
+                      str(TRAIN_ROWS), "--seq", str(TRAIN_SEQ), "--steps",
+                      "3"]
+
+
+def _fresh_card() -> None:
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def _no_launches(tag: str) -> dict:
+    """The counts since the window's reset: no kernel of this repo may
+    have launched."""
+    from repro_torch.kernels import ops
+    counts = ops.launch_counts()
+    require(not any(counts.values()), f"{tag}: a kernel launched: {counts}")
+    return counts
+
+
+def _sync_s(fn) -> tuple:
+    """(fn's result, its seconds on the synchronized host clock)."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _rel_err(got, want) -> float:
+    """max |got - want| / (1 + |want|), DECODE_TOL's form."""
+    return float(((got.float() - want.float()).abs()
+                  / (1 + want.float().abs())).max())
+
+
+def _family_model(arch: str, layers: int = 0) -> tuple:
+    """(config cut to ``layers`` if given, seed-0 weights made on the
+    card, setup seconds, parameter count)."""
+    import dataclasses
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import transformer
+    from repro_torch.models.common import tree_leaves
+    cfg = get_config(arch)
+    if layers:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    params, setup_s = _sync_s(lambda: transformer.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0), "cuda"))
+    return cfg, params, setup_s, sum(t.numel() for t in tree_leaves(params))
+
+
+def _serve_family(cfg, params, n_decode: int, cond=None) -> tuple:
+    """Prefill (forward_train's logits) of FAMILY_ROWS x FAMILY_PROMPT
+    tokens twice (the second is the steady one), then ``n_decode``
+    teacher-forced decode_steps on the prompt's tokens from fresh caches
+    sized for prompt and new tokens, each on the synchronized host clock,
+    and one more under torch.profiler (its device time, device ops and
+    the eight device ops that took longest, by name). Returns (row,
+    tokens, prefill logits, decode logits [n_decode, B, V])."""
+    import torch
+    from repro_torch.models import transformer
+    from repro_torch.training.data import MarkovLM
+    toks = torch.from_numpy(MarkovLM(cfg.vocab_size, seed=0).sample(
+        FAMILY_ROWS, FAMILY_PROMPT)).to("cuda")
+    with torch.no_grad():
+        pre_s = []
+        for _ in range(2):
+            logits, sec = _sync_s(lambda: transformer.prefill(
+                params, cfg, toks, cond_embeds=cond))
+            pre_s.append(sec)
+        caches = transformer.init_caches(cfg, FAMILY_ROWS,
+                                         FAMILY_PROMPT + n_decode,
+                                         device="cuda")
+        step_s, dec = [], []
+        for pos in range(n_decode):
+            (lg, _, _), sec = _sync_s(lambda: transformer.decode_step(
+                params, cfg, toks[:, pos], caches, pos))
+            step_s.append(sec)
+            dec.append(lg)
+        prof = device_us(lambda: transformer.decode_step(
+            params, cfg, toks[:, n_decode], caches, n_decode), n=1,
+            by_op=True)
+    med = statistics.median(step_s[1:])
+    busy = prof["device_us"]
+    row = {"rows": FAMILY_ROWS, "prompt": FAMILY_PROMPT,
+           "prefill_s": pre_s,
+           "prefill_tokens_per_s": FAMILY_ROWS * FAMILY_PROMPT / pre_s[-1],
+           "decode_steps": n_decode, "decode_step_ms": [1e3 * t
+                                                        for t in step_s],
+           "median_decode_ms": 1e3 * med,
+           "decode_tokens_per_s": FAMILY_ROWS / med,
+           "decode_device_ms": None if busy is None else busy / 1e3,
+           "decode_device_ops": prof["device_ops_per_call"],
+           "decode_idle_share": (None if busy is None
+                                 else 1 - busy / 1e3 / (1e3 * med)),
+           "decode_top_device_ms": dict(sorted(
+               ((k, us / 1e3) for k, us in
+                (prof.get("device_us_by_op") or {}).items()),
+               key=lambda kv: -kv[1])[:8]),
+           "kv_capacity": FAMILY_PROMPT + n_decode + cfg.num_cond_tokens}
+    return row, toks, logits, torch.stack(dec)
+
+
+def _finite(*ts) -> bool:
+    import torch
+    return all(bool(torch.isfinite(t).all()) for t in ts)
+
+
+def phase_families_parity():
+    """The three reduced configs, weights from seed 0 made on the CPU:
+    forward (S = 32: the hybrid's chunked scan), 4 decode steps (its
+    per-token recurrence) and one train step on the CPU and on the card,
+    with conditioning where the config has it."""
+    import torch
+    from repro_torch.checkpoint.io import params_to_numpy
+    from repro_torch.configs.base import get_reduced
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer
+    from repro_torch.models.common import tree_map
+    from repro_torch.training.data import MarkovLM
+    from repro_torch.training.optimizer import AdamWConfig, init_opt_state
+    from repro_torch.training.train_loop import (loss_and_grads,
+                                                 make_train_step)
+    rows = []
+    for arch in FAMILIES:
+        cfg = get_reduced(arch)
+        params = transformer.init_params(cfg, torch.Generator().manual_seed(0),
+                                         "cpu")
+        toks = torch.from_numpy(MarkovLM(cfg.vocab_size, seed=0)
+                                .sample(2, 33))
+        cond = (torch.randn(2, cfg.num_cond_tokens, cfg.cond_dim,
+                            generator=torch.Generator().manual_seed(1))
+                if cfg.num_cond_tokens else None)
+        step_fn = make_train_step(cfg, AdamWConfig(total_steps=3,
+                                                   warmup_steps=10))
+        res = {}
+        ops.reset_launch_counts()              # the window starts here
+        for d in ("cpu", "cuda"):
+            p = tree_map(lambda t: t.to(d, copy=True), params)
+            c = None if cond is None else cond.to(d)
+            x, y = toks[:, :-1].to(d), toks[:, 1:].to(d)
+            with torch.no_grad():
+                fwd = transformer.forward_train(p, cfg, x,
+                                                cond_embeds=c)[0].cpu()
+                caches = transformer.init_caches(cfg, 2, 8, device=d)
+                dec = torch.stack([transformer.decode_step(
+                    p, cfg, x[:, i], caches, i)[0] for i in range(4)]).cpu()
+            _, _, grads = loss_and_grads(p, cfg, x, y, cond_embeds=c)
+            _, _, m = step_fn(p, init_opt_state(p), x, y, cond_embeds=c)
+            res[d] = (fwd, dec, float(m["loss"]), float(m["grad_norm"]),
+                      params_to_numpy(grads))
+        counts = _no_launches(f"families_parity {arch}")   # ... ends here
+        (fc, dc, lc, nc, gc), (fg, dg, lg, ng, gg) = res["cpu"], res["cuda"]
+        row = {"arch": cfg.arch_id, "stack": cfg.stack(),
+               "forward_max_abs_err": max_err(fg, fc),
+               "decode_max_abs_err": max_err(dg, dc),
+               "max_abs_logit": float(fc.abs().max()),
+               "loss_cpu": lc, "loss_cuda": lg, "grad_norm_cpu": nc,
+               "grad_norm_cuda": ng,
+               "grad_max_rel_err": max(
+                   float(abs(gg[k] - gc[k]).max())
+                   / max(float(abs(gc[k]).max()), 1e-30) for k in gc),
+               "launches": counts}
+        rows.append(row)
+        require(row["forward_max_abs_err"] <= LOGIT_TOL
+                and row["decode_max_abs_err"] <= LOGIT_TOL,
+                f"families_parity: logits differ: {row}")
+        require(abs(lg - lc) <= LOSS_RTOL * abs(lc)
+                and abs(ng - nc) <= LOSS_RTOL * abs(nc)
+                and row["grad_max_rel_err"] <= GRAD_RTOL,
+                f"families_parity: train step differs: {row}")
+    emit({"phase": "families_parity", "logit_tol": LOGIT_TOL,
+          "loss_rtol": LOSS_RTOL, "grad_rtol": GRAD_RTOL, "archs": rows})
+
+
+def phase_hybrid():
+    """Zamba2-7B at full width and depth (81 layers: 13 super-blocks of 6
+    Mamba2 layers and the shared attention block, then 3 Mamba2 layers):
+    prefill 4 x 512 through the chunked scan, 32 decode steps through the
+    per-token recurrence; then decode against forward on 2 x 32 tokens on
+    the 15-layer cut, within DECODE_TOL."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer
+    from repro_torch.training.data import MarkovLM
+    _fresh_card()
+    cfg, params, setup_s, n_params = _family_model("zamba2-7b")
+    require((cfg.num_layers, cfg.d_model, cfg.stack())
+            == (81, 3584, (("hybrid_super", 13), ("mamba2", 3))),
+            f"hybrid: not Zamba2-7B's full shape: {cfg}")
+    ops.reset_launch_counts()                  # the serve path starts here
+    row, _, logits, dec = _serve_family(cfg, params, 32)
+    counts = _no_launches("hybrid")            # ... and ends here
+    finite = _finite(logits, dec)
+    # prefill (chunked scan) against decode (recurrence), the prompt's
+    # first 32 positions, at full depth: printed, not required
+    full_depth_err = _rel_err(dec.transpose(0, 1), logits[:, :32])
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    del params, logits, dec
+    _fresh_card()
+    cfg15, p15, _, n15 = _family_model("zamba2-7b", 15)
+    ops.reset_launch_counts()                  # the decode check's window
+    toks = torch.from_numpy(MarkovLM(cfg.vocab_size, seed=1).sample(2, 32)) \
+        .to("cuda")
+    with torch.no_grad():
+        full, _ = transformer.forward_train(p15, cfg15, toks)
+        caches = transformer.init_caches(cfg15, 2, 32, device="cuda")
+        worst = max(_rel_err(transformer.decode_step(
+            p15, cfg15, toks[:, pos], caches, pos)[0], full[:, pos])
+            for pos in range(31))
+    counts15 = _no_launches("hybrid decode check")
+    out = {"phase": "hybrid", "arch": cfg.arch_id, "layers": cfg.num_layers,
+           "d_model": cfg.d_model, "ssm_heads": cfg.ssm.num_heads,
+           "ssm_head_dim": cfg.ssm.head_dim, "state_dim": cfg.ssm.state_dim,
+           "attn_head_dim": cfg.head_dim, "params": n_params,
+           "setup_s": setup_s, **row, "peak_mem_gb": peak,
+           "finite": finite,
+           "full_depth_decode_vs_prefill_err": full_depth_err,
+           "decode_check": {"layers": cfg15.num_layers, "params": n15,
+                            "tokens": 32, "rows": 2,
+                            "max_err_over_1_plus_abs": worst,
+                            "tol": DECODE_TOL,
+                            "max_abs_logit": float(full.abs().max())},
+           "launches": counts, "launches_decode_check": counts15}
+    emit(out)
+    require(finite, "hybrid: non-finite logits")
+    require(worst <= DECODE_TOL, f"hybrid: decode vs forward: {out}")
+
+
+def phase_vlm():
+    """Llama-3.2-Vision-11B at full width and depth (40 layers: 8
+    super-blocks of 4 self-attention layers and a cross-attention layer):
+    conditioning [4, 1601, 4096] from a seed, prefill 4 x 512 with it and
+    without it, 16 decode steps (which, as the reference's, attend over
+    zero cross keys and values: decode equals a forward on zero
+    conditioning, within DECODE_TOL)."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer
+    _fresh_card()
+    cfg, params, setup_s, n_params = _family_model("llama-3.2-vision-11b")
+    require((cfg.num_layers, cfg.d_model, cfg.num_cond_tokens, cfg.cond_dim)
+            == (40, 4096, 1601, 4096),
+            f"vlm: not Llama-3.2-Vision-11B's full shape: {cfg}")
+    cond = torch.randn(FAMILY_ROWS, cfg.num_cond_tokens, cfg.cond_dim,
+                       device="cuda", generator=torch.Generator(
+                           device="cuda").manual_seed(1))
+    n_dec = 16
+    ops.reset_launch_counts()                  # the serve path starts here
+    row, toks, logits, dec = _serve_family(cfg, params, n_dec, cond)
+    with torch.no_grad():
+        bare, bare_s = _sync_s(lambda: transformer.prefill(params, cfg,
+                                                           toks))
+        zero = transformer.prefill(params, cfg, toks,
+                                   cond_embeds=torch.zeros_like(cond))
+    counts = _no_launches("vlm")               # ... and ends here
+    out = {"phase": "vlm", "arch": cfg.arch_id, "layers": cfg.num_layers,
+           "d_model": cfg.d_model, "heads": cfg.num_heads,
+           "kv_heads": cfg.num_kv_heads, "cond": list(cond.shape),
+           "params": n_params, "setup_s": setup_s, **row,
+           "prefill_without_image_s": bare_s,
+           "finite": _finite(logits, bare, dec),
+           "image_changes_logits_by": max_err(logits, bare),
+           "decode_vs_zero_image_prefill_err": _rel_err(
+               dec.transpose(0, 1), zero[:, :n_dec]),
+           "tol": DECODE_TOL,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "launches": counts}
+    del params, logits, bare, zero, dec
+    emit(out)
+    require(out["finite"], "vlm: non-finite logits")
+    require(out["image_changes_logits_by"] > LOGIT_TOL,
+            f"vlm: the image does not change the logits: {out}")
+    require(out["decode_vs_zero_image_prefill_err"] <= DECODE_TOL,
+            f"vlm: decode vs zero-image forward: {out}")
+
+
+def phase_audio():
+    """MusicGen-Large at full width and depth (48 layers, d_model 2048):
+    conditioning [4, 256, 2048] as the causal prefix, prefill 4 x 512 (the
+    logits cover the tokens only), 16 decode steps at positions shifted by
+    the prefix (no entry point writes the prefix into the cache, as the
+    reference's)."""
+    import torch
+    from repro_torch.kernels import ops
+    _fresh_card()
+    cfg, params, setup_s, n_params = _family_model("musicgen-large")
+    require((cfg.num_layers, cfg.d_model, cfg.num_cond_tokens)
+            == (48, 2048, 256),
+            f"audio: not MusicGen-Large's full shape: {cfg}")
+    cond = torch.randn(FAMILY_ROWS, cfg.num_cond_tokens, cfg.cond_dim,
+                       device="cuda", generator=torch.Generator(
+                           device="cuda").manual_seed(1))
+    ops.reset_launch_counts()                  # the serve path starts here
+    row, _, logits, dec = _serve_family(cfg, params, 16, cond)
+    counts = _no_launches("audio")             # ... and ends here
+    out = {"phase": "audio", "arch": cfg.arch_id, "layers": cfg.num_layers,
+           "d_model": cfg.d_model, "heads": cfg.num_heads,
+           "cond": list(cond.shape), "params": n_params,
+           "setup_s": setup_s, **row, "logits_shape": list(logits.shape),
+           "finite": _finite(logits, dec),
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "launches": counts}
+    del params, logits, dec
+    emit(out)
+    require(out["finite"], "audio: non-finite logits")
+    require(out["logits_shape"] == [FAMILY_ROWS, FAMILY_PROMPT,
+                                    cfg.vocab_size],
+            f"audio: logits {out['logits_shape']}")
+
+
+def phase_hybrid_train():
+    """zamba2-7b --layers 15 (2 super-blocks and 3 Mamba2 layers, 1.60 B
+    parameters) at full width through launch/train.py, --batch 4 --seq
+    512 --steps 3."""
+    import math
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as launch
+    from repro_torch.models.common import tree_leaves
+    _fresh_card()
+    args = launch.parse_args(HYBRID_TRAIN_FLAGS)
+    trainer, setup_s = _sync_s(lambda: launch.build_trainer(args))
+    cfg = trainer.cfg
+    n_params = sum(t.numel() for t in tree_leaves(trainer.params))
+    ops.reset_launch_counts()                  # the train path starts here
+    _, hist = trainer.run(log_every=1, log_fn=lambda _: None)
+    counts = _no_launches("hybrid_train")      # ... and ends here
+    del trainer
+    steps, step_s, _ = _train_steps(hist, args)
+    out = {"phase": "hybrid_train", "arch": cfg.arch_id,
+           "layers": cfg.num_layers, "stack": cfg.stack(),
+           "d_model": cfg.d_model, "params": n_params, "batch": args.batch,
+           "seq": args.seq, "setup_s": setup_s, "steps": steps,
+           "median_step_s": step_s,
+           "median_tokens_per_s": args.batch * args.seq / step_s,
+           **{f"median_{k}": statistics.median(s[k] for s in steps[1:])
+              for k in ("forward_s", "backward_s", "optimizer_s")},
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "launches": counts}
+    emit(out)
+    require(len(hist) == 3, f"hybrid_train: {len(hist)} steps")
+    require(all(math.isfinite(s["loss"]) and math.isfinite(s["grad_norm"])
+                for s in steps), "hybrid_train: non-finite loss or grad norm")
+    require(cfg.stack() == (("hybrid_super", 2), ("mamba2", 3))
+            and cfg.d_model == 3584,
+            f"hybrid_train: not Zamba2-7B's width at 15 layers: {cfg}")
+
+
+# ---------------------------------------------------------------------------
 KERNELS = (  # name, source, TPU kernel it replaces (file:line of pallas_call)
     ("topk_gate", "src/repro_torch/csrc/topk_gate.cu",
      "src/repro/kernels/topk_gate.py:75"),
@@ -2857,9 +3252,14 @@ def main() -> int:
     moe = timed("moe_train", phase_moe_train)
     for k in ("topk_gate", "expert_ffn"):
         counts[k] += moe[k]
-    # the phases and kernel cases that MoE training added
-    new_s = {k: phase_s[k] for k in ("kernels_train_grads",
-                                     "train_parity_deepseek", "moe_train")}
+    # the hybrid, VLM and audio families: no kernel of this repo
+    family_phases = (("families_parity", phase_families_parity),
+                     ("hybrid", phase_hybrid), ("vlm", phase_vlm),
+                     ("audio", phase_audio),
+                     ("hybrid_train", phase_hybrid_train))
+    for name, fn in family_phases:
+        timed(name, fn)
+    new_s = {name: phase_s[name] for name, _ in family_phases}
     total = time.perf_counter() - t_start
     emit({"phase": "new_phase_seconds", "by_phase": new_s,
           "sum": sum(new_s.values()), "all_phases": phase_s,

@@ -192,16 +192,15 @@ SHAPES = {
     "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
 }
 
-# The reference's arch ids in its order, less the three families whose
-# model code is not ported yet (zamba2-7b: the hybrid Mamba2 stack;
-# llama-3.2-vision-11b: cross attention; musicgen-large: conditioning
-# tokens); their configs arrive with that code.
 ARCH_IDS = [
     "rwkv6-1.6b",
+    "zamba2-7b",
     "internlm2-1.8b",
     "mixtral-8x7b",
     "smollm-360m",
+    "musicgen-large",
     "mixtral-8x22b",
+    "llama-3.2-vision-11b",
     "internlm2-20b",
     "phi3-medium-14b",
     # the paper's own evaluation model family
@@ -210,10 +209,13 @@ ARCH_IDS = [
 
 _MODULES = {
     "rwkv6-1.6b": "rwkv6_1p6b",
+    "zamba2-7b": "zamba2_7b",
     "internlm2-1.8b": "internlm2_1p8b",
     "mixtral-8x7b": "mixtral_8x7b",
     "smollm-360m": "smollm_360m",
+    "musicgen-large": "musicgen_large",
     "mixtral-8x22b": "mixtral_8x22b",
+    "llama-3.2-vision-11b": "llama32_vision_11b",
     "internlm2-20b": "internlm2_20b",
     "phi3-medium-14b": "phi3_medium_14b",
     "deepseek-v2-lite-buddy": "deepseek_v2_lite_buddy",

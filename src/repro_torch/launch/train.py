@@ -17,11 +17,24 @@
         --reduced --device cpu --steps 20 --batch 4 --seq 64 \
         --save chiprun_out/rwkv.npz
 
+    # Zamba2-7B at full width, 15 of its 81 layers (2 super-blocks of 6
+    # Mamba2 layers and the shared attention block, then 3 Mamba2 layers)
+    PYTHONPATH=src python -m repro_torch.launch.train --arch zamba2-7b \
+        --layers 15 --steps 3 --batch 4 --seq 512
+
+    # the reduced hybrid (or llama-3.2-vision-11b) on the CPU
+    PYTHONPATH=src python -m repro_torch.launch.train --arch zamba2-7b \
+        --reduced --device cpu --steps 3 --batch 2 --seq 32
+
 Counterpart of ``repro/launch/train.py``, with the same default arch
 (``deepseek-v2-lite-buddy``), ``--device`` added, and ``--layers N``
 (keep the first N layers; 0: all), as the serve launcher's. ``--save``
 writes the reference's npz key scheme, which
-``repro.checkpoint.io.load_pytree`` reads back.
+``repro.checkpoint.io.load_pytree`` reads back. Like the reference's, the
+loop passes no conditioning: the VLM trains without an image (its cross
+blocks run as causal self-attention), and ``musicgen-large``, whose
+forward needs its conditioning prefix, raises a ValueError naming
+``cond_embeds`` at the first step (the reference fails there too).
 """
 from __future__ import annotations
 
@@ -72,13 +85,20 @@ class Trainer:
                      log_every=log_every, log_fn=log_fn)
 
 
+def build_config(args) -> ModelConfig:
+    """The flags' config: the arch's (or its reduced one), cut to
+    ``--layers`` when given."""
+    cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
+    if args.layers:
+        cfg = dataclasses.replace(cfg, num_layers=args.layers)
+    return cfg
+
+
 def build_trainer(args) -> Trainer:
     """The config, random weights from seed 0 on the device, optimizer
     settings and synthetic batches for the flags."""
     dev = resolve_device(args.device)
-    cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
-    if args.layers:
-        cfg = dataclasses.replace(cfg, num_layers=args.layers)
+    cfg = build_config(args)
     params = transformer.init_params(
         cfg, torch.Generator(device=dev).manual_seed(0), dev)
     lm = MarkovLM(cfg.vocab_size, seed=0)

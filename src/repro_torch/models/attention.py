@@ -8,7 +8,9 @@ Counterpart of ``repro/models/attention.py`` (``attn_forward``, the ring
 ``_flash_attend`` is plain jnp (online softmax over kv chunks), so here the
 scores are explicit f32 matmuls and a softmax; its paged attention is plain
 jnp gathers and einsums too, so it is torch ops here. Cross attention
-arrives with its slice. The decode and prefill caches, ring or pool, are
+(the VLM's image layers) attends from the text to projected conditioning
+embeddings, with no RoPE and no mask, in ``attn_forward`` and
+``attn_decode``. The decode and prefill caches, ring or pool, are
 updated in place (the caller's stacked cache tensors are written at the new
 tokens' slots), which saves a copy of the whole cache per step.
 
@@ -36,11 +38,14 @@ def init_attn(gen, d_model: int, num_heads: int, num_kv_heads: int,
     }
 
 
-def _project_qkv(params, x, num_heads, num_kv_heads, head_dim):
+def _project_qkv(params, x, x_kv, num_heads, num_kv_heads, head_dim):
     b, s, _ = x.shape
+    skv = x_kv.shape[1]
     q = torch.matmul(x, params["wq"]).reshape(b, s, num_heads, head_dim)
-    k = torch.matmul(x, params["wk"]).reshape(b, s, num_kv_heads, head_dim)
-    v = torch.matmul(x, params["wv"]).reshape(b, s, num_kv_heads, head_dim)
+    k = torch.matmul(x_kv, params["wk"]).reshape(b, skv, num_kv_heads,
+                                                 head_dim)
+    v = torch.matmul(x_kv, params["wv"]).reshape(b, skv, num_kv_heads,
+                                                 head_dim)
     return q, k, v
 
 
@@ -51,22 +56,31 @@ def _out_proj(out, wo, dtype):
 
 def _attend(q, k, v, valid):
     """q [B, Sq, H, hd] against k, v [B, Skv, KV, hd]; valid broadcastable
-    to [B, Sq, Skv]. Scores and softmax in f32. Returns [B, Sq, H, hd]."""
+    to [B, Sq, Skv] (None: every key). Scores and softmax in f32.
+    Returns [B, Sq, H, hd]."""
     b, sq, h, hd = q.shape
     kv_h = k.shape[2]
     qg = q.reshape(b, sq, kv_h, h // kv_h, hd).float()
     s = torch.einsum("bqkgh,bckh->bkgqc", qg, k.float()) * (hd ** -0.5)
-    s = torch.where(valid[:, None, None], s, NEG_INF)
+    if valid is not None:
+        s = torch.where(valid[:, None, None], s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bkgqc,bckh->bqkgh", p, v.float())
     return out.reshape(b, sq, h, hd).to(q.dtype)
 
 
 def attn_forward(params, x, positions, *, num_heads, num_kv_heads, head_dim,
-                 rope_theta, window: int = 0):
+                 rope_theta, window: int = 0,
+                 cross_embeds: Optional[torch.Tensor] = None):
     """Full-sequence causal self-attention (train / profiling).
-    positions [B, S]; window 0 = unbounded."""
-    q, k, v = _project_qkv(params, x, num_heads, num_kv_heads, head_dim)
+    positions [B, S]; window 0 = unbounded. cross_embeds [B, Nc, D]: cross
+    attention instead, from x to every row of cross_embeds, with no RoPE,
+    no mask and no window."""
+    if cross_embeds is not None:
+        q, k, v = _project_qkv(params, x, cross_embeds, num_heads,
+                               num_kv_heads, head_dim)
+        return _out_proj(_attend(q, k, v, None), params["wo"], x.dtype)
+    q, k, v = _project_qkv(params, x, x, num_heads, num_kv_heads, head_dim)
     q = apply_rope(q, positions, rope_theta)
     k = apply_rope(k, positions, rope_theta)
     s = x.shape[1]
@@ -80,16 +94,26 @@ def attn_forward(params, x, positions, *, num_heads, num_kv_heads, head_dim,
 
 
 def attn_decode(params, x_tok, cache, pos, *, num_heads, num_kv_heads,
-                head_dim, rope_theta, window: int = 0):
+                head_dim, rope_theta, window: int = 0,
+                cross_kv: Optional[tuple] = None):
     """One decode step. x_tok [B, 1, D]; cache k/v [B, C, KV, hd] (written
     in place); pos is the absolute position of the new token — an int (the
     whole batch in lockstep) or a [B] tensor (each row at its own position).
-    Ring-buffer write at pos % C per row. Returns (y [B, 1, D], cache)."""
+    Ring-buffer write at pos % C per row. Returns (y [B, 1, D], cache).
+    cross_kv (k, v) [B, Nc, KV, hd]: cross attention instead, the new
+    token's query (no RoPE) against every row of k and v; nothing is
+    written and ``cache`` is returned as given."""
     b = x_tok.shape[0]
+    if cross_kv is not None:
+        k, v = cross_kv
+        q = torch.matmul(x_tok, params["wq"]).reshape(b, 1, num_heads,
+                                                      head_dim)
+        return _out_proj(_attend(q, k, v, None), params["wo"],
+                         x_tok.dtype), cache
     dev = x_tok.device
     cap = cache["k"].shape[1]
-    q, k_new, v_new = _project_qkv(params, x_tok, num_heads, num_kv_heads,
-                                   head_dim)
+    q, k_new, v_new = _project_qkv(params, x_tok, x_tok, num_heads,
+                                   num_kv_heads, head_dim)
     per_row = torch.is_tensor(pos) and pos.ndim == 1
     if per_row:
         pos_b = pos.to(device=dev, dtype=torch.int64)[:, None]       # [B, 1]
@@ -186,8 +210,8 @@ def attn_prefill_chunk(params, x_chunk, cache, base_pos, tok_valid, *,
     cap = cache["k"].shape[1]
     if plan is None:
         plan = chunk_plan(base_pos, tok_valid, cap, window, x_chunk.device)
-    q, k_new, v_new = _project_qkv(params, x_chunk, num_heads, num_kv_heads,
-                                   head_dim)
+    q, k_new, v_new = _project_qkv(params, x_chunk, x_chunk, num_heads,
+                                   num_kv_heads, head_dim)
     q = apply_rope(q, plan.pos, rope_theta)
     k_new = apply_rope(k_new, plan.pos, rope_theta)
     cache["k"][plan.rows, plan.slots] = k_new[plan.rows, plan.cols]
@@ -256,7 +280,7 @@ def _gather_pages(arr, pages):
 def _attend_paged(params, x, cache, plan: PagedPlan, *, num_heads,
                   num_kv_heads, head_dim, rope_theta):
     p_bs = cache["k"].shape[0] * cache["k"].shape[1]
-    q, k_new, v_new = _project_qkv(params, x, num_heads, num_kv_heads,
+    q, k_new, v_new = _project_qkv(params, x, x, num_heads, num_kv_heads,
                                    head_dim)
     q = apply_rope(q, plan.pos, rope_theta)
     k_new = apply_rope(k_new, plan.pos, rope_theta)

@@ -1,9 +1,17 @@
-"""Decoder stack for attention stacks (ATTN_MOE / ATTN_DENSE) and RWKV6.
+"""Decoder stack for every family: attention (ATTN_DENSE / ATTN_MOE),
+RWKV6, the Mamba2 hybrid, the VLM and audio.
 
 Counterpart of ``repro/models/transformer.py``. Parameters are a nested dict
 with the reference's keys and each group's layers stacked on a leading
 ``[L, ...]`` axis; each ``lax.scan`` over a group becomes a loop over that
-axis. Entry points:
+axis. A super-block group nests a second stack in each of its layers:
+``hybrid_super`` (Zamba2) is ``attn_every`` Mamba2 layers ``[R, attn_every,
+...]``, then the ONE ``shared_attn`` block under the super's own
+pre-attention norm ``ln_attn``; ``vlm_super`` (Llama-3.2-Vision) is
+``cross_attn_every - 1`` self-attention layers ``[R, n_self, ...]``, then a
+cross-attention block over the conditioning projected by ``cond_proj``.
+The audio family (MusicGen) puts its projected conditioning in front of
+the tokens as a causal prefix. Entry points:
 
   forward_train(params, cfg, tokens, ...)            -> logits [B, S, V], aux
   prefill(params, cfg, tokens)                       -> logits [B, S, V]
@@ -11,23 +19,34 @@ axis. Entry points:
   prefill_chunk(params, cfg, tokens, caches, base_pos, tok_valid, ...)
                                                      -> logits [B, C, V], caches, aux
 
+``cond_embeds`` [B, Nc, cond_dim] go where the reference's go, and the
+reference's behaviour is kept as it is: VLM decode attends over the zero
+``cross_kv`` of ``init_caches`` (its cross blocks add only their FFN);
+audio decode and chunked prefill shift positions by ``num_cond_tokens``,
+but no entry point writes the prefix into the cache; a VLM forward without
+``cond_embeds`` runs each cross block as causal self-attention with RoPE;
+an audio forward without them raises.
+
 Serving state for MoE stacks: ``buddies`` is a BuddyState whose leaves carry
-a leading MoE-layer axis [L_moe, ...]. Decode caches (ring KV, RWKV states)
-are updated in place; chunked prefill writes the same ring KV caches. With
-``block_tables`` (attention stacks only) decode and chunked prefill read and
-write a paged KV block pool instead (``init_paged_caches``). The Mamba2,
-hybrid, VLM and audio families arrive with later slices.
+a leading MoE-layer axis [L_moe, ...]. Decode caches (ring KV, RWKV6 and
+Mamba2 states) are updated in place; chunked prefill writes the same ring
+KV caches. With ``block_tables`` (attention stacks only) decode and chunked
+prefill read and write a paged KV block pool instead
+(``init_paged_caches``).
 """
 from __future__ import annotations
 
+import itertools
 from typing import Any, NamedTuple, Optional
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.configs.base import ATTN_DENSE, ATTN_MOE, RWKV, ModelConfig
+from repro_torch.configs.base import (ATTN_DENSE, ATTN_MOE, CROSS_DENSE,
+                                      MAMBA2, RWKV, ModelConfig)
 from repro_torch.core.policy import BuddyPolicy
 from repro_torch.models import attention as attn
+from repro_torch.models import mamba as mb
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rwkv as rw
 from repro_torch.models.common import (dense_init, embed_init, fold_in,
@@ -38,13 +57,8 @@ _COUNTERS = ("lb", "n_sub", "n_miss", "n_drop", "n_degraded", "n_miss_drop",
              "n_peer", "miss_per_expert")
 _RECORDED = ("indices", "probs", "n_sub", "n_miss", "miss_per_expert",
              "substituted", "missed", "degraded", "dropped", "peered")
-
-
-def _check_stack(cfg: ModelConfig):
-    kinds = {k for k, _ in cfg.stack()}
-    if not kinds <= {ATTN_DENSE, ATTN_MOE, RWKV}:
-        raise NotImplementedError(
-            f"only attention and RWKV6 stacks are ported, got {cfg.stack()}")
+HYBRID_SUPER = "hybrid_super"
+VLM_SUPER = "vlm_super"
 
 
 def require_attention_stack(cfg: ModelConfig, what: str):
@@ -55,12 +69,29 @@ def require_attention_stack(cfg: ModelConfig, what: str):
                          f"{cfg.stack()}")
 
 
-def _tree_assign(dst, i: int, src):
+def _tree_assign(dst, i, src):
     if isinstance(dst, dict):
         for k in dst:
             _tree_assign(dst[k], i, src[k])
     else:
         dst[i].copy_(src)
+
+
+def _layers(stacked) -> list:
+    """The layers of a stacked tree, one tree per index of its leading
+    axis. One unbind per leaf: its backward stacks the layers' gradients
+    once, where indexing would scatter each into a zero [R, ...] tensor."""
+    leaves = [a.unbind(0) for a in tree_leaves(stacked)]
+    out = []
+    for i in range(len(leaves[0])):
+        ith = iter([a[i] for a in leaves])
+        out.append(tree_map(lambda _: next(ith), stacked))
+    return out
+
+
+def _at(tree, i: int):
+    """Entry i of every leaf (a layer's view of a stacked cache)."""
+    return None if tree is None else tree_map(lambda a: a[i], tree)
 
 
 # ===========================================================================
@@ -81,6 +112,8 @@ def _init_attn_block(gen, cfg: ModelConfig, dtype, device, moe: bool):
 
 
 def _init_block(gen, kind: str, cfg: ModelConfig, dtype, device):
+    if kind in (ATTN_DENSE, CROSS_DENSE, ATTN_MOE):
+        return _init_attn_block(gen, cfg, dtype, device, kind == ATTN_MOE)
     if kind == RWKV:
         s = cfg.ssm
         p = rw.init_rwkv(gen, cfg.d_model, s.num_heads, s.head_dim, cfg.d_ff,
@@ -88,32 +121,66 @@ def _init_block(gen, kind: str, cfg: ModelConfig, dtype, device):
         p["ln1"] = torch.ones(cfg.d_model, dtype=torch.float32, device=device)
         p["ln2"] = torch.ones(cfg.d_model, dtype=torch.float32, device=device)
         return p
-    return _init_attn_block(gen, cfg, dtype, device, kind == ATTN_MOE)
+    if kind == MAMBA2:
+        return {"ln": torch.ones(cfg.d_model, dtype=torch.float32,
+                                 device=device),
+                "mamba": mb.init_mamba(gen, cfg.d_model, cfg.ssm, dtype,
+                                       device)}
+    raise ValueError(kind)
+
+
+def _init_stacked(gen, kind: str, lead: tuple, cfg: ModelConfig, dtype,
+                  device):
+    """Blocks of ``kind`` stacked on the leading axes ``lead``, each made
+    and written straight into its place in the stacked tensors."""
+    stacked = None
+    for idx in itertools.product(*(range(n) for n in lead)):
+        blk = _init_block(gen, kind, cfg, dtype, device)
+        if stacked is None:
+            stacked = tree_map(lambda a: torch.empty(
+                (*lead, *a.shape), dtype=a.dtype, device=device), blk)
+        _tree_assign(stacked, idx, blk)
+    return stacked
+
+
+def _init_group(gen, kind: str, repeat: int, cfg: ModelConfig, dtype,
+                device):
+    if kind == HYBRID_SUPER:
+        return {"mamba": _init_stacked(gen, MAMBA2, (repeat, cfg.attn_every),
+                                       cfg, dtype, device),
+                "ln_attn": torch.ones(repeat, cfg.d_model,
+                                      dtype=torch.float32, device=device)}
+    if kind == VLM_SUPER:
+        n_self = cfg.cross_attn_every - 1
+        return {"self": _init_stacked(gen, ATTN_DENSE, (repeat, n_self), cfg,
+                                      dtype, device),
+                "cross": _init_stacked(gen, CROSS_DENSE, (repeat,), cfg,
+                                       dtype, device)}
+    return _init_stacked(gen, kind, (repeat,), cfg, dtype, device)
 
 
 def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
                 device="cuda") -> dict:
     """Random weights from a torch.Generator (seed 0 when none is given),
     made on ``device``. Layers are written straight into their stacked
-    [L, ...] tensors, so the peak is the model plus one layer."""
-    _check_stack(cfg)
+    [L, ...] (a super-block's [R, n, ...]) tensors, so the peak is the
+    model plus one layer. ``cond_proj`` [cond_dim, D] where the config has
+    conditioning tokens; the hybrid's one ``shared_attn`` block."""
     dev = resolve_device(device)
     gen = generator or torch.Generator(device=dev).manual_seed(0)
     dtype = torch_dtype(cfg.dtype)
     params: dict = {"embed": embed_init(gen, cfg.vocab_size, cfg.d_model,
                                         dtype, dev)}
-    groups = []
-    for kind, repeat in cfg.stack():
-        first = _init_block(gen, kind, cfg, dtype, dev)
-        stacked = tree_map(lambda a: torch.empty((repeat, *a.shape),
-                                                 dtype=a.dtype, device=dev),
-                           first)
-        _tree_assign(stacked, 0, first)
-        del first
-        for i in range(1, repeat):
-            _tree_assign(stacked, i, _init_block(gen, kind, cfg, dtype, dev))
-        groups.append(stacked)
-    params["groups"] = tuple(groups)
+    if cfg.num_cond_tokens:
+        params["cond_proj"] = dense_init(gen, cfg.cond_dim, cfg.d_model,
+                                         dtype, dev)
+    params["groups"] = tuple(_init_group(gen, kind, repeat, cfg, dtype, dev)
+                             for kind, repeat in cfg.stack())
+    if cfg.family == "hybrid":
+        # zamba2's shared attention block: ONE parameter set reused at
+        # every application
+        params["shared_attn"] = _init_attn_block(gen, cfg, dtype, dev,
+                                                 moe=False)
     params["final_norm"] = torch.ones(cfg.d_model, dtype=torch.float32,
                                       device=dev)
     if not cfg.tie_embeddings:
@@ -161,6 +228,28 @@ def _moe_aux_dict(aux: moe_mod.MoEAux, record: bool) -> dict:
     return d
 
 
+def _self_attn(p, x, cache, ctx: StepCtx):
+    """Self-attention of one layer in the step's mode; the ring or paged
+    cache ``cache`` (None in "full" mode) is written in place."""
+    kw = _attn_kwargs(ctx.cfg)
+    if ctx.mode == "full":
+        return attn.attn_forward(p, x, ctx.positions, window=ctx.window,
+                                 **kw)
+    if ctx.paged is not None and ctx.mode == "chunk":
+        return attn.attn_prefill_chunk_paged(
+            p, x, cache, ctx.positions, ctx.tok_valid, None, plan=ctx.paged,
+            **kw)[0]
+    if ctx.paged is not None:
+        return attn.attn_decode_paged(p, x, cache, ctx.positions, None,
+                                      plan=ctx.paged, **kw)[0]
+    if ctx.mode == "chunk":
+        return attn.attn_prefill_chunk(p, x, cache, ctx.positions,
+                                       ctx.tok_valid, window=ctx.window,
+                                       plan=ctx.plan, **kw)[0]
+    return attn.attn_decode(p, x, cache, ctx.positions, window=ctx.window,
+                            **kw)[0]
+
+
 def _rwkv_block(p, x, cache, ctx: StepCtx):
     """RWKV6 time mix + channel mix. "full" starts from zero state and
     drops the final one; "step" reads the layer's state from ``cache`` and
@@ -183,31 +272,32 @@ def _rwkv_block(p, x, cache, ctx: StepCtx):
     return x + h, cache, None
 
 
+def _mamba_block(p, x, cache, ctx: StepCtx):
+    """Mamba2 under its pre-norm. Without ``cache`` from zero state, the
+    final state dropped; with it, the layer's state read and the new one
+    written back in place."""
+    cfg = ctx.cfg
+    st = cache if cache is not None else mb.init_mamba_state(
+        x.shape[0], cfg.d_model, cfg.ssm, x.device)
+    h, new = mb.mamba_forward(p["mamba"], rmsnorm(x, p["ln"], cfg.norm_eps),
+                              st, cfg.ssm, cfg.d_model)
+    if cache is not None:
+        cache["conv"].copy_(new["conv"])
+        cache["ssm"].copy_(new["ssm"])
+    return x + h, cache, None
+
+
 def block_forward(kind: str, p, x, cache, ctx: StepCtx, buddy=None):
     """Returns (x_out, cache, aux_dict_or_None)."""
     cfg = ctx.cfg
     if kind == RWKV:
         return _rwkv_block(p, x, cache, ctx)
-    xn = rmsnorm(x, p["ln1"], cfg.norm_eps)
-    if ctx.mode == "full":
-        h = attn.attn_forward(p["attn"], xn, ctx.positions, window=ctx.window,
-                              **_attn_kwargs(cfg))
-    elif ctx.paged is not None and ctx.mode == "chunk":
-        h, cache = attn.attn_prefill_chunk_paged(
-            p["attn"], xn, cache, ctx.positions, ctx.tok_valid, None,
-            plan=ctx.paged, **_attn_kwargs(cfg))
-    elif ctx.paged is not None:
-        h, cache = attn.attn_decode_paged(
-            p["attn"], xn, cache, ctx.positions, None, plan=ctx.paged,
-            **_attn_kwargs(cfg))
-    elif ctx.mode == "chunk":
-        h, cache = attn.attn_prefill_chunk(
-            p["attn"], xn, cache, ctx.positions, ctx.tok_valid,
-            window=ctx.window, plan=ctx.plan, **_attn_kwargs(cfg))
-    else:
-        h, cache = attn.attn_decode(p["attn"], xn, cache, ctx.positions,
-                                    window=ctx.window, **_attn_kwargs(cfg))
-    x = x + h
+    if kind == MAMBA2:
+        return _mamba_block(p, x, cache, ctx)
+    if kind == CROSS_DENSE:
+        raise ValueError("cross-attn blocks run inside vlm_super groups")
+    x = x + _self_attn(p["attn"], rmsnorm(x, p["ln1"], cfg.norm_eps), cache,
+                       ctx)
     xn = rmsnorm(x, p["ln2"], cfg.norm_eps)
     aux = None
     if kind == ATTN_MOE:
@@ -230,28 +320,78 @@ def _zero_moe_aux(cfg: ModelConfig, device) -> dict:
     return z
 
 
-def _run_group(kind: str, gparams, x, gcache, ctx: StepCtx, gbuddy=None):
-    """One homogeneous group, layer by layer over the stacked [R, ...]
-    params. Layer i's router jitter draws from ``fold_in`` of the ctx
-    generator's seed and i, as the reference folds its key per layer; the
-    generator is made inside the layer, so that under ``ctx.remat``
-    (torch.utils.checkpoint per block, as the reference's jax.checkpoint)
-    the recomputed forward draws the same noise and routes the same.
-    Returns (x, cache, reduced aux)."""
+def _hybrid_super(lp, x, lc, ctx: StepCtx, shared):
+    """One Zamba2 super-block: its Mamba2 layers, then the shared
+    attention block under the super's ``ln_attn`` (its FFN under the
+    shared ``ln2``; the shared ``ln1`` is never read, as the reference)."""
+    cfg = ctx.cfg
+    for i, mp in enumerate(_layers(lp["mamba"])):
+        x, _, _ = _mamba_block(mp, x, _at(lc and lc["mamba"], i), ctx)
+    x = x + _self_attn(shared["attn"], rmsnorm(x, lp["ln_attn"],
+                                               cfg.norm_eps),
+                       lc and lc["kv"], ctx)
+    xn = rmsnorm(x, shared["ln2"], cfg.norm_eps)
+    return x + swiglu(xn, shared["ffn"]["w1"], shared["ffn"]["w3"],
+                      shared["ffn"]["w2"])
+
+
+def _vlm_super(lp, x, lc, ctx: StepCtx, cross_embeds):
+    """One Llama-3.2-Vision super-block: its self-attention layers, then
+    the cross-attention block."""
+    for i, sp in enumerate(_layers(lp["self"])):
+        x, _, _ = block_forward(ATTN_DENSE, sp, x,
+                                _at(lc and lc["self_kv"], i), ctx)
+    return _cross_block(lp["cross"], x, ctx, cross_embeds,
+                        lc and lc["cross_kv"])
+
+
+def _cross_block(cp, x, ctx: StepCtx, cross_embeds, cross_kv):
+    """Full mode: attention to ``cross_embeds`` (None: causal
+    self-attention with RoPE, window 0, as the reference's attn_forward
+    without them). Step mode: the new token against ``cross_kv``."""
+    cfg = ctx.cfg
+    xn = rmsnorm(x, cp["ln1"], cfg.norm_eps)
+    if ctx.mode == "full":
+        h = attn.attn_forward(cp["attn"], xn, ctx.positions,
+                              cross_embeds=cross_embeds, **_attn_kwargs(cfg))
+    else:
+        h, _ = attn.attn_decode(cp["attn"], xn, None, ctx.positions,
+                                cross_kv=cross_kv, **_attn_kwargs(cfg))
+    x = x + h
+    xn = rmsnorm(x, cp["ln2"], cfg.norm_eps)
+    return x + swiglu(xn, cp["ffn"]["w1"], cp["ffn"]["w3"], cp["ffn"]["w2"])
+
+
+def _run_group(kind: str, gparams, x, gcache, ctx: StepCtx, gbuddy=None,
+               shared_attn=None, cross_embeds=None):
+    """One group, layer by layer over the stacked [R, ...] params; under
+    ``ctx.remat`` one torch.utils.checkpoint per block, or per super-block
+    (the hybrid's with ``shared_attn``, the VLM's with ``cross_embeds``),
+    as the reference's jax.checkpoint of its scan body. Layer i's router
+    jitter draws from ``fold_in`` of the ctx generator's seed and i, as
+    the reference folds its key per layer; the generator is made inside
+    the layer, so that under remat the recomputed forward draws the same
+    noise and routes the same. Returns (x, cache, reduced aux)."""
+    if kind in (HYBRID_SUPER, VLM_SUPER):
+        body, extra = ((_hybrid_super, shared_attn) if kind == HYBRID_SUPER
+                       else (_vlm_super, cross_embeds))
+        for i, lp in enumerate(_layers(gparams)):
+            lc = _at(gcache, i)
+            if ctx.remat:
+                x = checkpoint(body, lp, x, lc, ctx, extra,
+                               use_reentrant=False)
+            else:
+                x = body(lp, x, lc, ctx, extra)
+        return x, gcache, _zero_moe_aux(ctx.cfg, x.device)
+
     def layer(lp, x, lc, lb, i):
         lctx = ctx if ctx.rng is None else ctx._replace(
             rng=fold_in(ctx.rng.initial_seed(), i, ctx.rng.device))
         return block_forward(kind, lp, x, lc, lctx, buddy=lb)
 
-    r = gparams["ln1"].shape[0]
-    # one unbind per stacked leaf: its backward stacks the layers' gradients
-    # once, where indexing would scatter each into a zero [R, ...] tensor
-    layers = [a.unbind(0) for a in tree_leaves(gparams)]
     auxs = []
-    for i in range(r):
-        ith = iter([a[i] for a in layers])
-        lp = tree_map(lambda _: next(ith), gparams)
-        lc = tree_map(lambda a: a[i], gcache) if gcache is not None else None
+    for i, lp in enumerate(_layers(gparams)):
+        lc = _at(gcache, i)
         lb = (moe_mod.BuddyState(*[None if a is None else a[i]
                                    for a in gbuddy])
               if gbuddy is not None else None)
@@ -272,29 +412,57 @@ def _run_group(kind: str, gparams, x, gcache, ctx: StepCtx, gbuddy=None):
 # ===========================================================================
 # Caches
 # ===========================================================================
+def _kv_capacity(cfg: ModelConfig, seq_len: int, window: int) -> int:
+    total = seq_len + cfg.num_cond_tokens
+    return min(total, window) if window else total
+
+
 def init_caches(cfg: ModelConfig, batch: int, seq_len: int, *,
-                window: int = 0, device="cuda"):
-    """Decode caches for every group, stacked on the group's layers: ring
-    KV caches [L, B, C, KV, hd] for attention, RWKV6 states (wkv
-    [L, B, H, dk, dv], x_tm and x_cm [L, B, 1, D], f32)."""
-    _check_stack(cfg)
+                window: int = 0, device="cuda", cond_embeds=None,
+                params=None):
+    """Decode caches for every group, stacked on the group's layers (a
+    super-block's on [R, n, ...]): ring KV caches [L, B, C, KV, hd] for
+    attention, C = seq_len + num_cond_tokens (at most ``window``); RWKV6
+    states (wkv [L, B, H, dk, dv], x_tm and x_cm [L, B, 1, D]) and Mamba2
+    states (conv [L, B, W-1, inner], ssm [L, B, H, hd, N]), f32; the VLM's
+    ``cross_kv`` (k, v) [R, B, Nc, KV, hd], zeros. ``cond_embeds`` and
+    ``params`` are taken and not used, as the reference's."""
     dev = resolve_device(device)
     dtype = torch_dtype(cfg.dtype)
-    cap = min(seq_len, window) if window else seq_len
-    shape = (cap, cfg.num_kv_heads, cfg.head_dim)
+    kv_shape = (batch, _kv_capacity(cfg, seq_len, window), cfg.num_kv_heads,
+                cfg.head_dim)
+
+    def kv(*lead):
+        return {k: torch.zeros((*lead, *kv_shape), dtype=dtype, device=dev)
+                for k in ("k", "v")}
+
+    def states(st, *lead):
+        return {k: torch.zeros((*lead, *a.shape), dtype=a.dtype, device=dev)
+                for k, a in st.items()}
+
+    def mamba(*lead):
+        return states(mb.init_mamba_state(batch, cfg.d_model, cfg.ssm, dev),
+                      *lead)
+
     caches = []
     for kind, r in cfg.stack():
         if kind == RWKV:
-            st = rw.init_rwkv_state(batch, cfg.ssm.num_heads,
-                                    cfg.ssm.head_dim, cfg.d_model, dev)
-            caches.append({k: torch.zeros((r, *a.shape), dtype=a.dtype,
-                                          device=dev)
-                           for k, a in st.items()})
+            caches.append(states(rw.init_rwkv_state(
+                batch, cfg.ssm.num_heads, cfg.ssm.head_dim, cfg.d_model,
+                dev), r))
+        elif kind == MAMBA2:
+            caches.append(mamba(r))
+        elif kind == HYBRID_SUPER:
+            caches.append({"mamba": mamba(r, cfg.attn_every), "kv": kv(r)})
+        elif kind == VLM_SUPER:
+            shape = (r, batch, cfg.num_cond_tokens, cfg.num_kv_heads,
+                     cfg.head_dim)
+            caches.append({"self_kv": kv(r, cfg.cross_attn_every - 1),
+                           "cross_kv": tuple(torch.zeros(
+                               shape, dtype=dtype, device=dev)
+                               for _ in range(2))})
         else:
-            caches.append({"kv": {
-                "k": torch.zeros((r, batch, *shape), dtype=dtype, device=dev),
-                "v": torch.zeros((r, batch, *shape), dtype=dtype,
-                                 device=dev)}})
+            caches.append({"kv": kv(r)})
     return tuple(caches)
 
 
@@ -315,6 +483,33 @@ def init_paged_caches(cfg: ModelConfig, n_blocks: int, block_size: int, *,
 # ===========================================================================
 # Entry points
 # ===========================================================================
+def _embed(params, cfg: ModelConfig, tokens, cond_embeds):
+    x = params["embed"][tokens]
+    if cfg.num_cond_tokens and cfg.family == "audio":
+        # audio: the stubbed codec frame embeddings as a causal prefix
+        if cond_embeds is None:
+            raise ValueError(
+                f"{cfg.arch_id}: the audio forward needs cond_embeds "
+                f"[B, {cfg.num_cond_tokens}, {cfg.cond_dim}], its "
+                "conditioning prefix; none was given")
+        pre = torch.matmul(cond_embeds, params["cond_proj"]).to(x.dtype)
+        x = torch.cat([pre, x], dim=1)
+    return x
+
+
+def _project_cross(params, cfg: ModelConfig, cond_embeds):
+    if cfg.family == "vlm" and cond_embeds is not None:
+        return torch.matmul(cond_embeds, params["cond_proj"]).to(
+            torch_dtype(cfg.dtype))
+    return None
+
+
+def _audio_offset(cfg: ModelConfig) -> int:
+    """The positions the conditioning prefix takes before the first token
+    (audio only)."""
+    return cfg.num_cond_tokens if cfg.family == "audio" else 0
+
+
 def _logits(params, cfg: ModelConfig, x):
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
@@ -327,7 +522,8 @@ def _iter_groups(params, cfg, caches, buddies):
     for gi, (kind, repeat) in enumerate(cfg.stack()):
         gc = None
         if caches is not None:
-            gc = caches[gi] if kind == RWKV else caches[gi]["kv"]
+            gc = (caches[gi]["kv"] if kind in (ATTN_DENSE, ATTN_MOE)
+                  else caches[gi])
         gb = None
         if kind == ATTN_MOE and buddies is not None:
             gb = moe_mod.BuddyState(*[None if a is None
@@ -344,59 +540,67 @@ def _accumulate(total, aux, rec, record: bool):
         rec.append(aux["per_layer"])
 
 
-def forward_train(params, cfg: ModelConfig, tokens, *,
+def _run(params, cfg: ModelConfig, x, caches, ctx: StepCtx, buddies,
+         cross=None):
+    """Every group in order. Returns (x, aux)."""
+    total = _zero_moe_aux(cfg, x.device)
+    rec = []
+    for kind, gp, gc, gb in _iter_groups(params, cfg, caches, buddies):
+        x, _, aux = _run_group(kind, gp, x, gc, ctx, gbuddy=gb,
+                               shared_attn=params.get("shared_attn"),
+                               cross_embeds=cross)
+        _accumulate(total, aux, rec, ctx.record)
+    if ctx.record:
+        total["recorded"] = rec
+    return x, total
+
+
+def forward_train(params, cfg: ModelConfig, tokens, *, cond_embeds=None,
                   policy: Optional[BuddyPolicy] = None, buddies=None,
                   rng: Optional[torch.Generator] = None,
                   record: bool = False, window: int = -1,
                   remat: bool = False):
-    """Full-sequence forward. tokens [B, S] on the params' device; ``rng``
-    a generator on that device for the router jitter (None: no jitter);
-    ``remat`` recomputes each block's activations in the backward.
-    Returns (logits [B, S, V] f32, aux)."""
-    _check_stack(cfg)
+    """Full-sequence forward. tokens [B, S] on the params' device;
+    cond_embeds [B, Nc, cond_dim] (VLM: the cross blocks' keys and values;
+    audio: the prefix, required); ``rng`` a generator on that device for
+    the router jitter (None: no jitter); ``remat`` recomputes each block's
+    (or super-block's) activations in the backward.
+    Returns (logits [B, S, V] f32, aux); the audio prefix has no logits."""
     if window < 0:
         window = cfg.sliding_window
-    b, s = tokens.shape
-    x = params["embed"][tokens]
+    x = _embed(params, cfg, tokens, cond_embeds)
+    b, s = x.shape[:2]
     positions = torch.arange(s, device=x.device).expand(b, s)
     ctx = StepCtx(cfg, "full", window, policy, positions, record, rng=rng,
                   remat=remat)
-    total = _zero_moe_aux(cfg, x.device)
-    rec = []
-    for kind, gp, _, gb in _iter_groups(params, cfg, None, buddies):
-        x, _, aux = _run_group(kind, gp, x, None, ctx, gbuddy=gb)
-        _accumulate(total, aux, rec, record)
-    logits = _logits(params, cfg, x)
-    if record:
-        total["recorded"] = rec
-    return logits, total
+    x, total = _run(params, cfg, x, None, ctx, buddies,
+                    cross=_project_cross(params, cfg, cond_embeds))
+    return _logits(params, cfg, x[:, _audio_offset(cfg):]), total
 
 
 def decode_step(params, cfg: ModelConfig, token, caches, pos, *,
-                policy: Optional[BuddyPolicy] = None, buddies=None,
-                window: int = -1, record: bool = False, block_tables=None):
+                cond_embeds=None, policy: Optional[BuddyPolicy] = None,
+                buddies=None, window: int = -1, record: bool = False,
+                block_tables=None):
     """One-token decode. token [B] int tensor; pos an int (lockstep batch)
-    or a [B] tensor of per-row positions; caches from init_caches (updated
-    in place). block_tables [B, MB] (host data, -1 = unmapped) routes
-    attention through the paged pool of init_paged_caches instead; pos is
-    then per-row host data (a lockstep int is broadcast).
+    or a [B] tensor of per-row positions, counted from the first token
+    (the audio family adds ``num_cond_tokens``); caches from init_caches
+    (updated in place). block_tables [B, MB] (host data, -1 = unmapped)
+    routes attention through the paged pool of init_paged_caches instead;
+    pos is then per-row host data (a lockstep int is broadcast).
+    ``cond_embeds`` is taken and not used, as the reference's: the VLM's
+    cross blocks attend over the caches' ``cross_kv``.
     Returns (logits [B, V] f32, caches, aux)."""
-    _check_stack(cfg)
     if window < 0:
         window = cfg.sliding_window
     x = params["embed"][token][:, None, :]                        # [B, 1, D]
+    if _audio_offset(cfg):
+        pos = pos + _audio_offset(cfg)
     paged = (None if block_tables is None else attn.paged_plan(
         block_tables, pos, None, caches[0]["kv"]["k"].shape[2], x.device))
     ctx = StepCtx(cfg, "step", window, policy, pos, record, paged=paged)
-    total = _zero_moe_aux(cfg, x.device)
-    rec = []
-    for kind, gp, gc, gb in _iter_groups(params, cfg, caches, buddies):
-        x, _, aux = _run_group(kind, gp, x, gc, ctx, gbuddy=gb)
-        _accumulate(total, aux, rec, record)
-    logits = _logits(params, cfg, x[:, 0])
-    if record:
-        total["recorded"] = rec
-    return logits, caches, total
+    x, total = _run(params, cfg, x, caches, ctx, buddies)
+    return _logits(params, cfg, x[:, 0]), caches, total
 
 
 def prefill_chunk(params, cfg: ModelConfig, tokens, caches, base_pos,
@@ -406,13 +610,14 @@ def prefill_chunk(params, cfg: ModelConfig, tokens, caches, base_pos,
     """Fused multi-token step for chunked prefill (continuous batching).
 
     tokens [B, C] int tensor on the params' device; base_pos [B] the
-    absolute position of each row's first chunk token and tok_valid [B, C]
-    the PREFIX validity mask, both host data (numpy): row b's tokens
-    j < count(b) are live, the rest ride the fixed-shape step and write
-    nothing. A decode row joins the step as a 1-valid-token chunk, so one
-    step serves prefill and decode rows together. caches from init_caches
-    (updated in place), or with block_tables [B, MB] (host data) the paged
-    pool of init_paged_caches.
+    absolute position of each row's first chunk token (the audio family
+    adds ``num_cond_tokens``) and tok_valid [B, C] the PREFIX validity
+    mask, both host data (numpy): row b's tokens j < count(b) are live,
+    the rest ride the fixed-shape step and write nothing. A decode row
+    joins the step as a 1-valid-token chunk, so one step serves prefill
+    and decode rows together. caches from init_caches (updated in place),
+    or with block_tables [B, MB] (host data) the paged pool of
+    init_paged_caches.
 
     Returns (logits [B, C, V] f32, caches, aux). aux token axes are the
     flattened [B*C] chunk (row-major): mask them with tok_valid on the host.
@@ -422,6 +627,8 @@ def prefill_chunk(params, cfg: ModelConfig, tokens, caches, base_pos,
     if window < 0:
         window = cfg.sliding_window
     x = params["embed"][tokens]                                   # [B, C, D]
+    if _audio_offset(cfg):
+        base_pos = base_pos + _audio_offset(cfg)
     plan = paged = None
     width = caches[0]["kv"]["k"].shape[2]          # ring capacity, or block
     if block_tables is None:
@@ -431,19 +638,14 @@ def prefill_chunk(params, cfg: ModelConfig, tokens, caches, base_pos,
                                 x.device)
     ctx = StepCtx(cfg, "chunk", window, policy, base_pos, record,
                   tok_valid=tok_valid, plan=plan, paged=paged)
-    total = _zero_moe_aux(cfg, x.device)
-    rec = []
-    for kind, gp, gc, gb in _iter_groups(params, cfg, caches, buddies):
-        x, _, aux = _run_group(kind, gp, x, gc, ctx, gbuddy=gb)
-        _accumulate(total, aux, rec, record)
-    logits = _logits(params, cfg, x)                              # [B, C, V]
-    if record:
-        total["recorded"] = rec
-    return logits, caches, total
+    x, total = _run(params, cfg, x, caches, ctx, buddies)
+    return _logits(params, cfg, x), caches, total                 # [B, C, V]
 
 
-def prefill(params, cfg: ModelConfig, tokens, *, window: int = -1):
+def prefill(params, cfg: ModelConfig, tokens, *, cond_embeds=None,
+            window: int = -1):
     """Full-sequence forward (the prefill compute): forward_train's logits.
     The serving engine builds decode caches through decode_step or
     prefill_chunk."""
-    return forward_train(params, cfg, tokens, window=window)[0]
+    return forward_train(params, cfg, tokens, cond_embeds=cond_embeds,
+                         window=window)[0]

@@ -1,7 +1,8 @@
 """Training loop: loss, train step and loop, on ``torch.autograd``.
 
-Counterpart of ``repro/training/train_loop.py``, for every ported stack:
-RWKV6, dense attention and MoE attention. A MoE layer's train forward
+Counterpart of ``repro/training/train_loop.py``, for every stack: RWKV6,
+dense and MoE attention, the Mamba2 hybrid, the VLM and audio (their
+``cond_embeds`` passed through to the forward). A MoE layer's train forward
 runs the router's ``topk_gate`` and the capacity branch's ``expert_ffn``
 (the kernels on the card), whose autograd Functions carry the gradient to
 the router and expert weights (``kernels/topk_gate.py``,
@@ -26,10 +27,11 @@ from repro_torch.training.optimizer import (AdamWConfig, OptState,
                                             apply_updates, init_opt_state)
 
 
-def lm_loss(params, cfg: ModelConfig, tokens, targets, *, rng=None,
-            lb_coef: float = 0.01, remat: bool = False):
+def lm_loss(params, cfg: ModelConfig, tokens, targets, *, cond_embeds=None,
+            rng=None, lb_coef: float = 0.01, remat: bool = False):
     """Mean next-token cross entropy plus the load-balance term."""
-    logits, aux = transformer.forward_train(params, cfg, tokens, rng=rng,
+    logits, aux = transformer.forward_train(params, cfg, tokens,
+                                            cond_embeds=cond_embeds, rng=rng,
                                             remat=remat)
     logp = torch.log_softmax(logits.float(), dim=-1)
     nll = -torch.gather(logp, -1, targets[..., None])[..., 0]
@@ -63,8 +65,9 @@ def _mark(device: torch.device):
     return time.perf_counter()
 
 
-def loss_and_grads(params, cfg: ModelConfig, tokens, targets, *, rng=None,
-                   lb_coef: float = 0.01, remat: bool = False):
+def loss_and_grads(params, cfg: ModelConfig, tokens, targets, *,
+                   cond_embeds=None, rng=None, lb_coef: float = 0.01,
+                   remat: bool = False):
     """(loss, metrics, grads): grads has the params' tree structure; the
     metrics' forward_s and backward_s are ``Span``s."""
     leaves = tree_leaves(params)
@@ -72,7 +75,8 @@ def loss_and_grads(params, cfg: ModelConfig, tokens, targets, *, rng=None,
         p.requires_grad_(True)
     try:
         m0 = _mark(tokens.device)
-        loss, metrics = lm_loss(params, cfg, tokens, targets, rng=rng,
+        loss, metrics = lm_loss(params, cfg, tokens, targets,
+                                cond_embeds=cond_embeds, rng=rng,
                                 lb_coef=lb_coef, remat=remat)
         m1 = _mark(tokens.device)
         flat = torch.autograd.grad(loss, leaves, allow_unused=True)
@@ -90,13 +94,15 @@ def loss_and_grads(params, cfg: ModelConfig, tokens, targets, *, rng=None,
 
 def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
                     lb_coef: float = 0.01, remat: bool = False):
-    """train_step(params, opt_state, tokens, targets, rng=None) ->
-    (params, opt_state, metrics); forward_s, backward_s and optimizer_s in
-    the metrics are ``Span``s of the three phases, read when converted
-    with ``float()``."""
+    """train_step(params, opt_state, tokens, targets, rng=None,
+    cond_embeds=None) -> (params, opt_state, metrics); forward_s,
+    backward_s and optimizer_s in the metrics are ``Span``s of the three
+    phases, read when converted with ``float()``."""
 
-    def train_step(params, opt_state: OptState, tokens, targets, rng=None):
+    def train_step(params, opt_state: OptState, tokens, targets, rng=None,
+                   cond_embeds=None):
         loss, metrics, grads = loss_and_grads(params, cfg, tokens, targets,
+                                              cond_embeds=cond_embeds,
                                               rng=rng, lb_coef=lb_coef,
                                               remat=remat)
         m0 = _mark(tokens.device)

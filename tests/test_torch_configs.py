@@ -1,18 +1,25 @@
 """The port's config registry against the JAX package's: every registered
 arch's ``CONFIG`` and ``reduced()`` equal the reference's field by field
 (``dataclasses.asdict``, the nested MoE and SSM configs included), and the
-port registers the reference's arch ids, in its order, less the three
-families whose model code is not ported yet."""
+port registers the reference's arch ids, in its order (``UNPORTED``, the
+arch ids whose model code the port lacks, is empty); and every arch's
+reduced config builds, runs forward_train, a decode_step and a train step
+on the CPU, with conditioning where the config has conditioning tokens."""
 import dataclasses
+import math
 
 import pytest
 
-pytest.importorskip("torch")
+torch = pytest.importorskip("torch")
 
 from repro.configs import base as JB  # noqa: E402
 from repro_torch.configs import base as B  # noqa: E402
+from repro_torch.models import transformer as T  # noqa: E402
+from repro_torch.training import optimizer as O  # noqa: E402
+from repro_torch.training import train_loop as L  # noqa: E402
+from test_torch_mixtral import one_torch_thread  # noqa: E402,F401
 
-UNPORTED = ("zamba2-7b", "llama-3.2-vision-11b", "musicgen-large")
+UNPORTED = ()
 
 
 def test_arch_ids_are_the_references_less_the_unported_families():
@@ -45,3 +52,25 @@ def test_mixtral_is_the_published_shape():
             c.moe.num_shared_experts) == (8, 14336, 2, 0)
     assert (c.sliding_window, c.rope_theta, c.vocab_size) == \
         (4096, 1e6, 32000)
+
+
+@pytest.mark.parametrize("arch", B.ARCH_IDS)
+def test_every_arch_runs_on_cpu(arch):
+    cfg = B.get_reduced(arch)
+    params = T.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    gen = torch.Generator().manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (2, 9), generator=gen)
+    cond = (torch.randn(2, cfg.num_cond_tokens, cfg.cond_dim, generator=gen)
+            if cfg.num_cond_tokens else None)
+    with torch.no_grad():
+        logits, _ = T.forward_train(params, cfg, toks[:, :-1],
+                                    cond_embeds=cond)
+        caches = T.init_caches(cfg, 2, 8, device="cpu")
+        lg, _, _ = T.decode_step(params, cfg, toks[:, 0], caches, 0)
+    assert logits.shape == (2, 8, cfg.vocab_size)
+    assert lg.shape == (2, cfg.vocab_size)
+    assert bool(torch.isfinite(logits).all() and torch.isfinite(lg).all())
+    _, _, m = L.make_train_step(cfg, O.AdamWConfig(total_steps=3))(
+        params, O.init_opt_state(params), toks[:, :-1], toks[:, 1:],
+        cond_embeds=cond)
+    assert math.isfinite(float(m["loss"])) and float(m["grad_norm"]) > 0

@@ -1242,3 +1242,44 @@ def test_serve_only_kernels_raise_under_grad_on_card(dev):
         with torch.no_grad():                  # serving: no gradient needed
             call(w1, xx, z)
         call(ws[0], x, logits)                 # inputs that need none
+
+
+@pytest.mark.parametrize("arch", ["zamba2-7b", "llama-3.2-vision-11b",
+                                  "musicgen-large"])
+def test_family_on_card_matches_cpu(dev, arch):
+    """The reduced hybrid, VLM and audio configs (torch ops only, no
+    kernel of this repo), weights from seed 0 made on the CPU: forward
+    (S = 32, the hybrid's chunked scan), 4 decode steps (its per-token
+    recurrence) and one forward and backward, with conditioning where the
+    config has it, on the CPU and on the card."""
+    from repro_torch.configs.base import get_reduced
+    from repro_torch.models import transformer as T
+    from repro_torch.models.common import tree_leaves, tree_map
+    from repro_torch.training.train_loop import loss_and_grads
+    cfg = get_reduced(arch)
+    params = T.init_params(cfg, _gen(0), "cpu")
+    g = _gen(1)
+    toks = torch.randint(0, cfg.vocab_size, (2, 33), generator=g)
+    cond = (torch.randn(2, cfg.num_cond_tokens, cfg.cond_dim, generator=g)
+            if cfg.num_cond_tokens else None)
+    out = []
+    ops.reset_launch_counts()
+    for d in ("cpu", dev):
+        p = tree_map(lambda t: t.to(d), params)
+        c = None if cond is None else cond.to(d)
+        t = toks.to(d)
+        with torch.no_grad():
+            fwd = T.forward_train(p, cfg, t[:, :-1], cond_embeds=c)[0]
+            caches = T.init_caches(cfg, 2, 8, device=d)
+            dec = torch.stack([T.decode_step(p, cfg, t[:, i], caches, i)[0]
+                               for i in range(4)])
+        loss, _, grads = loss_and_grads(p, cfg, t[:, :-1], t[:, 1:],
+                                        cond_embeds=c)
+        out.append((fwd.cpu(), dec.cpu(), float(loss), grads))
+    assert not any(ops.launch_counts().values())
+    (fc, dc, lc, gc), (fg, dg, lg, gg) = out
+    torch.testing.assert_close(fg, fc, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(dg, dc, rtol=1e-4, atol=1e-4)
+    assert abs(lg - lc) <= 1e-5 * abs(lc)
+    for a, b in zip(tree_leaves(gc), tree_leaves(gg)):
+        assert float((b.cpu() - a).abs().max()) <= 1e-4 * float(a.abs().max())
