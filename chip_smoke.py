@@ -12,10 +12,12 @@ committed fixture under ``results/bench``). Phases, one JSON line each:
   kernels  each kernel against its plain PyTorch version on the card, at the
            shapes of the main path, with times (CUDA events) and bounds;
            the routing kernels also with their device time (torch.profiler)
-           and device ops per call: route at T = 4, 32, 256, 512 and 4096
-           (one launch up to 256 tokens, two above) with and without the tier
-           and peer masks and with substitution off, and at T = 4 and 4096
-           in cost mode (degraded and peer costs) and with Psi's eta and
+           and device ops per call: route at T = 4, 32, 33, 64, 128, 256,
+           512 and 4096 (one launch of one cluster of ceil(T / 4) CTAs up to
+           32 tokens, two launches above; each row names its form and
+           launches per call) with and without the tier and peer masks and
+           with substitution off, and at T = 4, 32, 256 and 4096 in cost
+           mode (degraded and peer costs) and with Psi's eta and
            kappa terms, the temperature and the margin co-gate, beside the
            path it replaced (topk_gate, the distribution gate in torch ops,
            buddy_substitute, the splits) timed in the same run;
@@ -980,11 +982,15 @@ ROUTE_EXACT = ("idx", "allow", "dist_ok", "new_idx", "substituted", "missed",
 # requested, so delta is the non-resident share itself)
 ROUTE_CASES = (("masks", True, True, 1.1), ("no_masks", False, True, 0.5),
                ("subst_off", True, False, 1.1))
-# at T = 4 and 4096 (name, policy): cost mode with the degraded and peer
-# costs (fetch stalls around the drop cost: every outcome occurs); Psi's
-# eta and kappa terms (hop with the -1 sentinel) with the token gate's
-# temperature 0.8 and margin 0.4
-ROUTE_POLICY_T = (4, 4096)
+# at T = 4, 32 (a full cluster, each CTA with its own rows' statistics),
+# 256 and 4096 (name, policy): cost mode with the degraded and peer costs
+# (fetch stalls around the drop cost: every outcome occurs); Psi's eta and
+# kappa terms (hop with the -1 sentinel) with the token gate's temperature
+# 0.8 and margin 0.4
+ROUTE_POLICY_T = (4, 32, 256, 4096)
+# a cluster of one and of eight CTAs, the first T of the two-launch form
+# (33) and the grid at the widths between
+ROUTE_T = (4, 32, 33, 64, 128, 256, 512, 4096)
 ROUTE_POLICY_CASES = ("cost", "eta_kappa")
 VECTORS = ("quant_ok", "peer_ok", "hop", "fid_cost", "fetch_cost",
            "peer_cost")
@@ -1034,8 +1040,8 @@ def kernel_route(dev, gen):
     from repro_torch.core.gates import distribution_gate
     from repro_torch.core.substitute import split_degraded, split_peer
     from repro_torch.kernels.buddy_substitute import buddy_substitute_cuda
-    from repro_torch.kernels.route import (Route, launch_plan, route_cuda,
-                                           route_plain)
+    from repro_torch.kernels.route import (Route, compiled_form, launch_plan,
+                                           route_cuda, route_plain)
     from repro_torch.kernels.topk_gate import topk_gate_cuda
 
     def composed(z, tau, beta, resident, table, q, *, k, h, rho, substitute,
@@ -1054,7 +1060,11 @@ def kernel_route(dev, gen):
     e_n, k_n, r_n, h, rho, tau = 64, 6, 8, 8, 3, 0.2
     by_t, old_path = {}, None
     pgen = torch.Generator().manual_seed(1)   # the policy cases' vectors
-    for t_n in (4, 32, 256, 512, 4096):
+    for t_n in ROUTE_T:
+        plan = launch_plan(t_n, k_n)
+        require(compiled_form(t_n) == (plan.launches, plan.ctas),
+                f"route T={t_n}: csrc/route.cu runs another form than "
+                f"launch_plan's {plan}")
         z = torch.randn(t_n, e_n, generator=gen).to(dev)
         resident = (torch.rand(e_n, generator=gen) < 0.5).to(dev)
         table, q = _buddy_tables(gen, e_n, r_n, dev)
@@ -1090,7 +1100,8 @@ def kernel_route(dev, gen):
                 "n_missed": int(got.missed.sum()),
                 "n_dropped": int(got.dropped.sum()),
                 "n_allowed": int(got.allow.sum()),
-                "launches_per_call": launch_plan(t_n, k_n).launches,
+                "launches_per_call": plan.launches,
+                "form": f"cluster of {plan.ctas}" if plan.ctas else "grid",
                 "ms": time_ms(lambda: route_cuda(*args, **kw), inner=10),
                 "plain_ms": time_ms(lambda: route_plain(*args, **kw),
                                     inner=10),
@@ -3196,7 +3207,7 @@ KERNELS = (  # name, source, TPU kernel it replaces (file:line of pallas_call)
 NOTES = {"buddy_substitute": "no launch on the serve path (Algorithm 1 runs "
                              "inside route there); it runs in the kernels "
                              "phase, and its device code in route's "
-                             "two-launch form (T > 256)"}
+                             "two-launch form (T > 32)"}
 
 
 def main() -> int:

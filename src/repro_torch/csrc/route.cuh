@@ -23,7 +23,7 @@ constexpr unsigned FULL = 0xffffffffu;
 constexpr int GATE_ROWS = 8;       // warps (one row each) per gate_kernel block
 constexpr int SUB_THREADS = 128;   // tokens per substitute_kernel block
 // dynamic shared memory of the staged tables: the 48 KB a block may use
-// without opting in, less route_block_kernel's 3 KB of static arrays
+// without opting in, less the static arrays of route.cu's cluster kernel
 constexpr int SMEM_LIMIT = 44 * 1024;
 
 struct GateOut {

@@ -14,11 +14,12 @@ temperature and the margin co-gate.
 
 Bound on the H100: about 2 KB in and out per call at T = 4, so the launch
 latency and the host's issue path bound it, not bytes. The kernel is one
-block for T <= 256 (two launches above); the wrapper makes two
-allocations, one int32 buffer and one bool buffer whose views are the
-outputs (``launch_plan``), and one ctypes call whose argument types were
-fixed when the library loaded. Its checks read dtype, shape, contiguity and
-the device type only.
+launch of one thread-block cluster for T <= CLUSTER_T, ROWS_PER_CTA tokens
+to a CTA (two launches above); the wrapper makes two allocations, one
+int32 buffer and one bool buffer whose views are the outputs
+(``launch_plan``), and one ctypes call whose argument types were fixed
+when the library loaded. Its checks read dtype, shape, contiguity and the
+device type only. A refused cluster launch raises.
 """
 from __future__ import annotations
 
@@ -34,15 +35,18 @@ from repro_torch.core.substitute import substitute as substitute_plain
 from repro_torch.kernels import _build
 from repro_torch.kernels.topk_gate import MAX_E, MAX_K, topk_gate_plain
 
-SINGLE_BLOCK_T = 256      # up to this many tokens: one launch of one block
+# csrc/route.cu's geometry: up to CLUSTER_T tokens one launch of one
+# cluster of ceil(T / ROWS_PER_CTA) CTAs, two launches above
+CLUSTER_T = 32
+ROWS_PER_CTA = 4
 # dynamic shared memory of the staged tables, E*R*8 + 20*E bytes: 48 KB
-# less the one-block kernel's static arrays
+# less the cluster kernel's static arrays
 SMEM_LIMIT = 44 * 1024
 # The outputs in the int32 buffer ("words"; f32 outputs are its bits) and
 # in the bool buffer ("flags"), in buffer order; every segment starts on 16
 # bytes. outputs() in csrc/route.cu computes the same offsets. Above
-# SINGLE_BLOCK_T the words end with a scratch segment: the rows' mean and
-# std [T, 2] that the gate launch passes to the substitution launch.
+# CLUSTER_T the words end with a scratch segment: the rows' mean and std
+# [T, 2] that the gate launch passes to the substitution launch.
 WORD_OUTPUTS = ("idx", "new_idx", "topk_logits", "probs", "tae")
 FLAG_OUTPUTS = ("substituted", "missed", "degraded", "peered", "dropped",
                 "allow", "dist_ok")
@@ -102,7 +106,8 @@ def _pad16(n: int) -> int:
 
 
 class Plan(NamedTuple):
-    launches: int        # 1 (one block) or 2 (gate grid, substitute grid)
+    launches: int        # 1 (one cluster) or 2 (gate grid, substitute grid)
+    ctas: int            # the cluster's CTAs, or 0 for two launches
     words: int           # int32 buffer length
     flags: int           # bool buffer length
     word_offsets: tuple  # element offset of each WORD_OUTPUTS entry
@@ -118,8 +123,8 @@ def launch_plan(t_n: int, k_n: int) -> Plan:
     fs = _pad16(t_n * k_n)               # bytes of one [T, K] mask
     tf = _pad16(t_n)
     outs = 4 * ws + _pad16(4 * t_n) // 4
-    grid = t_n > SINGLE_BLOCK_T
-    return Plan(2 if grid else 1,
+    grid = t_n > CLUSTER_T
+    return Plan(2 if grid else 1, 0 if grid else -(-t_n // ROWS_PER_CTA),
                 outs + (_pad16(8 * t_n) // 4 if grid else 0), 5 * fs + tf + 16,
                 tuple(i * ws for i in range(5)),
                 tuple(i * fs for i in range(6)) + (5 * fs + tf,),
@@ -133,7 +138,17 @@ def _lib():
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         fn.argtypes = [p] * 10 + [i] * 8 + [f] * 9 + [p] * 3
         fn.restype = ctypes.c_int
+        lib.route_form.argtypes = [i, ctypes.POINTER(i)]
+        lib.route_form.restype = i
     return lib
+
+
+def compiled_form(t_n: int) -> tuple:
+    """(launches, CTAs) of T tokens as the built csrc/route.cu runs them:
+    launch_plan must give the same. Builds the library (needs nvcc)."""
+    ctas = ctypes.c_int()
+    launches = _lib().route_form(t_n, ctypes.byref(ctas))
+    return launches, ctas.value
 
 
 def _bad(t, dtype, shape) -> bool:

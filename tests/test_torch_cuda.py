@@ -24,8 +24,10 @@ from repro_torch.kernels.grouped_ffn import (grouped_ffn_cuda,  # noqa: E402
                                              grouped_ffn_plain)
 from repro_torch.kernels.quant_ffn import (quant_ffn_cuda,  # noqa: E402
                                            quant_ffn_plain, quant_operands)
+from repro_torch.kernels import route as route_mod  # noqa: E402
 from repro_torch.kernels.route import launch_plan as route_plan  # noqa
-from repro_torch.kernels.route import (Route, route_cuda,  # noqa: E402
+from repro_torch.kernels.route import (CLUSTER_T, ROWS_PER_CTA,  # noqa: E402
+                                       Route, compiled_form, route_cuda,
                                        route_plain)
 from repro_torch.kernels.topk_gate import (topk_gate_cuda,  # noqa: E402
                                            topk_gate_plain)
@@ -114,7 +116,15 @@ def _route_check(args, kw):
     return got
 
 
-@pytest.mark.parametrize("t", [1, 4, 256, 257, 4096])
+# the earlier cases, the CTA and cluster boundaries, and clusters of 3, 5
+# and 7 CTAs
+ROUTE_T = sorted({1, 4, 32, 33, 255, 256, 257, 4096, ROWS_PER_CTA,
+                  ROWS_PER_CTA + 1, CLUSTER_T, CLUSTER_T + 1}
+                 | {n * ROWS_PER_CTA - 1 for n in (3, 5, 7)
+                    if n * ROWS_PER_CTA <= CLUSTER_T})
+
+
+@pytest.mark.parametrize("t", ROUTE_T)
 @pytest.mark.parametrize("case", ["plain", "ties_masks", "none_masks",
                                   "quant_only"])
 def test_route(dev, t, case):
@@ -137,7 +147,7 @@ def test_route(dev, t, case):
     got = _route_check(args, dict(k=k, h=8, rho=3,
                                        substitute=case != "none_masks",
                                        **masks))
-    assert route_plan(t, k).launches == (1 if t <= 256 else 2)
+    assert route_plan(t, k).launches == (1 if t <= CLUSTER_T else 2)
     if case == "none_masks":
         assert not got.substituted.any()
 
@@ -146,8 +156,8 @@ def test_route(dev, t, case):
 @pytest.mark.parametrize("above", [False, True])
 def test_route_distribution_gate_at_beta(dev, t, above):
     """2 of 8 requested experts non-resident, delta = 0.25 exactly: the
-    gate is shut at beta = 0.25 and open one f32 ulp above, in the one-block
-    and in the two-launch form."""
+    gate is shut at beta = 0.25 and open one f32 ulp above, in a cluster of
+    one CTA and in the two-launch form."""
     e = 16
     z = torch.full((t, e), -5.0)
     z[0::2, :4] = torch.tensor([4.0, 3.0, 2.0, 1.0])
@@ -165,6 +175,70 @@ def test_route_distribution_gate_at_beta(dev, t, above):
                              table.to(dev), q.to(dev)), dict(k=4, h=4))
     assert bool(got.dist_ok) is above
     assert bool(got.substituted.any()) is above
+
+
+def test_route_form_is_launch_plan(dev):
+    """The built csrc/route.cu runs each T as launch_plan says: one launch
+    of ceil(T / ROWS_PER_CTA) CTAs up to CLUSTER_T, two launches above."""
+    for t in range(1, 2 * CLUSTER_T + 2):
+        plan = route_plan(t, 6)
+        assert compiled_form(t) == (plan.launches, plan.ctas), t
+
+
+@pytest.mark.parametrize("t", [ROWS_PER_CTA + 3, CLUSTER_T])
+@pytest.mark.parametrize("above", [False, True])
+def test_route_distribution_gate_on_the_last_cta(dev, t, above):
+    """Only the rows of the cluster's last CTA request non-resident
+    experts: the other CTAs' rows take experts 8-11 (resident), the last
+    CTA's alternate {0, 1, 2, 3} and {4, 5, 6, 7}, 0 and 4 not resident.
+    delta = 2 / 12 in f32: the gate is shut at beta = delta and open one
+    f32 ulp above, in every CTA (the last CTA's rows substitute only when
+    it is open)."""
+    e = 16
+    n = route_plan(t, 4).ctas
+    assert n >= 2
+    last = (n - 1) * ROWS_PER_CTA
+    z = torch.full((t, e), -5.0)
+    z[:last, 8:12] = torch.tensor([4.0, 3.0, 2.0, 1.0])
+    z[last::2, :4] = torch.tensor([4.0, 3.0, 2.0, 1.0])
+    z[last + 1::2, 4:8] = torch.tensor([4.0, 3.0, 2.0, 1.0])
+    resident = torch.ones(e, dtype=torch.bool)
+    resident[[0, 4]] = False
+    table = torch.stack([torch.roll(torch.arange(e), -i - 1)[:4]
+                         for i in range(e)]).to(torch.int32)
+    q = torch.full((e, 4), 0.5)
+    delta = torch.tensor(2.0) / torch.tensor(12.0)
+    beta = float(torch.nextafter(delta, torch.tensor(1.0)) if above
+                 else delta)
+    got = _route_check((z.to(dev), -1.0, beta, resident.to(dev),
+                        table.to(dev), q.to(dev)), dict(k=4, h=4))
+    assert bool(got.dist_ok) is above
+    assert bool(got.substituted[last:].any()) is above
+    assert not got.substituted[:last].any()
+
+
+def test_route_refused_launch_raises(dev, monkeypatch):
+    """A launch the card refuses (its cudaError returned by route_launch)
+    raises in route_cuda: no fallback to the grid form or to route_plain,
+    and no launch counted."""
+    class Refusing:
+        @staticmethod
+        def route_launch(*args):
+            return 2            # cudaErrorMemoryAllocation
+
+    monkeypatch.setattr(route_mod, "_lib", Refusing)
+    g = _gen(5)
+    e, r = 64, 8
+    table = torch.stack([torch.randperm(e, generator=g)[:r]
+                         for _ in range(e)]).to(torch.int32).to(dev)
+    q = torch.rand(e, r, generator=g).to(dev)
+    resident = (torch.rand(e, generator=g) < 0.5).to(dev)
+    before = route_cuda.launches
+    for t in (4, CLUSTER_T, CLUSTER_T + 1):
+        z = torch.randn(t, e, generator=g).to(dev)
+        with pytest.raises(RuntimeError, match="cudaError 2"):
+            route_cuda(z, 0.2, 1.1, resident, table, q, k=6)
+    assert route_cuda.launches == before
 
 
 def _policy_inputs(g, e, dev):
@@ -188,7 +262,10 @@ ROUTE_POLICIES = {
                        temperature=0.8, margin_gamma=0.4)}
 
 
-@pytest.mark.parametrize("t", [4, 32, 256, 4096])
+# 256 and CLUSTER_T: every CTA of a full cluster with its own rows' eta
+# statistics; ROWS_PER_CTA + 3: a last CTA of three rows
+@pytest.mark.parametrize("t", sorted({4, 32, 256, 4096, ROWS_PER_CTA + 3,
+                                      CLUSTER_T}))
 @pytest.mark.parametrize("policy", list(ROUTE_POLICIES))
 def test_route_policies(dev, t, policy):
     """Cost mode (with and without the degraded and peer costs, and in mode
@@ -680,7 +757,8 @@ def _fixture(device):
 def test_prefill_chunk_on_card_matches_cpu(dev, b, c, fused, tier):
     """Two chunk steps of mixed rows (a prefill, a decode row, a partial
     prefix, an inactive row): logits, caches and every per-slot mask. At
-    4 x 80 = 320 tokens route runs its two-launch form."""
+    4 x 80 = 320 tokens route runs the form launch_plan gives it (two
+    launches above CLUSTER_T)."""
     import numpy as np
     from repro_torch.models import transformer as T
     from repro_torch.models.common import tree_leaves
@@ -718,7 +796,7 @@ def test_prefill_chunk_on_card_matches_cpu(dev, b, c, fused, tier):
             pos = pos + counts
         runs.append((out, [a.cpu() for a in tree_leaves(caches)]))
     (cpu, ccache), (card, gcache) = runs
-    assert route_plan(b * c, 6).launches == (2 if b * c > 256 else 1)
+    assert route_plan(b * c, 6).launches == (2 if b * c > CLUSTER_T else 1)
     for (cl, cr, _, _), (gl, gr, after, before) in zip(cpu, card):
         assert after["route"] - before["route"] == 2          # per layer
         assert after["topk_gate"] == before["topk_gate"]

@@ -22,7 +22,8 @@ from repro.kernels.topk_gate import topk_gate_pallas  # noqa: E402
 from repro_torch.configs.base import MoEConfig  # noqa: E402
 from repro_torch.core.policy import BuddyPolicy  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
-from repro_torch.kernels.route import (FLAG_OUTPUTS,  # noqa: E402
+from repro_torch.kernels.route import (CLUSTER_T,  # noqa: E402
+                                       FLAG_OUTPUTS, ROWS_PER_CTA,
                                        WORD_OUTPUTS, Route, launch_plan,
                                        outputs, route_plain)
 from repro_torch.models import moe as M  # noqa: E402
@@ -222,16 +223,25 @@ def test_ops_route_takes_the_plain_version_on_cpu():
 
 
 # ------------------------------------------------- the wrapper's launch plan
-@pytest.mark.parametrize("t", [1, 4, 32, 256, 257, 4096])
+# the CTA and cluster boundaries beside the earlier cases
+PLAN_T = sorted({1, 4, 32, 33, 255, 256, 257, 4096, ROWS_PER_CTA,
+                 ROWS_PER_CTA + 1, CLUSTER_T, CLUSTER_T + 1})
+
+
+@pytest.mark.parametrize("t", PLAN_T)
 @pytest.mark.parametrize("k", [1, 6, 16])
 def test_launch_plan(t, k):
-    """One launch up to 256 tokens, two above; every output a contiguous
-    view that starts on 16 bytes, inside its buffer, overlapping no other;
-    the two-launch form's scratch segment (the rows' [T, 2] mean and std)
-    after the outputs, on 16 bytes and inside the word buffer."""
+    """One launch of one cluster of ceil(T / ROWS_PER_CTA) <= 8 CTAs up to
+    CLUSTER_T tokens, with no scratch segment; two launches above, whose
+    scratch segment (the rows' [T, 2] mean and std) lies after the outputs,
+    on 16 bytes and inside the word buffer. Every output a contiguous view
+    that starts on 16 bytes, inside its buffer, overlapping no other."""
     plan = launch_plan(t, k)
-    assert plan.launches == (1 if t <= 256 else 2)
-    assert (plan.scratch is None) == (plan.launches == 1)
+    cluster = t <= CLUSTER_T
+    assert plan.launches == (1 if cluster else 2)
+    assert plan.ctas == (-(-t // ROWS_PER_CTA) if cluster else 0)
+    assert plan.ctas <= 8
+    assert (plan.scratch is None) == cluster
     assert len(plan.word_offsets) == len(WORD_OUTPUTS)
     assert len(plan.flag_offsets) == len(FLAG_OUTPUTS)
     assert all(4 * o % 16 == 0 for o in plan.word_offsets)
