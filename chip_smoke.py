@@ -191,6 +191,25 @@ committed fixture under ``results/bench``). Phases, one JSON line each:
            every step, topk_gate and expert_ffn 4 times per forward;
            parameters, setup s, per-step wall and forward / backward /
            optimizer s, median tokens/s, peak memory
+  dryrun   the launch tooling (launch/{mesh,sharding,roofline,dryrun}.py):
+           (1) the dry run on the meta device at production scale
+           (deepseek-v2-lite-buddy decode_32k, mixtral-8x7b train_4k,
+           internlm2-1.8b prefill_32k on the 16 x 16 mesh): per-device
+           argument GB, FLOPs, bytes, compute and memory terms under the
+           H100 HardwareSpec, the dominant term; (2) meta against the card
+           at full width, two steps: (a) Mixtral-8x7B, the mixtral phase's
+           4 layers and weights, one capacity-branch decode step at batch 4
+           (after the similarity phase), (b) DeepSeek-V2-Lite, 4 layers,
+           one train step at 4 x 512 with remat and AdamW (after
+           moe_train). Each step traced on meta and run once on the card
+           under the same OpCounter: equal FLOPs, bytes and kernel
+           charges, predicted argument bytes equal to the card tensors'
+           (memory_allocated's delta beside them), the counted step's
+           launches equal to its charges; then the median of 10 steps by
+           CUDA events (and the wall), the profiler's device-busy time,
+           the roofline bound max(FLOPs / the dtype's peak, bytes / HBM)
+           and the share bound / event time, at most SHARE_MAX, with the
+           card's name and power limit
 
 The hybrid, VLM and audio families run plain torch ops: each of their
 phases resets the launch counts before its path and requires that none of
@@ -233,7 +252,8 @@ the seven kernels launched; each frees its weights before the next.
 The line new_phase_seconds gives the seconds of the five family phases and
 their sum, every phase's seconds (all_phases), and main's seconds in all
 and outside the phases. The kernels line's topk_gate and expert_ffn
-launches include moe_train's.
+launches include moe_train's and the dryrun phase's (which adds route's
+too).
 
 Then the kernels table line, the card's name and power limit as nvidia-smi
 prints them, and the result line. Without a CUDA card, or outside a checkout,
@@ -3185,6 +3205,168 @@ def phase_hybrid_train():
 
 
 # ---------------------------------------------------------------------------
+# The launch tooling: the dry run on meta, and meta against the card
+DRYRUN_CASES = (("deepseek-v2-lite-buddy", "decode_32k"),
+                ("mixtral-8x7b", "train_4k"),
+                ("internlm2-1.8b", "prefill_32k"))
+SHARE_MAX = 1.05      # bound / device time above this: the count is wrong
+DRYRUN_REPS = 10      # timed steps (median) after the counted one
+
+
+def phase_dryrun_meta():
+    """The dry run at production scale on the meta device (nothing on the
+    card): run_one on the 16 x 16 mesh for DRYRUN_CASES, one line each
+    with per-device argument GB, FLOPs, bytes, the compute and memory
+    terms under the H100 HardwareSpec and the dominant term."""
+    from repro_torch.launch import dryrun
+    for arch, shape in DRYRUN_CASES:
+        out = dryrun.run_one(arch, shape, verbose=False,
+                             results_dir=OUT_DIR / "dryrun_torch")
+        r, c = out["roofline"], out["counts"]
+        emit({"phase": "dryrun", "case": "meta", "arch": arch,
+              "shape": shape, "mesh": out["mesh"], "chips": out["chips"],
+              "trace_s": out["trace_s"],
+              "argument_gb_per_device":
+                  out["memory"]["argument_size_bytes"] / 1e9,
+              "output_gb_per_device": out["memory"]["output_size_bytes"] / 1e9,
+              "flops": c["flops"], "bytes": c["bytes"],
+              "kernel_calls": {k: v["calls"] for k, v in
+                               c["by_kernel"].items()},
+              "compute_s": r["compute_s"], "memory_s": r["memory_s"],
+              "collective_s": r["collective_s"], "dominant": r["dominant"],
+              "hardware": r["hardware"]})
+        require(c["flops"] > 0 and c["bytes"] > 0
+                and r["dominant"] in ("compute", "memory"),
+                f"dryrun ({arch} {shape}): empty count {r}")
+        require(arch == "internlm2-1.8b" or c["by_kernel"],
+                f"dryrun ({arch} {shape}): no kernel charged")
+
+
+def _tensors(tree) -> list:
+    from repro_torch.models.common import tree_leaves
+    import torch
+    return [t for t in tree_leaves(tree) if isinstance(t, torch.Tensor)]
+
+
+def _dryrun_card(tag: str, cfg, kind: str, batch: int, seq: int, smi: str,
+                 kernels, params=None) -> dict:
+    """One step traced on meta, then run on the card under the same
+    OpCounter (outside any timed window), then timed: equal FLOPs, bytes
+    and kernel charges; the predicted argument bytes (the meta arguments
+    under their specs on a one-device mesh) equal to the card tensors'
+    nbytes; the counted run's launches equal to the kernel charges; the
+    roofline bound max(FLOPs / the dtype's peak, bytes / HBM) over the
+    median CUDA-event time of DRYRUN_REPS steps (the share) at most
+    SHARE_MAX. Returns the launches of the card part."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import roofline as rl
+    from repro_torch.launch.mesh import MeshShape
+    from repro_torch.launch.sharding import activation_rules, profile_for
+    t0 = time.perf_counter()
+    meta_case = dryrun.make_case(cfg, kind, batch, seq, device="meta")
+    meta_c, meta_out = dryrun.trace(meta_case)
+    trace_s = time.perf_counter() - t0
+    prof = profile_for(cfg, train=kind == "train")
+    arg_specs, _ = dryrun.case_specs(cfg, meta_case, meta_out, prof,
+                                     activation_rules(prof, cfg, 1))
+    one = MeshShape((1, 1), ("data", "model"))
+    predicted = dryrun.memory_per_device(meta_case.args, arg_specs, one)
+    del meta_case, meta_out
+    _fresh_card()
+    alloc0 = torch.cuda.memory_allocated()
+    case = dryrun.make_case(cfg, kind, batch, seq, device="cuda",
+                            params=params)
+    torch.cuda.synchronize()
+    alloc_delta = torch.cuda.memory_allocated() - alloc0
+    real = {k: sum(t.numel() * t.element_size() for t in _tensors(v))
+            for k, v in case.args.items() if k in predicted}
+    ops.reset_launch_counts()                  # the counted step
+    card_c, _ = dryrun.trace(case)
+    torch.cuda.synchronize()
+    counted = ops.launch_counts()
+    meta_d, card_d = meta_c.as_dict(), card_c.as_dict()
+    op_diff = {k: [meta_d["by_op"].get(k), card_d["by_op"].get(k)]
+               for k in set(meta_d["by_op"]) | set(card_d["by_op"])
+               if meta_d["by_op"].get(k) != card_d["by_op"].get(k)}
+
+    def step():
+        case.fn(case.args)
+
+    ev_ms = time_ms(step, reps=DRYRUN_REPS)
+    walls = []
+    for _ in range(DRYRUN_REPS):
+        torch.cuda.synchronize()
+        w0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - w0) * 1e3)
+    busy = device_us(step, n=3)
+    launches = ops.launch_counts()             # ... and ends here
+    dtype = str(cfg.dtype)
+    compute_ms = meta_c.flops / rl.H100.peak(dtype) * 1e3
+    memory_ms = meta_c.bytes / rl.H100.hbm_bytes_per_s * 1e3
+    bound_ms = max(compute_ms, memory_ms)
+    busy_ms = None if busy["device_us"] is None else busy["device_us"] / 1e3
+    row = {"phase": "dryrun", "case": tag, "arch": cfg.arch_id,
+           "layers": cfg.num_layers, "kind": kind, "batch": batch,
+           "seq": seq, "dtype": dtype, "meta_trace_s": trace_s,
+           "flops": {"meta": meta_d["flops"], "card": card_d["flops"]},
+           "bytes": {"meta": meta_d["bytes"], "card": card_d["bytes"]},
+           "kernel_charges": {"meta": meta_d["by_kernel"],
+                              "card": card_d["by_kernel"]},
+           "by_op_differences": op_diff,
+           "argument_bytes": {"predicted": predicted, "real": real},
+           "memory_allocated_delta_bytes": alloc_delta,
+           "params_made_before_phase": params is not None,
+           "launches_counted_step": counted,
+           "event_ms_median": ev_ms, "wall_ms_median":
+               statistics.median(walls), "wall_ms": walls,
+           "device_busy_ms": busy_ms,
+           "device_ops_per_step": busy["device_ops_per_call"],
+           "compute_ms": compute_ms, "memory_ms": memory_ms,
+           "bound_ms": bound_ms,
+           "bound_by": "operations" if compute_ms >= memory_ms else "bytes",
+           "share": bound_ms / ev_ms,
+           "share_of_busy": None if not busy_ms else bound_ms / busy_ms,
+           "hardware": rl.H100.name, "nvidia_smi": smi}
+    emit(row)
+    require(meta_d["flops"] == card_d["flops"]
+            and meta_d["bytes"] == card_d["bytes"]
+            and meta_d["by_kernel"] == card_d["by_kernel"],
+            f"dryrun ({tag}): meta and card counts differ: {op_diff}")
+    require(predicted == real,
+            f"dryrun ({tag}): argument bytes {predicted} != {real}")
+    require(all(counted[k] == card_d["by_kernel"].get(k, {}).get("calls", 0)
+                for k in counted) and all(counted[k] > 0 for k in kernels),
+            f"dryrun ({tag}): launches {counted} against the charges "
+            f"{card_d['by_kernel']}")
+    require(row["share"] <= SHARE_MAX,
+            f"dryrun ({tag}): share {row['share']} above {SHARE_MAX}")
+    return launches
+
+
+def phase_dryrun_mixtral(params, cfg, smi: str) -> dict:
+    """(a) Mixtral-8x7B at the mixtral phase's configuration and weights (4
+    layers, f32, batch 4): one decode step on the capacity branch (T * K =
+    8 = E: expert_ffn streams every expert; route once per layer)."""
+    return _dryrun_card("mixtral_capacity_decode", cfg, "decode", 4, 16,
+                        smi, ("route", "expert_ffn"), params=params)
+
+
+def phase_dryrun_train(smi: str) -> dict:
+    """(b) DeepSeek-V2-Lite at full width, 4 layers, f32: one train step at
+    batch 4 x 512 (moe_train's), lm_loss forward and backward with remat,
+    then AdamW; topk_gate and expert_ffn twice per layer (the forward and
+    remat's recompute)."""
+    from repro_torch.launch import train as launch
+    cfg = launch.build_config(launch.parse_args(MOE_TRAIN_FLAGS))
+    return _dryrun_card("deepseek_train_step", cfg, "train", TRAIN_ROWS,
+                        TRAIN_SEQ, smi, ("topk_gate", "expert_ffn"))
+
+
+# ---------------------------------------------------------------------------
 KERNELS = (  # name, source, TPU kernel it replaces (file:line of pallas_call)
     ("topk_gate", "src/repro_torch/csrc/topk_gate.cu",
      "src/repro/kernels/topk_gate.py:75"),
@@ -3248,9 +3430,10 @@ def main() -> int:
     del params
     mix, params, cfg = timed("mixtral", phase_mixtral)
     sims = timed("similarity", phase_similarity, params, cfg)
+    dry_mix = timed("dryrun_mixtral", phase_dryrun_mixtral, params, cfg, smi)
     del params
     counts = {k: counts[k] + cont[k] + paged[k] + tele[k] + mesh[k]
-              + place[k] + mix[k] + sims[k] for k in counts}
+              + place[k] + mix[k] + sims[k] + dry_mix[k] for k in counts}
     timed("train_parity", phase_train_parity)
     timed("train_parity_smollm", phase_train_parity, "smollm-360m")
     counts["wkv_chunk"], params, cfg = timed(
@@ -3263,6 +3446,9 @@ def main() -> int:
     moe = timed("moe_train", phase_moe_train)
     for k in ("topk_gate", "expert_ffn"):
         counts[k] += moe[k]
+    timed("dryrun_meta", phase_dryrun_meta)
+    dry_train = timed("dryrun_train", phase_dryrun_train, smi)
+    counts = {k: counts[k] + dry_train[k] for k in counts}
     # the hybrid, VLM and audio families: no kernel of this repo
     family_phases = (("families_parity", phase_families_parity),
                      ("hybrid", phase_hybrid), ("vlm", phase_vlm),

@@ -119,3 +119,10 @@ def stream_ptr(device) -> int:
 
 def ptr(t) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
+
+
+def nbytes(*tensors) -> int:
+    """Bytes of the tensors (None skipped), from their shapes and dtypes
+    only: what a kernel's cost function charges for moving each once."""
+    return sum(t.numel() * t.element_size() for t in tensors
+               if t is not None)

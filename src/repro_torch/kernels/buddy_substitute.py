@@ -52,6 +52,14 @@ def buddy_substitute_plain(s, gate, resident, table, q, *, h: int = 8,
     return new.to(torch.int32), sub, miss
 
 
+def buddy_substitute_cost(s, gate, resident, table, q, *, h: int = 8,
+                          rho: int = 3) -> tuple:
+    """(flops, bytes) of one call, from shapes only: no products; the five
+    operands read once, s' [T, K] int32 and the two [T, K] masks written
+    once."""
+    return 0, _build.nbytes(s, gate, resident, table, q, s) + 2 * s.numel()
+
+
 def _lib():
     lib = _build.load("buddy_substitute")
     fn = lib.buddy_substitute_launch

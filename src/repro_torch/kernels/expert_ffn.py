@@ -77,6 +77,22 @@ def expert_ffn_plain(x, w1, w3, w2):
     return torch.matmul(hg.float(), w2.float()).to(x.dtype)
 
 
+def ffn_flops(groups: int, c_n: int, d_n: int, f_n: int) -> int:
+    """Products of a SwiGLU over ``groups`` [C, D] row blocks of hidden
+    width F, in the dot convention (2 x result elements x contracted size):
+    x @ w1 and x @ w3 ([C, F], over D), then h @ w2 ([C, D], over F)."""
+    return 3 * 2 * groups * c_n * d_n * f_n
+
+
+def expert_ffn_cost(x, w1, w3, w2) -> tuple:
+    """(flops, bytes) of one call, from shapes only: every row of the
+    [E, C, D] buffer through every expert's SwiGLU (the kernel has no row
+    counts); x and the three weights read once, out written once."""
+    e_n, c_n, d_n = x.shape
+    return (ffn_flops(e_n, c_n, d_n, w1.shape[-1]),
+            _build.nbytes(x, w1, w3, w2, x))
+
+
 def expert_ffn_backward(x, w1, w3, w2, dy, need=(True,) * 4):
     """Gradients (dx, dw1, dw3, dw2) of expert_ffn(x, w1, w3, w2) given dy,
     in the inputs' dtypes; ``need`` flags which to form (None otherwise).

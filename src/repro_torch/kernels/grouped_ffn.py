@@ -22,8 +22,8 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.expert_ffn import (DTYPE_CODES, check_counts,
                                             check_ffn_operands,
-                                            expert_ffn_plain, launch_plan,
-                                            plan_args)
+                                            expert_ffn_plain, ffn_flops,
+                                            launch_plan, plan_args)
 from repro_torch.kernels.quant_ffn import (check_quant, dequant_swiglu,
                                            mask_unfilled)
 
@@ -42,6 +42,20 @@ def grouped_ffn_plain(x, w1, w3, w2, quant=None, counts=None):
     else:
         deg = dequant_swiglu(x[e_n:], *quant)
     return torch.cat([full, deg], 0).to(x.dtype)
+
+
+def grouped_ffn_cost(x, w1, w3, w2, quant=None, counts=None) -> tuple:
+    """(flops, bytes) of one call, from shapes only (``counts`` is never
+    read: that would wait for the card): the whole [2E, C, D] buffer, the
+    full-precision half through every expert's weights and, with
+    ``quant``, the degraded half through every replica, as the reference's
+    dense path computes them; x, the weights, the replicas and counts read
+    once, out written once. The kernel skips unfilled rows and empty
+    groups, so on a sparse step this is above the work done."""
+    e_n, (_, c_n, d_n), f_n = w1.shape[0], x.shape, w1.shape[-1]
+    groups = e_n if quant is None else 2 * e_n
+    return (ffn_flops(groups, c_n, d_n, f_n),
+            _build.nbytes(x, w1, w3, w2, *(quant or ()), counts, x))
 
 
 def _lib():

@@ -1,7 +1,16 @@
 """Device dispatcher for the kernels: the hand-written CUDA kernel for a
-tensor on a CUDA device, the plain PyTorch version for a tensor on the CPU,
-and an error for anything else. There is no fallback between the two: a
-CUDA tensor launches its kernel or raises.
+tensor on a CUDA device, the plain PyTorch version for a tensor on the CPU
+or the meta device, and an error for anything else. There is no fallback
+between the two: a CUDA tensor launches its kernel or raises. A meta
+tensor holds no values, so there the plain version runs for its output
+shapes only (the launch tooling's dry run traces steps on meta).
+
+While an op counter is active (``launch.roofline.OpCounter``, held in
+``_METER``), every call here is charged to it as one unit by the
+kernel's cost function (``<kernel>_cost`` beside each kernel: flops and
+bytes from the call's shapes and dtypes), and the ops inside the call, the
+plain version's or the launch's, are not counted. The same call is charged
+the same on every device.
 
 ``topk_gate``, ``expert_ffn`` and ``wkv_chunk`` are differentiable: the
 forward is the kernel or the plain version, the backward torch ops on
@@ -13,18 +22,22 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.buddy_substitute import (buddy_substitute_cuda,
+from repro_torch.kernels.buddy_substitute import (buddy_substitute_cost,
+                                                  buddy_substitute_cuda,
                                                   buddy_substitute_plain)
-from repro_torch.kernels.expert_ffn import (ExpertFFN, expert_ffn_cuda,
+from repro_torch.kernels.expert_ffn import (ExpertFFN, expert_ffn_cost,
+                                            expert_ffn_cuda,
                                             expert_ffn_plain)
-from repro_torch.kernels.grouped_ffn import (grouped_ffn_cuda,
+from repro_torch.kernels.grouped_ffn import (grouped_ffn_cost,
+                                             grouped_ffn_cuda,
                                              grouped_ffn_plain)
-from repro_torch.kernels.quant_ffn import quant_ffn_cuda, quant_ffn_plain
-from repro_torch.kernels.route import route_cuda, route_plain
-from repro_torch.kernels.topk_gate import (TopkGate, topk_gate_cuda,
-                                           topk_gate_plain)
-from repro_torch.kernels.wkv_chunk import (WKVChunk, wkv_chunk_cuda,
-                                           wkv_chunk_plain)
+from repro_torch.kernels.quant_ffn import (quant_ffn_cost, quant_ffn_cuda,
+                                           quant_ffn_plain)
+from repro_torch.kernels.route import route_cost, route_cuda, route_plain
+from repro_torch.kernels.topk_gate import (TopkGate, topk_gate_cost,
+                                           topk_gate_cuda, topk_gate_plain)
+from repro_torch.kernels.wkv_chunk import (WKVChunk, wkv_chunk_cost,
+                                           wkv_chunk_cuda, wkv_chunk_plain)
 
 _CUDA = {"topk_gate": topk_gate_cuda,
          "buddy_substitute": buddy_substitute_cuda,
@@ -35,10 +48,27 @@ _CUDA = {"topk_gate": topk_gate_cuda,
          "route": route_cuda}
 
 
+_METER = None          # the active op counter (launch.roofline.OpCounter)
+
+
+def _metered(name: str, cost, fn):
+    """``fn``, or while a meter is active, ``fn`` charged to it as one unit
+    of ``cost(*args)``: ``_METER.kernel(name, flops, bytes)`` is a context
+    manager around the call."""
+    meter = _METER
+    if meter is None:
+        return fn
+
+    def call(*args, **kw):
+        with meter.kernel(name, *cost(*args, **kw)):
+            return fn(*args, **kw)
+    return call
+
+
 def _on_cuda(t: torch.Tensor, name: str) -> bool:
     if t.device.type == "cuda":
         return True
-    if t.device.type == "cpu":
+    if t.device.type in ("cpu", "meta"):
         return False
     raise RuntimeError(f"{name}: no kernel for device {t.device}")
 
@@ -57,15 +87,16 @@ def topk_gate(logits, tau, *, k: int):
     """Differentiable in logits through vals and probs."""
     fwd = topk_gate_cuda if _on_cuda(logits, "topk_gate") \
         else topk_gate_plain
-    return TopkGate.apply(fwd, logits, tau, k)
+    return TopkGate.apply(_metered("topk_gate", topk_gate_cost, fwd),
+                          logits, tau, k)
 
 
 def buddy_substitute(s, gate, resident, table, q, *, h: int = 8,
                      rho: int = 3):
-    if _on_cuda(s, "buddy_substitute"):
-        return buddy_substitute_cuda(s, gate, resident, table, q, h=h,
-                                     rho=rho)
-    return buddy_substitute_plain(s, gate, resident, table, q, h=h, rho=rho)
+    fn = buddy_substitute_cuda if _on_cuda(s, "buddy_substitute") \
+        else buddy_substitute_plain
+    return _metered("buddy_substitute", buddy_substitute_cost, fn)(
+        s, gate, resident, table, q, h=h, rho=rho)
 
 
 def route(logits, tau, beta, resident, table, q, *, k: int, **policy):
@@ -77,34 +108,41 @@ def route(logits, tau, beta, resident, table, q, *, k: int, **policy):
     if _on_cuda(logits, "route"):
         _no_grad_needed("route", logits, q, *policy.values())
         fn = route_cuda
-    return fn(logits, tau, beta, resident, table, q, k=k, **policy)
+    return _metered("route", route_cost, fn)(logits, tau, beta, resident,
+                                             table, q, k=k, **policy)
 
 
 def expert_ffn(x, w1, w3, w2):
     """Differentiable in x and the three weights."""
     fwd = expert_ffn_cuda if _on_cuda(x, "expert_ffn") else expert_ffn_plain
-    return ExpertFFN.apply(fwd, x, w1, w3, w2)
+    return ExpertFFN.apply(_metered("expert_ffn", expert_ffn_cost, fwd), x,
+                           w1, w3, w2)
 
 
 def grouped_ffn(x, w1, w3, w2, quant=None, counts=None):
+    fn = grouped_ffn_plain
     if _on_cuda(x, "grouped_ffn"):
         _no_grad_needed("grouped_ffn", x, w1, w3, w2, *(quant or ()))
-        return grouped_ffn_cuda(x, w1, w3, w2, quant, counts)
-    return grouped_ffn_plain(x, w1, w3, w2, quant, counts)
+        fn = grouped_ffn_cuda
+    return _metered("grouped_ffn", grouped_ffn_cost, fn)(x, w1, w3, w2,
+                                                         quant, counts)
 
 
 def quant_ffn(x, w1_q, w1_s, w3_q, w3_s, w2_q, w2_s, counts=None):
+    fn = quant_ffn_plain
     if _on_cuda(x, "quant_ffn"):
         _no_grad_needed("quant_ffn", x, w1_s, w3_s, w2_s)
-        return quant_ffn_cuda(x, w1_q, w1_s, w3_q, w3_s, w2_q, w2_s, counts)
-    return quant_ffn_plain(x, w1_q, w1_s, w3_q, w3_s, w2_q, w2_s, counts)
+        fn = quant_ffn_cuda
+    return _metered("quant_ffn", quant_ffn_cost, fn)(
+        x, w1_q, w1_s, w3_q, w3_s, w2_q, w2_s, counts)
 
 
 def wkv_chunk(rt, kt, v, ke, lae, dg, s0):
     """Differentiable: the forward is the kernel or the plain version, the
     backward the chunked gradient in torch ops on either device."""
     fwd = wkv_chunk_cuda if _on_cuda(rt, "wkv_chunk") else wkv_chunk_plain
-    return WKVChunk.apply(fwd, rt, kt, v, ke, lae, dg, s0)
+    return WKVChunk.apply(_metered("wkv_chunk", wkv_chunk_cost, fwd), rt, kt,
+                          v, ke, lae, dg, s0)
 
 
 def launch_counts() -> dict:

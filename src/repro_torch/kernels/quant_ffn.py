@@ -25,7 +25,8 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.expert_ffn import (DTYPE_CODES, check_counts,
-                                            launch_plan, plan_args)
+                                            ffn_flops, launch_plan,
+                                            plan_args)
 
 QUANT_NAMES = ("w1_q", "w1_s", "w3_q", "w3_s", "w2_q", "w2_s")
 
@@ -60,6 +61,18 @@ def quant_ffn_plain(x, w1_q, w1_s, w3_q, w3_s, w2_q, w2_s, counts=None):
     [E, C, D] in x.dtype."""
     return dequant_swiglu(mask_unfilled(x, counts), w1_q, w1_s, w3_q, w3_s,
                           w2_q, w2_s).to(x.dtype)
+
+
+def quant_ffn_cost(x, w1_q, w1_s, w3_q, w3_s, w2_q, w2_s,
+                   counts=None) -> tuple:
+    """(flops, bytes) of one call, from shapes only (``counts`` never
+    read): every row of the [E, C, D] buffer through every replica, as the
+    reference's dense path computes them; x, the replica sextuple and
+    counts read once, out written once. Above the work done on a step
+    whose counts leave rows or experts empty."""
+    e_n, c_n, d_n = x.shape
+    return (ffn_flops(e_n, c_n, d_n, w1_q.shape[-1]),
+            _build.nbytes(x, w1_q, w1_s, w3_q, w3_s, w2_q, w2_s, counts, x))
 
 
 def _lib():

@@ -101,6 +101,18 @@ def route_plain(logits, tau: float, beta: float, resident, table, q, *,
                  res.dropped)
 
 
+def route_cost(logits, tau=None, beta=None, resident=None, table=None,
+               q=None, *, k: int, **policy) -> tuple:
+    """(flops, bytes) of one call, from shapes only: no products (a routing
+    kernel); logits, the tables and every policy vector given read once;
+    the [T, K] idx, new_idx, topk_logits and probs (4 bytes each) and five
+    masks, tae [T] f32, allow [T] and dist_ok written once."""
+    t_n = logits.shape[0]
+    vectors = [v for v in policy.values() if isinstance(v, torch.Tensor)]
+    return 0, (_build.nbytes(logits, resident, table, q, *vectors)
+               + 21 * t_n * k + 5 * t_n + 1)
+
+
 def _pad16(n: int) -> int:
     return -(-n // 16) * 16
 

@@ -41,6 +41,14 @@ def topk_gate_plain(logits: torch.Tensor, tau: float, *, k: int):
     return idx.to(torch.int32), vals, p, tae, tae > tau
 
 
+def topk_gate_cost(logits, tau=None, *, k: int) -> tuple:
+    """(flops, bytes) of one call, from shapes only: no products (a
+    routing kernel); logits read once, idx / vals / probs [T, K] (4 bytes
+    each), tae [T] f32 and allow [T] bool written once."""
+    t_n = logits.shape[0]
+    return 0, _build.nbytes(logits) + 12 * t_n * k + 5 * t_n
+
+
 def topk_gate_backward(idx, probs, e_n: int, g_vals, g_probs):
     """d logits [T, E] of (vals, probs) = topk_gate(logits) given their
     incoming gradients (either may be None): the reference's gradient of

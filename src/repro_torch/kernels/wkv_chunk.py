@@ -47,6 +47,16 @@ def wkv_chunk_plain(rt, kt, v, ke, lae, dg, s0):
     return torch.stack(outs, 1), s
 
 
+def wkv_chunk_cost(rt, kt, v, ke, lae, dg, s0) -> tuple:
+    """(flops, bytes) of one call, from shapes only. Per lane and chunk,
+    four products: r~ k~^T and its [C, C] @ v (2 C^2 D each), r~ S and
+    k_end^T v (2 C D^2 each); the seven operands read once, o and s_final
+    written once."""
+    bh, n, c, d = rt.shape
+    return (4 * bh * n * c * d * (c + d),
+            _build.nbytes(rt, kt, v, ke, lae, dg, s0, rt, s0))
+
+
 def wkv_chunk_backward(rt, kt, v, ke, lae, dg, s0, do, ds_fin):
     """Gradients of (o, s_final) = wkv_chunk(rt, kt, v, ke, lae, dg, s0)
     with respect to its seven inputs, given do and ds_fin."""

@@ -36,6 +36,15 @@ def shard(x: torch.Tensor, *names: Optional[str]) -> torch.Tensor:
     return x
 
 
+def one_hot(idx: torch.Tensor, n: int) -> torch.Tensor:
+    """``F.one_hot(idx, n)`` (int64), for idx in [0, n), as one comparison
+    against ``arange(n)``: the same ops on every device (``F.one_hot``
+    checks the values on the CPU and scatters on the CPU and CUDA, but
+    compares on the meta device), so an op count of a step is the same
+    wherever it runs."""
+    return (idx[..., None] == torch.arange(n, device=idx.device)).long()
+
+
 # ---------------------------------------------------------------------------
 # Parameter trees (nested dicts / tuples / lists of tensors)
 # ---------------------------------------------------------------------------

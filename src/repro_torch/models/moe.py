@@ -29,7 +29,7 @@ from repro_torch.configs.base import MoEConfig
 from repro_torch.core.policy import BuddyPolicy
 from repro_torch.kernels import ops
 from repro_torch.kernels.quant_ffn import quant_operands
-from repro_torch.models.common import dense_init, normal, swiglu
+from repro_torch.models.common import dense_init, normal, one_hot, swiglu
 
 
 class BuddyState(NamedTuple):
@@ -124,7 +124,7 @@ def _bin_slots(grp, n_groups: int, cap: int):
     never binned) into an [n_groups, cap] grid in slot order. Returns (flat
     [N] row of the grid or n_groups*cap for the sink, kept [N], counts
     [n_groups] int32 filled rows, n_capacity_dropped [] int32)."""
-    onehot = F.one_hot(grp, n_groups + 1)[:, :n_groups]      # [N, G]
+    onehot = one_hot(grp, n_groups + 1)[:, :n_groups]      # [N, G]
     pos = (onehot.cumsum(0) * onehot).sum(-1) - 1
     kept = (pos >= 0) & (pos < cap)
     n_cap_dropped = (pos >= cap).sum().to(torch.int32)
@@ -192,7 +192,7 @@ def _degraded_outputs(params: dict, x_flat, e_flat, deg_flat):
 def _load_balance(logits, new_idx, e_n: int):
     t_n, k_n = new_idx.shape
     p_mean = torch.softmax(logits, dim=-1).mean(0)
-    onehot = F.one_hot(new_idx.reshape(-1).long(), e_n).float()
+    onehot = one_hot(new_idx.reshape(-1).long(), e_n).float()
     f_frac = onehot.reshape(t_n, k_n, e_n).sum(1).mean(0)
     return e_n * (f_frac * p_mean).sum()
 
@@ -287,7 +287,7 @@ def moe_forward(params: dict, x: torch.Tensor, cfg: MoEConfig, *,
         rows = x.shape[0] if x.ndim == 3 else 1
         s_n = t_n // rows
         row_e = new_idx.reshape(rows, s_n * k_n).long()
-        onehot = F.one_hot(row_e, e_n)                           # [B, S*K, E]
+        onehot = one_hot(row_e, e_n)                             # [B, S*K, E]
         pos = (onehot.cumsum(1) * onehot).sum(-1) - 1
         cap = s_n * k_n if dropless \
             else _capacity(s_n, k_n, e_n, capacity_factor)
@@ -310,10 +310,6 @@ def moe_forward(params: dict, x: torch.Tensor, cfg: MoEConfig, *,
                              y_deg.reshape(t_n, k_n, d), yk)
 
     y = (yk * weights[..., None].to(x.dtype)).sum(1)
-    if cfg.num_shared_experts and "shared" in params:
-        sh = params["shared"]
-        y = y + swiglu(x_flat, sh["w1"], sh["w3"], sh["w2"])
-
     miss_per_expert = torch.zeros(e_n, dtype=torch.int32, device=dev) \
         .index_add_(0, idx.reshape(-1).long(),
                     missed.reshape(-1).to(torch.int32))
@@ -321,4 +317,11 @@ def moe_forward(params: dict, x: torch.Tensor, cfg: MoEConfig, *,
                  substituted.sum(), missed.sum(), n_dropped, miss_per_expert,
                  substituted, missed, degraded.sum(), degraded,
                  dropped.sum(), dropped, peered.sum(), peered)
+    # The shared expert last: remat's recompute stops once every tensor
+    # the forward saved is back, and the down product's saved inputs are
+    # back before it runs, so the recompute skips that product, as XLA
+    # drops it from the reference's recompute as dead code.
+    if cfg.num_shared_experts and "shared" in params:
+        sh = params["shared"]
+        y = y + swiglu(x_flat, sh["w1"], sh["w3"], sh["w2"])
     return y.reshape(orig_shape), aux

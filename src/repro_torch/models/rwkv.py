@@ -56,6 +56,13 @@ def _token_shift(x, x_prev):
     return torch.cat([x_prev, x[:, :-1]], dim=1)
 
 
+def _mm(a, w):
+    """a @ w in the wider of the two dtypes, as jnp promotes: a bf16
+    config's f32 token mixes times its bf16 weights multiply in f32."""
+    t = torch.promote_types(a.dtype, w.dtype)
+    return torch.matmul(a.to(t), w.to(t))
+
+
 def _time_mix_projections(params, x, x_shift, num_heads, head_dim):
     mu = params["mu"]
 
@@ -63,11 +70,11 @@ def _time_mix_projections(params, x, x_shift, num_heads, head_dim):
         return x * mu[i] + x_shift * (1.0 - mu[i])
 
     b, s, _ = x.shape
-    r = (mix(0) @ params["wr"]).reshape(b, s, num_heads, head_dim)
-    k = (mix(1) @ params["wk"]).reshape(b, s, num_heads, head_dim)
-    v = (mix(2) @ params["wv"]).reshape(b, s, num_heads, head_dim)
-    g = (mix(3) @ params["wg"]).reshape(b, s, num_heads, head_dim)
-    w_raw = (mix(4) @ params["ww"]).float() + params["w_bias"]
+    r = _mm(mix(0), params["wr"]).reshape(b, s, num_heads, head_dim)
+    k = _mm(mix(1), params["wk"]).reshape(b, s, num_heads, head_dim)
+    v = _mm(mix(2), params["wv"]).reshape(b, s, num_heads, head_dim)
+    g = _mm(mix(3), params["wg"]).reshape(b, s, num_heads, head_dim)
+    w_raw = _mm(mix(4), params["ww"]).float() + params["w_bias"]
     # data-dependent decay in (0, 1): exp(-softplus(.)), bounded and stable
     w = torch.exp(-F.softplus(w_raw)).reshape(b, s, num_heads, head_dim)
     return r, k, v, g, w
@@ -175,9 +182,9 @@ def rwkv_channel_mix(params, x, x_prev):
     x_shift = _token_shift(x, x_prev)
     xk = x * mu[0] + x_shift * (1.0 - mu[0])
     xr = x * mu[1] + x_shift * (1.0 - mu[1])
-    k = torch.square(torch.relu(xk @ params["ck"]))
+    k = torch.square(torch.relu(_mm(xk, params["ck"])))
     k = shard(k, "batch", None, "dff")
-    y = torch.sigmoid(xr @ params["cr"]) * (k @ params["cv"])
+    y = torch.sigmoid(_mm(xr, params["cr"])) * _mm(k, params["cv"])
     return y.to(x.dtype), x[:, -1:]
 
 

@@ -165,9 +165,12 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     made on ``device``. Layers are written straight into their stacked
     [L, ...] (a super-block's [R, n, ...]) tensors, so the peak is the
     model plus one layer. ``cond_proj`` [cond_dim, D] where the config has
-    conditioning tokens; the hybrid's one ``shared_attn`` block."""
+    conditioning tokens; the hybrid's one ``shared_attn`` block. On the
+    meta device (shapes and dtypes only, no memory) the default generator
+    is a CPU one, since there is no generator on meta; it draws nothing."""
     dev = resolve_device(device)
-    gen = generator or torch.Generator(device=dev).manual_seed(0)
+    gen = generator or torch.Generator(
+        device="cpu" if dev.type == "meta" else dev).manual_seed(0)
     dtype = torch_dtype(cfg.dtype)
     params: dict = {"embed": embed_init(gen, cfg.vocab_size, cfg.d_model,
                                         dtype, dev)}
@@ -412,6 +415,18 @@ def _run_group(kind: str, gparams, x, gcache, ctx: StepCtx, gbuddy=None,
 # ===========================================================================
 # Caches
 # ===========================================================================
+def effective_window(cfg: ModelConfig, seq_len: int,
+                     long_context: bool = False) -> int:
+    """Attention window for decode: the config's sliding window if it has
+    one; long-context decode on a full-attention arch falls back to an
+    8,192-token window (the reference's rule); else 0, full attention."""
+    if cfg.sliding_window:
+        return cfg.sliding_window
+    if long_context:
+        return 8192
+    return 0
+
+
 def _kv_capacity(cfg: ModelConfig, seq_len: int, window: int) -> int:
     total = seq_len + cfg.num_cond_tokens
     return min(total, window) if window else total

@@ -1361,3 +1361,28 @@ def test_family_on_card_matches_cpu(dev, arch):
     assert abs(lg - lc) <= 1e-5 * abs(lc)
     for a, b in zip(tree_leaves(gc), tree_leaves(gg)):
         assert float((b.cpu() - a).abs().max()) <= 1e-4 * float(a.abs().max())
+
+
+@pytest.mark.parametrize("arch,kind,b,s", [
+    ("deepseek-v2-lite-buddy", "decode", 4, 16),
+    ("mixtral-8x7b", "decode", 4, 16),
+    ("deepseek-v2-lite-buddy", "train", 2, 32)])
+def test_meta_counts_equal_card_counts(dev, arch, kind, b, s):
+    """The launch tooling's op counter on a reduced MoE step traced on the
+    meta device and run on the card: equal FLOPs, bytes, per-op tallies
+    and kernel charges (each kernel charged by its cost function, whether
+    its plain version or its launch ran), and the card's launches in the
+    counted step equal to the charges."""
+    from repro_torch.configs.base import get_reduced
+    from repro_torch.launch import dryrun
+    cfg = get_reduced(arch)
+    meta = dryrun.trace(dryrun.make_case(cfg, kind, b, s))[0].as_dict()
+    case = dryrun.make_case(cfg, kind, b, s, device=dev)
+    ops.reset_launch_counts()
+    card = dryrun.trace(case)[0].as_dict()
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    assert meta == card
+    assert card["by_kernel"]
+    for name, n in launches.items():
+        assert n == card["by_kernel"].get(name, {}).get("calls", 0), name

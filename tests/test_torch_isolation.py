@@ -32,7 +32,9 @@ NEW = ("repro_torch.core.quantize", "repro_torch.runtime.tiers",
        "repro_torch.configs.internlm2_1p8b",
        "repro_torch.configs.internlm2_20b",
        "repro_torch.configs.phi3_medium_14b",
-       "repro_torch.configs.smollm_360m")
+       "repro_torch.configs.smollm_360m", "repro_torch.launch.mesh",
+       "repro_torch.launch.sharding", "repro_torch.launch.roofline",
+       "repro_torch.launch.dryrun")
 names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                 "repro_torch.")]
 for n in names:

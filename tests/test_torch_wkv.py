@@ -8,7 +8,10 @@ Tolerances: rtol/atol 3e-4 for the forward, as the JAX package holds its
 kernel to its oracle (f32 sums over C and D in another order, carried over
 N chunks of state); 1e-4 relative to the largest gradient for the backward
 (the chunked gradient sums in another order than JAX's reverse scan)."""
+import types
+
 import numpy as np
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -57,8 +60,15 @@ def test_dispatch_runs_the_plain_version_on_the_cpu():
     assert wkv_chunk_cuda.launches == before
     with pytest.raises(ValueError, match="rt on cpu"):
         wkv_chunk_cuda(*args)
-    with pytest.raises(RuntimeError, match="no kernel for device meta"):
-        ops.wkv_chunk(*[a.to("meta") for a in args])
+    # meta: the plain version for its output shapes only (the dry run)
+    o_m, s_m = ops.wkv_chunk(*[a.to("meta") for a in args])
+    assert (o_m.device.type, o_m.shape, s_m.shape) == ("meta", o.shape,
+                                                       s.shape)
+    assert wkv_chunk_cuda.launches == before
+    # any other device has no kernel
+    other = types.SimpleNamespace(device=torch.device("xpu"))
+    with pytest.raises(RuntimeError, match="no kernel for device xpu"):
+        ops.wkv_chunk(other, *args[1:])
 
 
 def test_gradcheck_float64():
