@@ -209,7 +209,35 @@ committed fixture under ``results/bench``). Phases, one JSON line each:
            CUDA events (and the wall), the profiler's device-busy time,
            the roofline bound max(FLOPs / the dtype's peak, bytes / HBM)
            and the share bound / event time, at most SHARE_MAX, with the
-           card's name and power limit
+           card's name and power limit; (c) after long_context, the dry
+           run's long shapes for internlm2-1.8b at full width and depth,
+           batch 1: internlm2_prefill_32k (forward_train of 32,768 tokens,
+           on long_context's weights) and internlm2_train_4k (4,096
+           tokens, lm_loss with remat, then AdamW), each checked as (a)
+           and (b) but timed over LONG_REPS = 3 steps; a step whose
+           counted run took over LONG_STEP_S = 1.5 s is timed with that
+           run as its warm-up, and its wall and device-busy time are not
+           read
+  long_context  the reference's chunked attention (models/attention.py
+           _flash_attend: an online softmax over q chunks of 512 and kv
+           chunks of 1024, every full-sequence forward's attention)
+           after dryrun (b), in its own launch-count window with zero
+           launches of the seven kernels: (a) _flash_attend against the
+           whole-matrix _attend on the same card tensors (B = 1, head dim
+           128, f32): internlm2-1.8b's 16 over 8 heads, causal, S = 4,096,
+           forward and backward (each gradient within GRAD_RTOL of its
+           largest entry); Mixtral-8x7B's 32 over 8, window 4,096, S =
+           8,192 (rows from 5,119 on see no key of kv chunk 0: the -1e30
+           path); Llama-3.2-Vision's cross attention, 512 queries against
+           1,601 keys; each within FLASH_TOL, with ms, peak GB and device
+           ms by op of each form; (b) internlm2-1.8b at full width and
+           depth (24 layers, seed 0): transformer.prefill of 1 x 32,768
+           tokens (the dry run's prefill_32k at batch 1; seconds,
+           tokens/s, peak memory), its last 512 positions' logits within
+           LOGIT_TOL and LONG_TAIL_RTOL of the largest of them of the ring
+           path's on the same tokens
+           (prefill_chunk in chunks of RING_CHUNK = 2,048 into caches of
+           32,768 slots, whose attention is _attend)
 
 The hybrid, VLM and audio families run plain torch ops: each of their
 phases resets the launch counts before its path and requires that none of
@@ -249,9 +277,9 @@ the seven kernels launched; each frees its weights before the next.
            norm at every step; wall per step, the forward / backward /
            optimizer split, tokens/s, peak memory
 
-The line new_phase_seconds gives the seconds of the five family phases and
-their sum, every phase's seconds (all_phases), and main's seconds in all
-and outside the phases. The kernels line's topk_gate and expert_ffn
+The line new_phase_seconds gives the seconds of the long-context phases
+(long_context and dryrun (c)'s two cases) and their sum, every phase's
+seconds (all_phases), and main's seconds in all and outside the phases. The kernels line's topk_gate and expert_ffn
 launches include moe_train's and the dryrun phase's (which adds route's
 too).
 
@@ -326,8 +354,14 @@ def require(ok: bool, msg: str) -> None:
 def time_ms(fn, reps: int = 20, inner: int = 1) -> float:
     """Median over ``reps`` CUDA-event timings of ``inner`` back-to-back
     calls, per call, after a warm-up."""
+    return statistics.median(event_ms(fn, reps, inner))
+
+
+def event_ms(fn, reps: int, inner: int = 1, warm: int = 3) -> list:
+    """``reps`` CUDA-event timings of ``inner`` back-to-back calls, per
+    call, after ``warm`` untimed calls."""
     import torch
-    for _ in range(3):
+    for _ in range(warm):
         fn()
     torch.cuda.synchronize()
     out = []
@@ -340,7 +374,7 @@ def time_ms(fn, reps: int = 20, inner: int = 1) -> float:
         e.record()
         e.synchronize()
         out.append(s.elapsed_time(e) / inner)
-    return statistics.median(out)
+    return out
 
 
 def _self_device_us(evt) -> float:
@@ -354,7 +388,8 @@ def device_us(fn, n: int = 10, by_op: bool = False) -> dict:
     """The device's own time per call of ``fn`` and the device ops (kernels
     and copies) per call, from torch.profiler over ``n`` back-to-back
     calls: what the card spends apart from waiting for the host (with
-    ``by_op``, also per device op, by its name). Two spin
+    ``by_op``, also per device op, by the first 60 characters of its
+    name, summed over the ops that share them). Two spin
     kernels (torch.cuda._sleep) open and close the window and are left out:
     the profiler can drop a window's first or last device event. A window
     with no device event (seen once) is taken again, up to three times;
@@ -379,8 +414,11 @@ def device_us(fn, n: int = 10, by_op: bool = False) -> dict:
             out = {"device_us": sum(_self_device_us(e) for e in evts) / n,
                    "device_ops_per_call": sum(e.count for e in evts) / n}
             if by_op:
-                out["device_us_by_op"] = {e.key[:60]: _self_device_us(e) / n
-                                          for e in evts}
+                by = {}
+                for e in evts:
+                    by[e.key[:60]] = (by.get(e.key[:60], 0.0)
+                                      + _self_device_us(e) / n)
+                out["device_us_by_op"] = by
             return out
     return {"device_us": None, "device_ops_per_call": None}
 
@@ -3211,6 +3249,7 @@ DRYRUN_CASES = (("deepseek-v2-lite-buddy", "decode_32k"),
                 ("internlm2-1.8b", "prefill_32k"))
 SHARE_MAX = 1.05      # bound / device time above this: the count is wrong
 DRYRUN_REPS = 10      # timed steps (median) after the counted one
+LONG_STEP_S = 1.5     # a counted step over this: no warm-up, wall or profile
 
 
 def phase_dryrun_meta():
@@ -3249,15 +3288,20 @@ def _tensors(tree) -> list:
 
 
 def _dryrun_card(tag: str, cfg, kind: str, batch: int, seq: int, smi: str,
-                 kernels, params=None) -> dict:
+                 kernels, params=None, reps: int = DRYRUN_REPS) -> dict:
     """One step traced on meta, then run on the card under the same
     OpCounter (outside any timed window), then timed: equal FLOPs, bytes
     and kernel charges; the predicted argument bytes (the meta arguments
     under their specs on a one-device mesh) equal to the card tensors'
     nbytes; the counted run's launches equal to the kernel charges; the
     roofline bound max(FLOPs / the dtype's peak, bytes / HBM) over the
-    median CUDA-event time of DRYRUN_REPS steps (the share) at most
-    SHARE_MAX. Returns the launches of the card part."""
+    median CUDA-event time of ``reps`` steps (the share) at most
+    SHARE_MAX, then as many synchronized steps for the wall and the
+    profiler's device-busy time of three. A step whose counted run took
+    over LONG_STEP_S is a long one (a 32k-token prefill takes seconds,
+    its host issue a fraction of a percent): the counted run is its
+    warm-up, and neither its wall nor its device-busy time is read.
+    Returns the launches of the card part."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.launch import dryrun
@@ -3283,8 +3327,10 @@ def _dryrun_card(tag: str, cfg, kind: str, batch: int, seq: int, smi: str,
     real = {k: sum(t.numel() * t.element_size() for t in _tensors(v))
             for k, v in case.args.items() if k in predicted}
     ops.reset_launch_counts()                  # the counted step
+    t0 = time.perf_counter()
     card_c, _ = dryrun.trace(case)
     torch.cuda.synchronize()
+    counted_s = time.perf_counter() - t0
     counted = ops.launch_counts()
     meta_d, card_d = meta_c.as_dict(), card_c.as_dict()
     op_diff = {k: [meta_d["by_op"].get(k), card_d["by_op"].get(k)]
@@ -3294,15 +3340,18 @@ def _dryrun_card(tag: str, cfg, kind: str, batch: int, seq: int, smi: str,
     def step():
         case.fn(case.args)
 
-    ev_ms = time_ms(step, reps=DRYRUN_REPS)
-    walls = []
-    for _ in range(DRYRUN_REPS):
-        torch.cuda.synchronize()
-        w0 = time.perf_counter()
-        step()
-        torch.cuda.synchronize()
-        walls.append((time.perf_counter() - w0) * 1e3)
-    busy = device_us(step, n=3)
+    long_step = counted_s > LONG_STEP_S
+    events = event_ms(step, reps, warm=0 if long_step else 3)
+    ev_ms = statistics.median(events)
+    walls, busy = [], {"device_us": None, "device_ops_per_call": None}
+    if not long_step:
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            w0 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - w0) * 1e3)
+        busy = device_us(step, n=3)
     launches = ops.launch_counts()             # ... and ends here
     dtype = str(cfg.dtype)
     compute_ms = meta_c.flops / rl.H100.peak(dtype) * 1e3
@@ -3321,8 +3370,10 @@ def _dryrun_card(tag: str, cfg, kind: str, batch: int, seq: int, smi: str,
            "memory_allocated_delta_bytes": alloc_delta,
            "params_made_before_phase": params is not None,
            "launches_counted_step": counted,
-           "event_ms_median": ev_ms, "wall_ms_median":
-               statistics.median(walls), "wall_ms": walls,
+           "counted_step_s": counted_s, "long_step": long_step,
+           "reps": reps, "event_ms_median": ev_ms, "event_ms": events,
+           "wall_ms_median": statistics.median(walls) if walls else None,
+           "wall_ms": walls,
            "device_busy_ms": busy_ms,
            "device_ops_per_step": busy["device_ops_per_call"],
            "compute_ms": compute_ms, "memory_ms": memory_ms,
@@ -3364,6 +3415,181 @@ def phase_dryrun_train(smi: str) -> dict:
     cfg = launch.build_config(launch.parse_args(MOE_TRAIN_FLAGS))
     return _dryrun_card("deepseek_train_step", cfg, "train", TRAIN_ROWS,
                         TRAIN_SEQ, smi, ("topk_gate", "expert_ffn"))
+
+
+# ---------------------------------------------------------------------------
+# Long context: the reference's chunked attention (_flash_attend) on the card
+FLASH_TOL = 1e-5      # chunked vs whole-matrix softmax, f32, unit inputs:
+#                       the same sums, the row's max and denominator taken
+#                       per kv chunk instead of once
+LONG_ARCH = "internlm2-1.8b"
+LONG_SEQ = 32768      # the dry run's prefill_32k, at batch 1
+LONG_TAIL = 512       # last positions held against the ring path
+LONG_TAIL_RTOL = 1e-4  # ... also within this share of the tail's largest
+#                        logit (random weights keep logits near 1, so a
+#                        mask error may move them by less than LOGIT_TOL)
+RING_CHUNK = 2048     # the ring path's chunk: [1, 16, 2048, 32768] f32 scores
+LONG_REPS = 3         # timed steps of the two long dryrun cases
+TRAIN_4K = 4096       # the dry run's train_4k, at batch 1
+# name, query heads, KV heads, queries, keys, causal, window
+FLASH_CASES = (("internlm2_causal_4k", 16, 8, 4096, 4096, True, 0),
+               ("mixtral_window_8k", 32, 8, 8192, 8192, True, 4096),
+               ("vision_cross_1601", 32, 8, 512, 1601, False, 0))
+
+
+def _peak_gb(fn) -> tuple:
+    """(fn's result, the card memory it took above what was allocated
+    before it, GB)."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (torch.cuda.max_memory_allocated() - base) / 1e9
+
+
+def _flash_case(gen, name, h, kv, sq, skv, causal, window) -> dict:
+    """_flash_attend against _attend (the whole [Sq, Skv] softmax) on the
+    same card tensors, B = 1, head dim 128, f32: the max abs error, ms and
+    peak GB of each; the first case also its backward (each gradient's
+    error over its largest entry)."""
+    import torch
+    from repro_torch.models import attention as A
+    q, k, v = [torch.randn(shape, generator=gen).cuda() for shape in
+               ((1, sq, h, 128), (1, skv, kv, 128), (1, skv, kv, 128))]
+    valid = None
+    if causal:
+        qpos = torch.arange(sq, device="cuda")[:, None]
+        kpos = torch.arange(skv, device="cuda")[None, :]
+        valid = kpos <= qpos
+        if window:
+            valid = valid & (kpos > qpos - window)
+        valid = valid[None]
+
+    def flash(q=q, k=k, v=v):
+        return A._flash_attend(q, k, v, 0, causal=causal, window=window)
+
+    def whole(q=q, k=k, v=v):
+        return A._attend(q, k, v, valid)
+
+    row = {"case": name, "heads": h, "kv_heads": kv, "queries": sq,
+           "keys": skv, "causal": causal, "window": window,
+           "kv_chunks": -(-skv // min(1024, skv))}
+    if window:
+        # rows that see no key of kv chunk 0: its scores all -1e30
+        row["rows_blind_to_chunk_0"] = max(0, sq - (1024 + window - 1))
+    with torch.no_grad():
+        got, row["flash_peak_gb"] = _peak_gb(flash)
+        want, row["whole_peak_gb"] = _peak_gb(whole)
+        row["max_abs_err"] = max_err(got, want)
+        row["max_abs_out"] = float(want.abs().max())
+        row["flash_ms"] = time_ms(flash, reps=5)
+        row["whole_ms"] = time_ms(whole, reps=5)
+        for tag, fn in (("flash", flash), ("whole", whole)):
+            prof = device_us(fn, n=1, by_op=True)
+            row[f"{tag}_device_ms_by_op"] = dict(sorted(
+                ((op, us / 1e3) for op, us in
+                 (prof.get("device_us_by_op") or {}).items()),
+                key=lambda kv: -kv[1])[:6])
+    require(_finite(got) and row["max_abs_err"] <= FLASH_TOL,
+            f"long_context ({name}): flash vs whole {row['max_abs_err']}")
+    if name == FLASH_CASES[0][0]:
+        w = torch.randn(got.shape, generator=gen).cuda()
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        grads = [torch.autograd.grad((fn(*leaves) * w).sum(), leaves)
+                 for fn in (flash, whole)]
+        row["grad_rel_err"] = {n: _grad_rel(a, b) for n, a, b in
+                               zip("qkv", *grads)}
+        row["flash_fwd_bwd_ms"], row["whole_fwd_bwd_ms"] = [
+            time_ms(lambda fn=fn: torch.autograd.grad(
+                (fn(*leaves) * w).sum(), leaves), reps=5)
+            for fn in (flash, whole)]
+        require(max(row["grad_rel_err"].values()) <= GRAD_RTOL,
+                f"long_context ({name}): gradients {row['grad_rel_err']}")
+    return row
+
+
+def phase_long_context(smi: str):
+    """(a) _flash_attend against _attend at FLASH_CASES; (b) LONG_ARCH at
+    full width and depth, transformer.prefill of 1 x LONG_SEQ tokens, its
+    last LONG_TAIL logits against the ring path (prefill_chunk in chunks
+    of RING_CHUNK into caches of LONG_SEQ slots, attention through
+    _attend). The layer cases carry the check of the chunk loop (their
+    outputs are of unit scale); the tail shows that the whole depth runs
+    and fits at 32k and agrees with the ring path. No kernel of this repo
+    launches. Returns the weights for the prefill_32k dryrun case."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer
+    from repro_torch.training.data import MarkovLM
+    _fresh_card()
+    ops.reset_launch_counts()                 # the long-context path
+    gen = torch.Generator().manual_seed(0)
+    for case in FLASH_CASES:
+        emit({"phase": "long_context", "part": "layer",
+              **_flash_case(gen, *case)})
+        _fresh_card()
+    cfg, params, setup_s, n_params = _family_model(LONG_ARCH)
+    toks = torch.from_numpy(MarkovLM(cfg.vocab_size, seed=0).sample(
+        1, LONG_SEQ)).cuda()
+    with torch.no_grad():
+        torch.cuda.reset_peak_memory_stats()
+        logits, pre_s = _sync_s(lambda: transformer.prefill(params, cfg,
+                                                            toks))
+        pre_peak = torch.cuda.max_memory_allocated() / 1e9
+        finite = _finite(logits)
+        logits_gb = logits.numel() * logits.element_size() / 1e9
+        tail = logits[:, -LONG_TAIL:].clone()
+        del logits
+        _fresh_card()
+        caches = transformer.init_caches(cfg, 1, LONG_SEQ, device="cuda")
+        cache_gb = sum(t.numel() * t.element_size()
+                       for t in _tensors(caches)) / 1e9
+        ring_steps = []
+        for c0 in range(0, LONG_SEQ, RING_CHUNK):
+            (ring, _, _), sec = _sync_s(lambda: transformer.prefill_chunk(
+                params, cfg, toks[:, c0:c0 + RING_CHUNK], caches,
+                np.array([c0]), np.ones((1, RING_CHUNK), bool)))
+            ring_steps.append(sec)
+        ring_peak = torch.cuda.max_memory_allocated() / 1e9
+        err = max_err(tail, ring[:, -LONG_TAIL:])
+        del caches, ring
+    launched = _no_launches("long_context")
+    row = {"phase": "long_context", "part": "prefill", "arch": cfg.arch_id,
+           "layers": cfg.num_layers, "d_model": cfg.d_model,
+           "heads": cfg.num_heads, "kv_heads": cfg.num_kv_heads,
+           "params": n_params, "setup_s": setup_s, "batch": 1,
+           "seq": LONG_SEQ, "prefill_s": pre_s,
+           "prefill_tokens_per_s": LONG_SEQ / pre_s,
+           "prefill_peak_gb": pre_peak, "logits_gb": logits_gb,
+           "ring_chunk": RING_CHUNK, "ring_cache_gb": cache_gb,
+           "ring_s": sum(ring_steps), "ring_step_s": ring_steps,
+           "ring_peak_gb": ring_peak,
+           "tail": LONG_TAIL, "tail_max_abs_err": err,
+           "tail_max_abs_logit": float(tail.abs().max()),
+           "launches": launched, "nvidia_smi": smi}
+    emit(row)
+    require(finite, "long_context: non-finite prefill logits")
+    tol = min(LOGIT_TOL, LONG_TAIL_RTOL * row["tail_max_abs_logit"])
+    require(err <= tol, f"long_context: prefill vs ring logits {err} > {tol}")
+    return cfg, params
+
+
+def phase_dryrun_prefill_32k(cfg, params, smi: str) -> dict:
+    """(c) the dry run's long shapes on the card at batch 1, each with
+    LONG_REPS timed steps: LONG_ARCH's prefill_32k (forward_train of 1 x
+    LONG_SEQ) on the long_context phase's weights, ..."""
+    return _dryrun_card("internlm2_prefill_32k", cfg, "prefill", 1,
+                        LONG_SEQ, smi, (), params=params, reps=LONG_REPS)
+
+
+def phase_dryrun_train_4k(cfg, smi: str) -> dict:
+    """... and train_4k (1 x TRAIN_4K: lm_loss forward and backward with
+    remat, then AdamW) on weights and optimizer state of its own."""
+    return _dryrun_card("internlm2_train_4k", cfg, "train", 1, TRAIN_4K,
+                        smi, (), reps=LONG_REPS)
 
 
 # ---------------------------------------------------------------------------
@@ -3448,7 +3674,17 @@ def main() -> int:
         counts[k] += moe[k]
     timed("dryrun_meta", phase_dryrun_meta)
     dry_train = timed("dryrun_train", phase_dryrun_train, smi)
-    counts = {k: counts[k] + dry_train[k] for k in counts}
+    # long context through the reference's chunked attention: no kernel
+    # of this repo
+    long_cfg, params = timed("long_context", phase_long_context, smi)
+    dry_long = timed("dryrun_prefill_32k", phase_dryrun_prefill_32k,
+                     long_cfg, params, smi)
+    del params
+    dry_4k = timed("dryrun_train_4k", phase_dryrun_train_4k, long_cfg, smi)
+    counts = {k: counts[k] + dry_train[k] + dry_long[k] + dry_4k[k]
+              for k in counts}
+    new_s = {name: phase_s[name] for name in
+             ("long_context", "dryrun_prefill_32k", "dryrun_train_4k")}
     # the hybrid, VLM and audio families: no kernel of this repo
     family_phases = (("families_parity", phase_families_parity),
                      ("hybrid", phase_hybrid), ("vlm", phase_vlm),
@@ -3456,7 +3692,6 @@ def main() -> int:
                      ("hybrid_train", phase_hybrid_train))
     for name, fn in family_phases:
         timed(name, fn)
-    new_s = {name: phase_s[name] for name, _ in family_phases}
     total = time.perf_counter() - t_start
     emit({"phase": "new_phase_seconds", "by_phase": new_s,
           "sum": sum(new_s.values()), "all_phases": phase_s,

@@ -193,8 +193,11 @@ def make_case(cfg: ModelConfig, kind: str, batch: int, seq: int, *,
     optimizer state zero) and ``params`` default to ``init_params``'. The
     train step is the reference dry run's: ``lm_loss`` forward and
     backward with remat, then the AdamW update; prefill is
-    ``forward_train``; decode is ``decode_step`` with ``BuddyPolicy()`` and
-    the buddy state for MoE stacks, at ``effective_window``."""
+    ``forward_train`` (train and prefill attend through
+    ``attention._flash_attend``'s kv-chunk loop, whose padded products
+    are the reference's); decode is ``decode_step`` with
+    ``BuddyPolicy()`` and the buddy state for MoE stacks, at
+    ``effective_window``."""
     dev = torch.device(device)
     meta = dev.type == "meta"
     gen = torch.Generator().manual_seed(0)

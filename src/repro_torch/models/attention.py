@@ -2,17 +2,22 @@
 ring-buffer KV-cache decode and chunked prefill into the same ring, and
 decode and chunked prefill against a paged KV block pool.
 
-Counterpart of ``repro/models/attention.py`` (``attn_forward``, the ring
-``attn_decode`` and ``attn_prefill_chunk``, the paged
-``attn_decode_paged`` and ``attn_prefill_chunk_paged``). The reference's
-``_flash_attend`` is plain jnp (online softmax over kv chunks), so here the
-scores are explicit f32 matmuls and a softmax; its paged attention is plain
-jnp gathers and einsums too, so it is torch ops here. Cross attention
-(the VLM's image layers) attends from the text to projected conditioning
-embeddings, with no RoPE and no mask, in ``attn_forward`` and
-``attn_decode``. The decode and prefill caches, ring or pool, are
-updated in place (the caller's stacked cache tensors are written at the new
-tokens' slots), which saves a copy of the whole cache per step.
+Counterpart of ``repro/models/attention.py`` (``attn_forward`` and its
+``_flash_attend``, the ring ``attn_decode`` and ``attn_prefill_chunk``, the
+paged ``attn_decode_paged`` and ``attn_prefill_chunk_paged``). The
+reference's ``_flash_attend`` is plain jnp, an online softmax over q chunks
+of 512 and kv chunks of 1024, so here it is the same recurrence in torch
+ops (``_flash_attend``): every full-sequence forward (train, prefill, the
+VLM's cross attention, the similarity calibration) goes through it, and no
+[Sq, Skv] score matrix is built. Decode and chunked prefill, ring or
+paged, attend through ``_attend``, an explicit f32 softmax over the whole
+cache, as the reference's unchunked ``_attend_single`` / ``_attend_chunk``
+and paged einsums are. Cross attention (the VLM's image layers) attends
+from the text to projected conditioning embeddings, with no RoPE and no
+mask, in ``attn_forward`` and ``attn_decode``. The decode and prefill
+caches, ring or pool, are updated in place (the caller's stacked cache
+tensors are written at the new tokens' slots), which saves a copy of the
+whole cache per step.
 
 Shapes: x [B, S, D]; q [B, S, H, hd]; k, v [B, S, KV, hd]; g = H // KV.
 """
@@ -22,6 +27,7 @@ from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from repro_torch.models.common import apply_rope, dense_init
 
@@ -69,27 +75,94 @@ def _attend(q, k, v, valid):
     return out.reshape(b, sq, h, hd).to(q.dtype)
 
 
+def _flash_attend(q, k, v, q_offset: int, *, causal: bool, window: int,
+                  q_chunk: int = 512, kv_chunk: int = 1024):
+    """Online-softmax attention over kv chunks, the reference's
+    ``_flash_attend`` (its chunk sizes, padding, masks and -1e30 fill).
+
+    q [B, Sq, H, hd]; k, v [B, Skv, KV, hd]. Returns [B, Sq, H, hd] in
+    q's dtype. ``q_offset``: the absolute position of q[0] relative to
+    k[0] (prefill: 0 with Sq == Skv); ``window`` 0 = unbounded.
+
+    q is padded to a multiple of ``min(q_chunk, Sq)`` rows and k, v to a
+    multiple of ``min(kv_chunk, Skv)``: padded keys are masked by position
+    (``kv_pos < Skv``), padded query rows are computed and dropped, so the
+    products are the reference's, padding included. The reference maps
+    over its q chunks one at a time; each q chunk's recurrence is
+    independent of the others', so here all of them run together, one
+    batch of every padded query row per kv step, with each row's sums in
+    the reference's order: the kv chunks one after another, the running
+    max ``m``, denominator ``l`` and accumulator ``acc`` in f32. One kv
+    step holds the [B, KV, g, Sq_pad, kv_chunk] f32 scores and their
+    exponentials (2 x 2.15 GB at 32,768 queries, 16 heads). A masked
+    score is -1e30, not -inf: a row whose first chunks it cannot see
+    gets m = -1e30 and p = 1 there, and the first chunk it can see
+    erases them through corr = exp(-1e30 - m) = 0 (with -inf: NaN).
+    Chunks the mask voids are computed, as the reference computes them.
+    Autograd runs through the loop, as jax.grad runs through the
+    reference's scan."""
+    b, sq, h, hd = q.shape
+    skv, kv_h = k.shape[1], k.shape[2]
+    g = h // kv_h
+    scale = hd ** -0.5
+    dev = q.device
+
+    q_chunk = min(q_chunk, sq)
+    kv_chunk = min(kv_chunk, skv)
+    pad_q = (-sq) % q_chunk
+    pad_kv = (-skv) % kv_chunk
+    sqp, nkv = sq + pad_q, (skv + pad_kv) // kv_chunk
+    # [B, KV, g * Sq_pad, hd] and [B, KV, Skv_pad, hd], f32, made once
+    qt = F.pad(q, (0, 0, 0, 0, 0, pad_q)).float().reshape(
+        b, sqp, kv_h, g, hd).permute(0, 2, 3, 1, 4).reshape(
+        b, kv_h, g * sqp, hd)
+    kt, vt = (F.pad(t, (0, 0, 0, 0, 0, pad_kv)).float().transpose(1, 2)
+              .contiguous() for t in (k, v))
+    q_pos = q_offset + torch.arange(sqp, device=dev)[:, None]    # [Sq_pad, 1]
+
+    acc = torch.zeros((b, kv_h, g, sqp, hd), dtype=torch.float32,
+                      device=dev)
+    m = torch.full((b, kv_h, g, sqp), NEG_INF, dtype=torch.float32,
+                   device=dev)
+    l = torch.zeros((b, kv_h, g, sqp), dtype=torch.float32, device=dev)
+    for j in range(nkv):
+        blk = slice(j * kv_chunk, (j + 1) * kv_chunk)
+        k_pos = torch.arange(blk.start, blk.stop, device=dev)[None, :]
+        mask = k_pos < skv                                    # [1, kv_chunk]
+        if causal:
+            mask = mask & (k_pos <= q_pos)
+        if window:
+            mask = mask & (k_pos > q_pos - window)
+        s = torch.matmul(qt, kt[:, :, blk].transpose(-1, -2)).mul_(scale)
+        s = s.view(b, kv_h, g, sqp, kv_chunk).masked_fill_(~mask, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = (s - m_new[..., None]).exp_()
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        pv = torch.matmul(p.view(b, kv_h, g * sqp, kv_chunk), vt[:, :, blk])
+        acc = acc * corr[..., None] + pv.view(b, kv_h, g, sqp, hd)
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    out = out.permute(0, 3, 1, 2, 4).reshape(b, sqp, h, hd)
+    return out[:, :sq].to(q.dtype)
+
+
 def attn_forward(params, x, positions, *, num_heads, num_kv_heads, head_dim,
                  rope_theta, window: int = 0,
                  cross_embeds: Optional[torch.Tensor] = None):
-    """Full-sequence causal self-attention (train / profiling).
-    positions [B, S]; window 0 = unbounded. cross_embeds [B, Nc, D]: cross
+    """Full-sequence attention (train / prefill / profiling) through
+    ``_flash_attend``. positions [B, S]; window 0 = unbounded: causal
+    self-attention with RoPE on q and k. cross_embeds [B, Nc, D]: cross
     attention instead, from x to every row of cross_embeds, with no RoPE,
     no mask and no window."""
-    if cross_embeds is not None:
-        q, k, v = _project_qkv(params, x, cross_embeds, num_heads,
-                               num_kv_heads, head_dim)
-        return _out_proj(_attend(q, k, v, None), params["wo"], x.dtype)
-    q, k, v = _project_qkv(params, x, x, num_heads, num_kv_heads, head_dim)
-    q = apply_rope(q, positions, rope_theta)
-    k = apply_rope(k, positions, rope_theta)
-    s = x.shape[1]
-    qpos = torch.arange(s, device=x.device)[:, None]
-    kpos = torch.arange(s, device=x.device)[None, :]
-    valid = kpos <= qpos
-    if window:
-        valid = valid & (kpos > qpos - window)
-    out = _attend(q, k, v, valid[None])
+    cross = cross_embeds is not None
+    q, k, v = _project_qkv(params, x, cross_embeds if cross else x,
+                           num_heads, num_kv_heads, head_dim)
+    if not cross:
+        q = apply_rope(q, positions, rope_theta)
+        k = apply_rope(k, positions, rope_theta)
+    out = _flash_attend(q, k, v, 0, causal=not cross,
+                        window=0 if cross else window)
     return _out_proj(out, params["wo"], x.dtype)
 
 

@@ -232,8 +232,10 @@ def _moe_aux_dict(aux: moe_mod.MoEAux, record: bool) -> dict:
 
 
 def _self_attn(p, x, cache, ctx: StepCtx):
-    """Self-attention of one layer in the step's mode; the ring or paged
-    cache ``cache`` (None in "full" mode) is written in place."""
+    """Self-attention of one layer in the step's mode: "full" through
+    attn_forward's chunked online softmax, decode and chunks against the
+    ring or paged cache ``cache`` (None in "full" mode), written in
+    place."""
     kw = _attn_kwargs(ctx.cfg)
     if ctx.mode == "full":
         return attn.attn_forward(p, x, ctx.positions, window=ctx.window,

@@ -1386,3 +1386,39 @@ def test_meta_counts_equal_card_counts(dev, arch, kind, b, s):
     assert card["by_kernel"]
     for name, n in launches.items():
         assert n == card["by_kernel"].get(name, {}).get("calls", 0), name
+
+
+@pytest.mark.parametrize("sq,skv,h,kv,off,causal,window", [
+    (3000, 3000, 16, 8, 0, True, 0),          # 6 q chunks, 3 kv chunks
+    (2500, 2500, 32, 8, 0, True, 700),        # chunks voided by the window
+    (300, 1601, 32, 8, 0, False, 0)])         # cross: 447 keys of padding
+def test_flash_attend_on_card_matches_whole_matrix(dev, sq, skv, h, kv, off,
+                                                   causal, window):
+    """The chunked online softmax against the whole-matrix softmax of
+    ``_attend`` on the same card tensors (f32, head dim 128), and its
+    gradients against autograd through ``_attend`` (each within 1e-4 of
+    its largest entry)."""
+    from repro_torch.models import attention as A
+    gen = _gen(7)
+    q, k, v = [torch.randn(shape, generator=gen).to(dev).requires_grad_()
+               for shape in ((1, sq, h, 128), (1, skv, kv, 128),
+                             (1, skv, kv, 128))]
+    qpos = off + torch.arange(sq, device=dev)[:, None]
+    kpos = torch.arange(skv, device=dev)[None, :]
+    valid = torch.ones(sq, skv, dtype=torch.bool, device=dev)
+    if causal:
+        valid &= kpos <= qpos
+    if window:
+        valid &= kpos > qpos - window
+    w = torch.randn(1, sq, h, 128, generator=gen).to(dev)
+    outs, grads = [], []
+    for fn in (lambda: A._flash_attend(q, k, v, off, causal=causal,
+                                       window=window),
+               lambda: A._attend(q, k, v, valid[None])):
+        out = fn()
+        outs.append(out.detach())
+        grads.append(torch.autograd.grad((out * w).sum(), (q, k, v)))
+    torch.testing.assert_close(outs[0], outs[1], rtol=0, atol=1e-5)
+    for got, want in zip(*grads):
+        assert float((got - want).abs().max()) <= \
+            1e-4 * float(want.abs().max())
