@@ -194,18 +194,27 @@ committed fixture under ``results/bench``). Phases, one JSON line each:
   dryrun   the launch tooling (launch/{mesh,sharding,roofline,dryrun}.py):
            (1) the dry run on the meta device at production scale
            (deepseek-v2-lite-buddy decode_32k, mixtral-8x7b train_4k,
-           internlm2-1.8b prefill_32k on the 16 x 16 mesh): per-device
-           argument GB, FLOPs, bytes, compute and memory terms under the
-           H100 HardwareSpec, the dominant term; (2) meta against the card
+           internlm2-1.8b prefill_32k, each rank 0's share of the step
+           sharded on the 16 x 16 mesh): per-device argument GB, FLOPs,
+           bytes, collective bytes by op and their counts,
+           temp_size_bytes, the compute, memory and collective terms
+           under the H100 HardwareSpec, the dominant term; (2) meta
+           against the card
            at full width, two steps: (a) Mixtral-8x7B, the mixtral phase's
            4 layers and weights, one capacity-branch decode step at batch 4
            (after the similarity phase), (b) DeepSeek-V2-Lite, 4 layers,
            one train step at 4 x 512 with remat and AdamW (after
            moe_train). Each step traced on meta and run once on the card
-           under the same OpCounter: equal FLOPs, bytes and kernel
-           charges, predicted argument bytes equal to the card tensors'
-           (memory_allocated's delta beside them), the counted step's
-           launches equal to its charges; then the median of 10 steps by
+           under the same OpCounter after one warm-up step: equal FLOPs,
+           bytes and kernel charges, predicted argument bytes equal to the
+           card tensors' (memory_allocated's delta beside them), the
+           counted step's launches equal to its charges, the caching
+           allocator's peak over the counted step (beyond what it held
+           before) within peak_tolerance of the meta tracker's peak
+           (PEAK_SLACK = 1 MiB per block over 1 MiB live there: the
+           allocator hands out a large block unsplit when less than that
+           would be left), temp_size_bytes beside it; then the median of
+           10 steps by
            CUDA events (and the wall), the profiler's device-busy time,
            the roofline bound max(FLOPs / the dtype's peak, bytes / HBM)
            and the share bound / event time, at most SHARE_MAX, with the
@@ -215,9 +224,14 @@ committed fixture under ``results/bench``). Phases, one JSON line each:
            on long_context's weights) and internlm2_train_4k (4,096
            tokens, lm_loss with remat, then AdamW), each checked as (a)
            and (b) but timed over LONG_REPS = 3 steps; a step whose
-           counted run took over LONG_STEP_S = 1.5 s is timed with that
-           run as its warm-up, and its wall and device-busy time are not
-           read
+           counted run took over LONG_STEP_S = 1.5 s is timed without
+           another warm-up, and its wall and device-busy time are not
+           read; (d) rank 0's share of internlm2-1.8b train_4k sharded on
+           the 16 x 16 mesh over the fake backend, on the card (16 x
+           4,096 tokens, bf16): equal FLOPs, bytes, kernel charges and
+           collectives (calls and bytes by op) to its meta trace, its
+           peak within peak_tolerance, the per-device roofline terms with
+           the collective term and the share over 3 steps
   long_context  the reference's chunked attention (models/attention.py
            _flash_attend: an online softmax over q chunks of 512 and kv
            chunks of 1024, every full-sequence forward's attention)
@@ -3250,13 +3264,47 @@ DRYRUN_CASES = (("deepseek-v2-lite-buddy", "decode_32k"),
 SHARE_MAX = 1.05      # bound / device time above this: the count is wrong
 DRYRUN_REPS = 10      # timed steps (median) after the counted one
 LONG_STEP_S = 1.5     # a counted step over this: no warm-up, wall or profile
+# The card's peak against the meta trace's (roofline.OpCounter's tracker:
+# each new storage rounded up to 512 bytes, as the CUDA caching allocator
+# rounds every block). The allocator hands a request from its large pool
+# (over 1 MiB) a cached block whole when splitting it would leave 1 MiB or
+# less, so each large block live at the peak may hold up to 1 MiB more than
+# it asked for: PEAK_SLACK per block over SMALL_BLOCK live at the meta
+# peak is the tolerance, either way.
+SMALL_BLOCK = 1 << 20
+PEAK_SLACK = 1 << 20
+SHARDED_ARCH, SHARDED_SHAPE = "internlm2-1.8b", "train_4k"
+SHARDED_REPS = 3      # timed steps of rank 0's share on the card
+
+
+def peak_tolerance(blocks) -> int:
+    """PEAK_SLACK for each block over SMALL_BLOCK among ``blocks`` (the
+    rounded sizes live at the meta trace's peak)."""
+    return PEAK_SLACK * sum(1 for b in blocks if b > SMALL_BLOCK)
+
+
+def card_peak(step) -> int:
+    """Bytes the caching allocator handed out at most while ``step()``
+    ran, beyond what it held before (a warm-up has run, so the cuBLAS
+    workspace already stands)."""
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    step()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() - base
 
 
 def phase_dryrun_meta():
     """The dry run at production scale on the meta device (nothing on the
-    card): run_one on the 16 x 16 mesh for DRYRUN_CASES, one line each
-    with per-device argument GB, FLOPs, bytes, the compute and memory
-    terms under the H100 HardwareSpec and the dominant term."""
+    card): run_one on the 16 x 16 mesh for DRYRUN_CASES (rank 0's share of
+    the sharded step), one line each with per-device argument GB, FLOPs,
+    bytes, collective bytes by op and their counts, temp_size_bytes, the
+    compute, memory and collective terms under the H100 HardwareSpec and
+    the dominant term."""
     from repro_torch.launch import dryrun
     for arch, shape in DRYRUN_CASES:
         out = dryrun.run_one(arch, shape, verbose=False,
@@ -3271,11 +3319,18 @@ def phase_dryrun_meta():
               "flops": c["flops"], "bytes": c["bytes"],
               "kernel_calls": {k: v["calls"] for k, v in
                                c["by_kernel"].items()},
+              "coll_bytes_by_op": out["hlo_analysis"]["coll_bytes_by_op"],
+              "coll_counts": out["hlo_analysis"]["coll_counts"],
+              "temp_size_bytes": out["memory"]["temp_size_bytes"],
+              "peak_bytes": out["memory"]["peak_bytes"],
               "compute_s": r["compute_s"], "memory_s": r["memory_s"],
               "collective_s": r["collective_s"], "dominant": r["dominant"],
+              "split": r["split"], "link": r["link"],
               "hardware": r["hardware"]})
         require(c["flops"] > 0 and c["bytes"] > 0
-                and r["dominant"] in ("compute", "memory"),
+                and r["collective_s"] is not None and r["collective_s"] > 0
+                and out["memory"]["temp_size_bytes"] is not None
+                and r["dominant"] in ("compute", "memory", "collective"),
                 f"dryrun ({arch} {shape}): empty count {r}")
         require(arch == "internlm2-1.8b" or c["by_kernel"],
                 f"dryrun ({arch} {shape}): no kernel charged")
@@ -3326,10 +3381,18 @@ def _dryrun_card(tag: str, cfg, kind: str, batch: int, seq: int, smi: str,
     alloc_delta = torch.cuda.memory_allocated() - alloc0
     real = {k: sum(t.numel() * t.element_size() for t in _tensors(v))
             for k, v in case.args.items() if k in predicted}
+    t0 = time.perf_counter()
+    case.fn(case.args)                         # warm-up: cuBLAS workspace
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
     ops.reset_launch_counts()                  # the counted step
     t0 = time.perf_counter()
-    card_c, _ = dryrun.trace(case)
-    torch.cuda.synchronize()
+    held = {}
+
+    def counted_step():
+        held["c"], _ = dryrun.trace(case)
+    peak = card_peak(counted_step)
+    card_c = held.pop("c")
     counted_s = time.perf_counter() - t0
     counted = ops.launch_counts()
     meta_d, card_d = meta_c.as_dict(), card_c.as_dict()
@@ -3341,7 +3404,7 @@ def _dryrun_card(tag: str, cfg, kind: str, batch: int, seq: int, smi: str,
         case.fn(case.args)
 
     long_step = counted_s > LONG_STEP_S
-    events = event_ms(step, reps, warm=0 if long_step else 3)
+    events = event_ms(step, reps, warm=0 if long_step else 2)
     ev_ms = statistics.median(events)
     walls, busy = [], {"device_us": None, "device_ops_per_call": None}
     if not long_step:
@@ -3368,6 +3431,13 @@ def _dryrun_card(tag: str, cfg, kind: str, batch: int, seq: int, smi: str,
            "by_op_differences": op_diff,
            "argument_bytes": {"predicted": predicted, "real": real},
            "memory_allocated_delta_bytes": alloc_delta,
+           "peak_bytes": {"meta": meta_c.peak_bytes, "card": peak,
+                          "card_tracker": card_c.peak_bytes,
+                          "tolerance": peak_tolerance(meta_c.peak_blocks),
+                          "gap": peak - meta_c.peak_bytes},
+           "temp_size_bytes": {"meta": meta_c.temp_size_bytes,
+                               "card_tracker": card_c.temp_size_bytes},
+           "warm_up_s": warm_s,
            "params_made_before_phase": params is not None,
            "launches_counted_step": counted,
            "counted_step_s": counted_s, "long_step": long_step,
@@ -3389,6 +3459,8 @@ def _dryrun_card(tag: str, cfg, kind: str, batch: int, seq: int, smi: str,
             f"dryrun ({tag}): meta and card counts differ: {op_diff}")
     require(predicted == real,
             f"dryrun ({tag}): argument bytes {predicted} != {real}")
+    require(abs(peak - meta_c.peak_bytes) <= row["peak_bytes"]["tolerance"],
+            f"dryrun ({tag}): card peak {row['peak_bytes']} against meta")
     require(all(counted[k] == card_d["by_kernel"].get(k, {}).get("calls", 0)
                 for k in counted) and all(counted[k] > 0 for k in kernels),
             f"dryrun ({tag}): launches {counted} against the charges "
@@ -3592,6 +3664,117 @@ def phase_dryrun_train_4k(cfg, smi: str) -> dict:
                         smi, (), reps=LONG_REPS)
 
 
+def phase_dryrun_sharded(smi: str) -> dict:
+    """(d) Rank 0's share of the sharded step on the card: SHARDED_ARCH's
+    SHARDED_SHAPE (internlm2-1.8b train_4k, bf16: 16 rows x 4,096 tokens
+    per device, lm_loss with remat, then AdamW) as rank 0 of the 16 x 16
+    mesh over the fake backend (launch.dryrun.sharded on "cuda"), traced
+    first on meta (a CPU mesh). The card's arguments are rank 0's blocks
+    of random full-width weights (the global ones freed once they are
+    cut); its collectives move no data, so the step runs rank 0's local
+    work. A warm-up step, then the counted one under the same OpCounter as
+    the meta trace: equal FLOPs, bytes, kernel charges and collectives
+    (calls and bytes by op type), the tracker's peak equal, the card's
+    allocator peak within peak_tolerance of it; then SHARDED_REPS steps by
+    CUDA events. One line: the per-device roofline terms (the collective
+    term at roofline.H100's link rate), the bound, the share bound / event
+    time and the card's name and power limit. The model is dense, so no
+    integer crosses a collective: the fake group's unset outputs are only
+    ever floats here. Returns the launches (none: no kernel of this
+    repo)."""
+    import torch
+    from repro_torch.configs.base import SHAPES, get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import roofline as rl
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.launch.sharding import activation_rules, profile_for
+    mesh = make_production_mesh()
+    cfg = dryrun._bf16(get_config(SHARDED_ARCH))
+    shp = SHAPES[SHARDED_SHAPE]
+    prof = profile_for(cfg, train=shp.kind == "train")
+    rules = activation_rules(prof, cfg, mesh.shape["model"])
+    t0 = time.perf_counter()
+    meta = dryrun.trace_sharded(
+        cfg, dryrun.make_case(cfg, shp.kind, shp.global_batch, shp.seq_len),
+        mesh, prof, rules)
+    trace_s = time.perf_counter() - t0
+    meta_c = meta["counter"]
+    _fresh_card()
+    ops.reset_launch_counts()
+    case = dryrun.make_case(cfg, shp.kind, shp.global_batch, shp.seq_len,
+                            device="cuda")
+    with dryrun.sharded(case.fn, case.args, meta["arg_specs"],
+                        meta["out_specs"], mesh, rules, "cuda") as sh:
+        case.args.clear()                     # the global tensors go
+        t0 = time.perf_counter()
+        sh.step()                             # warm-up
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        card_c = rl.OpCounter()
+        t0 = time.perf_counter()
+        peak = card_peak(lambda: sh.step(card_c))
+        counted_s = time.perf_counter() - t0
+        events = event_ms(sh.step, SHARDED_REPS, warm=0)
+        local_bytes = sh.argument_local_bytes
+    launches = ops.launch_counts()
+    ev_ms = statistics.median(events)
+    compute_ms = meta_c.flops / rl.H100.peak(cfg.dtype) * 1e3
+    memory_ms = meta_c.bytes / rl.H100.hbm_bytes_per_s * 1e3
+    coll_ms = meta_c.coll_bytes / rl.H100.link_bytes_per_s * 1e3
+    bound_ms = max(compute_ms, memory_ms)
+    meta_d, card_d = meta_c.as_dict(), card_c.as_dict()
+    op_diff = {k: [meta_d["by_op"].get(k), card_d["by_op"].get(k)]
+               for k in set(meta_d["by_op"]) | set(card_d["by_op"])
+               if meta_d["by_op"].get(k) != card_d["by_op"].get(k)}
+    row = {"phase": "dryrun", "case": "sharded_rank0", "arch": cfg.arch_id,
+           "shape": SHARDED_SHAPE, "mesh": mesh.name, "chips": mesh.size,
+           "rows_per_device": shp.global_batch // mesh.shape["data"],
+           "seq": shp.seq_len, "dtype": str(cfg.dtype),
+           "meta_trace_s": trace_s, "warm_up_s": warm_s,
+           "counted_step_s": counted_s,
+           "argument_bytes_per_device": {
+               "predicted": meta["argument_local_bytes"],
+               "card": local_bytes},
+           "flops": {"meta": meta_d["flops"], "card": card_d["flops"]},
+           "bytes": {"meta": meta_d["bytes"], "card": card_d["bytes"]},
+           "kernel_charges": {"meta": meta_d["by_kernel"],
+                              "card": card_d["by_kernel"]},
+           "collectives": {"meta": meta_c.collectives(),
+                           "card": card_c.collectives()},
+           "by_op_differences": op_diff,
+           "peak_bytes": {"meta": meta_c.peak_bytes, "card": peak,
+                          "card_tracker": card_c.peak_bytes,
+                          "tolerance": peak_tolerance(meta_c.peak_blocks),
+                          "gap": peak - meta_c.peak_bytes},
+           "temp_size_bytes": {"meta": meta_c.temp_size_bytes,
+                               "card_tracker": card_c.temp_size_bytes},
+           "reps": SHARDED_REPS, "event_ms": events,
+           "event_ms_median": ev_ms, "compute_ms": compute_ms,
+           "memory_ms": memory_ms, "collective_ms": coll_ms,
+           "collective_link": rl.H100.link_name, "bound_ms": bound_ms,
+           "bound_by": "operations" if compute_ms >= memory_ms else "bytes",
+           "share": bound_ms / ev_ms, "launches": launches,
+           "hardware": rl.H100.name, "nvidia_smi": smi}
+    emit(row)
+    require(meta_d["flops"] == card_d["flops"]
+            and meta_d["bytes"] == card_d["bytes"]
+            and meta_d["by_kernel"] == card_d["by_kernel"]
+            and meta_c.collectives() == card_c.collectives(),
+            f"dryrun (sharded_rank0): meta and card counts differ: "
+            f"{op_diff} {row['collectives']}")
+    require(meta["argument_local_bytes"] == local_bytes,
+            f"dryrun (sharded_rank0): argument bytes {local_bytes}")
+    require(abs(peak - meta_c.peak_bytes) <= row["peak_bytes"]["tolerance"],
+            f"dryrun (sharded_rank0): card peak {row['peak_bytes']}")
+    require(meta_c.coll_bytes > 0 and not any(launches.values()),
+            f"dryrun (sharded_rank0): collectives {meta_c.coll_bytes}, "
+            f"launches {launches}")
+    require(row["share"] <= SHARE_MAX,
+            f"dryrun (sharded_rank0): share {row['share']} above {SHARE_MAX}")
+    return launches
+
+
 # ---------------------------------------------------------------------------
 KERNELS = (  # name, source, TPU kernel it replaces (file:line of pallas_call)
     ("topk_gate", "src/repro_torch/csrc/topk_gate.cu",
@@ -3681,10 +3864,12 @@ def main() -> int:
                      long_cfg, params, smi)
     del params
     dry_4k = timed("dryrun_train_4k", phase_dryrun_train_4k, long_cfg, smi)
+    dry_sh = timed("dryrun_sharded", phase_dryrun_sharded, smi)
     counts = {k: counts[k] + dry_train[k] + dry_long[k] + dry_4k[k]
-              for k in counts}
+              + dry_sh[k] for k in counts}
     new_s = {name: phase_s[name] for name in
-             ("long_context", "dryrun_prefill_32k", "dryrun_train_4k")}
+             ("dryrun_mixtral", "dryrun_train", "dryrun_prefill_32k",
+              "dryrun_train_4k", "dryrun_sharded")}
     # the hybrid, VLM and audio families: no kernel of this repo
     family_phases = (("families_parity", phase_families_parity),
                      ("hybrid", phase_hybrid), ("vlm", phase_vlm),

@@ -1,18 +1,30 @@
 """Production dry run as meta-device accounting: trace every (arch x input
-shape) step on the meta device under an op counter, and report per-device
-memory, FLOPs, bytes and the roofline terms on the production mesh.
+shape) step as one device of the production mesh, on the meta device,
+under an op counter, and report per-device memory, FLOPs, bytes,
+collectives and the roofline terms.
 
 Counterpart of ``repro/launch/dryrun.py``, which lowers and compiles each
-step for 256 or 512 fake devices. Here nothing is compiled or allocated:
-the step runs once on meta tensors (shapes and dtypes only, the kernels'
-plain versions for their shapes) inside ``roofline.OpCounter``. Per device:
+step with ``NamedSharding``s for 256 or 512 fake devices and reads one
+device's partitioned program. Here nothing is compiled or allocated: the
+step runs once as rank 0 of a ``launch.mesh.fake_mesh`` of the production
+shape, its arguments DTensors of rank 0's meta blocks under their
+sanitized partition specs (``launch.sharding.to_dtensors``), the model's
+``shard`` hints redistributing its activations under the reference's
+activation rules, and its outputs redistributed to their specs at the end,
+as the reference's ``out_shardings`` place them. ``roofline.OpCounter``
+counts rank 0's local ops (``"split": "sharded"``). Per device:
 
   * memory: the arguments' and outputs' bytes under their sanitized
-    partition specs on the mesh (exact); no temporaries (a meta trace has
-    no allocator), so ``temp_size_bytes`` is None;
-  * FLOPs and bytes: the step's global counts split evenly over the chips
-    (``"split": "even"``); no collective is counted (there is no SPMD
-    partitioner in the port), so the collective term is None.
+    partition specs (exact; the arguments' DTensor blocks hold exactly
+    these bytes), and ``temp_size_bytes``: the peak of the step's new
+    storages less its new outputs (``OpCounter.temp_bytes``);
+  * FLOPs and bytes of the local ops and the kernels' charges at their
+    local shapes; the collectives' bytes by op type and their counts (the
+    reference's ``hlo_analysis`` keys), and from them the collective term.
+
+``make_case`` and ``trace`` trace one step unsharded on any device, as
+the smoke's card cases run it; their counter carries the same peak and
+temporaries.
 
     python -m repro_torch.launch.dryrun --arch all --shape all
     python -m repro_torch.launch.dryrun --reanalyze   # stored counts, H100 spec as it stands
@@ -22,6 +34,7 @@ One JSON per case goes to ``results/dryrun_torch/`` (git-ignored).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import glob
 import json
@@ -36,11 +49,14 @@ import torch
 from repro_torch.configs.base import ARCH_IDS, SHAPES, ModelConfig, get_config
 from repro_torch.core.policy import BuddyPolicy
 from repro_torch.launch import roofline as rl
-from repro_torch.launch.mesh import make_production_mesh
+from repro_torch.launch.mesh import fake_mesh, make_production_mesh
 from repro_torch.launch.sharding import (P, ShardingProfile, activation_rules,
                                          bytes_per_device, param_specs,
-                                         profile_for, sanitize_specs)
+                                         _zip_specs, placements,
+                                         profile_for, sanitize_spec,
+                                         sanitize_specs, to_dtensors)
 from repro_torch.models import transformer
+from repro_torch.models.common import axis_rules
 from repro_torch.models.moe import BuddyState
 from repro_torch.training.optimizer import (AdamWConfig, OptState,
                                             init_opt_state)
@@ -48,9 +64,6 @@ from repro_torch.training.train_loop import make_train_step
 
 RESULTS_DIR = Path(__file__).resolve().parents[3] / "results" / "dryrun_torch"
 R_MAX = 8
-COLLECTIVE_NOTE = ("not modelled: the port has no SPMD partitioner, so no "
-                   "collective is traced")
-TEMP_NOTE = "not measured: a meta trace allocates nothing"
 
 
 # ---------------------------------------------------------------------------
@@ -253,7 +266,9 @@ def make_case(cfg: ModelConfig, kind: str, batch: int, seq: int, *,
 
 def case_specs(cfg: ModelConfig, case: Case, outputs: dict,
                prof: ShardingProfile, rules: dict) -> tuple:
-    """(argument specs, output specs): name -> spec tree, unsanitized."""
+    """(argument specs, output specs): name -> spec tree, unsanitized;
+    ``outputs`` (name -> tree, or the train step's metric names under
+    "metrics") picks the output names."""
     bt = prof.batch
     p_spec = param_specs(cfg, case.args["params"], prof)
     specs = {"params": p_spec, "tokens": P(bt, None),
@@ -284,48 +299,140 @@ def memory_per_device(trees: dict, specs: dict, mesh) -> dict:
 
 
 def trace(case: Case) -> tuple:
-    """Run the case's step once under an OpCounter. Returns (counter,
-    outputs)."""
+    """Run the case's step once, unsharded, under an OpCounter (its
+    arguments registered, so its peak and ``temp_size_bytes`` are the
+    step's own). Returns (counter, outputs)."""
     with rl.OpCounter() as counter:
+        counter.arguments(case.args)
         outputs = case.fn(case.args)
+        counter.temp_size_bytes = counter.temp_bytes(outputs)
     return counter, outputs
+
+
+_TRAIN_METRICS = ("ce", "grad_norm", "lb", "loss", "lr")
+
+
+def _place_outputs(outputs: dict, out_specs: dict, mesh, mesh_shape):
+    """Each output DTensor redistributed to its sanitized spec, as the
+    reference's ``out_shardings`` place them."""
+    def one(spec, leaf):
+        if not hasattr(leaf, "device_mesh"):
+            return leaf
+        want = placements(sanitize_spec(spec, tuple(leaf.shape),
+                                        mesh_shape), mesh, leaf.ndim)
+        if tuple(leaf.placements) == want:
+            return leaf
+        return leaf.redistribute(mesh, want)
+    return {k: _zip_specs(one, out_specs[k], v) for k, v in outputs.items()}
+
+
+class Sharded(NamedTuple):
+    step: object             # step(counter=None) -> outputs (DTensors)
+    argument_local_bytes: int    # of rank 0's blocks of the arguments
+
+
+@contextlib.contextmanager
+def sharded(fn, args: dict, arg_specs: dict, out_specs: dict, mesh_shape,
+            rules: dict, device_type: str = "cpu"):
+    """``fn(args)`` as rank 0 of ``mesh_shape`` over the fake backend
+    (``fake_mesh`` on ``device_type``, up for the context): the arguments
+    named in ``arg_specs`` become DTensors of rank 0's blocks under their
+    sanitized specs (the rest, a host int, as they are). Yields a
+    ``Sharded`` whose ``step(counter)`` runs ``fn`` with the model's hints
+    under ``rules``, the plain tensors the step makes taken as replicated
+    (``implicit_replication``), and the outputs named in ``out_specs``
+    placed by them, as the reference's ``out_shardings`` place them;
+    given an ``OpCounter``, under it, with the arguments registered and
+    its ``temp_size_bytes`` set."""
+    from torch.distributed.tensor.experimental import implicit_replication
+    with fake_mesh(mesh_shape, device_type) as mesh:
+        args = dict(args)
+        for k, spec in arg_specs.items():
+            args[k] = to_dtensors(args[k], spec, mesh, mesh_shape)
+        local_bytes = sum(t._local_tensor.numel()
+                          * t._local_tensor.element_size()
+                          for t in transformer.tree_leaves(
+                              [args[k] for k in arg_specs])
+                          if t is not None)
+
+        def step(counter=None):
+            with contextlib.ExitStack() as stack:
+                if counter is not None:
+                    stack.enter_context(counter)
+                    counter.arguments(args)
+                stack.enter_context(axis_rules(rules))
+                stack.enter_context(implicit_replication())
+                outputs = _place_outputs(fn(args), out_specs, mesh,
+                                         mesh_shape)
+                if counter is not None:
+                    counter.temp_size_bytes = counter.temp_bytes(outputs)
+            return outputs
+        yield Sharded(step, local_bytes)
+
+
+def run_sharded(fn, args: dict, arg_specs: dict, out_specs: dict,
+                mesh_shape, rules: dict, device_type: str = "cpu") -> dict:
+    """One step of ``sharded`` under an OpCounter. Returns the counter,
+    the outputs (DTensors) and the arguments' local bytes."""
+    with sharded(fn, args, arg_specs, out_specs, mesh_shape, rules,
+                 device_type) as sh:
+        counter = rl.OpCounter()
+        outputs = sh.step(counter)
+    return {"counter": counter, "outputs": outputs,
+            "argument_local_bytes": sh.argument_local_bytes}
+
+
+def trace_sharded(cfg: ModelConfig, case: Case, mesh_shape,
+                  prof: ShardingProfile, rules: dict,
+                  device_type: str = "cpu") -> dict:
+    """The case's step through ``run_sharded``, its arguments and outputs
+    under ``case_specs``. Returns ``run_sharded``'s dict with the
+    argument and output specs."""
+    names = {"params": None, "opt_state": None,
+             "metrics": dict.fromkeys(_TRAIN_METRICS)} \
+        if case.kind == "train" else \
+        ({"logits": None} if case.kind == "prefill"
+         else {"logits": None, "caches": None})
+    arg_specs, out_specs = case_specs(cfg, case, names, prof, rules)
+    out = run_sharded(case.fn, case.args, arg_specs, out_specs, mesh_shape,
+                      rules, device_type)
+    return dict(out, arg_specs=arg_specs, out_specs=out_specs)
 
 
 def trace_case(cfg: ModelConfig, shape_name: str, mesh,
                prof: ShardingProfile) -> dict:
-    """Trace one (arch x shape) step on meta, cfg cast to bf16. Returns
-    the counter, the case, its outputs and the spec trees."""
+    """Trace one (arch x shape) step sharded on meta, cfg cast to bf16.
+    Returns the counter, the case, its outputs and the spec trees."""
     shp = SHAPES[shape_name]
     cfg = _bf16(cfg)
     rules = activation_rules(prof, cfg, mesh.shape["model"])
     case = make_case(cfg, shp.kind, shp.global_batch, shp.seq_len,
                      long_context=shp.seq_len >= 262144)
-    counter, outputs = trace(case)
-    arg_specs, out_specs = case_specs(cfg, case, outputs, prof, rules)
-    return {"cfg": cfg, "case": case, "counter": counter, "outputs": outputs,
-            "arg_specs": arg_specs, "out_specs": out_specs}
+    tr = trace_sharded(cfg, case, mesh, prof, rules)
+    return dict(tr, cfg=cfg, case=case)
 
 
 # ---------------------------------------------------------------------------
 # Run + report
 # ---------------------------------------------------------------------------
-def _report(arch, shape_name, mesh_name, chips, flops,
-            nbytes) -> rl.RooflineReport:
-    """The case's roofline under ``roofline.H100``, read at the call, so a
-    stored count is recomputed against the spec as it now stands."""
+def _report(arch, shape_name, mesh_name, chips, flops, nbytes,
+            coll_bytes) -> rl.RooflineReport:
+    """The case's roofline from its per-device counts under
+    ``roofline.H100``, read at the call, so a stored count is recomputed
+    against the spec as it now stands."""
     cfg = get_config(arch)
     shp = SHAPES[shape_name]
     return rl.RooflineReport(
         arch=arch, shape=shape_name, mesh=mesh_name, chips=chips,
-        flops_per_device=flops / chips, bytes_per_device=nbytes / chips,
-        coll_bytes_per_device=None, dtype="bfloat16",
+        flops_per_device=flops, bytes_per_device=nbytes,
+        coll_bytes_per_device=coll_bytes, dtype="bfloat16",
         model_flops=rl.model_flops(cfg, shp.kind, shp.seq_len,
                                    shp.global_batch)).finalize(rl.H100)
 
 
 def _roofline_dict(report: rl.RooflineReport) -> dict:
-    return dict(report.as_dict(), split="even",
-                collective_s_reason=COLLECTIVE_NOTE)
+    return dict(report.as_dict(), split="sharded",
+                link=rl.H100.link_name)
 
 
 def run_one(arch: str, shape_name: str, multi_pod: bool = False,
@@ -344,8 +451,9 @@ def run_one(arch: str, shape_name: str, multi_pod: bool = False,
     case, counter = tr["case"], tr["counter"]
     args_b = memory_per_device(case.args, tr["arg_specs"], mesh)
     outs_b = memory_per_device(tr["outputs"], tr["out_specs"], mesh)
+    coll = counter.collectives()
     report = _report(arch, shape_name, mesh_name, chips, counter.flops,
-                     counter.bytes)
+                     counter.bytes, coll["coll_bytes"])
     out = {
         "arch": arch, "shape": shape_name, "mesh": mesh_name, "chips": chips,
         "device": "meta", "meta": {"kind": case.kind, "window": case.window},
@@ -354,16 +462,20 @@ def run_one(arch: str, shape_name: str, multi_pod: bool = False,
                    "argument_bytes_by_input": args_b,
                    "output_size_bytes": sum(outs_b.values()),
                    "output_bytes_by_output": outs_b,
-                   "temp_size_bytes": None, "temp_size_note": TEMP_NOTE},
+                   "temp_size_bytes": counter.temp_size_bytes,
+                   "peak_bytes": counter.peak_bytes},
         "counts": counter.as_dict(),
+        "hlo_analysis": dict(coll, flops=counter.flops,
+                             traffic_bytes=counter.bytes),
         "roofline": _roofline_dict(report),
     }
     if verbose:
         ma = out["memory"]
         print(f"[dryrun] {arch} {shape_name} {mesh_name}: trace "
               f"{trace_s:.1f}s | args {_gb(ma['argument_size_bytes'])} "
-              f"out {_gb(ma['output_size_bytes'])} per device | flops "
-              f"{counter.flops:.3e} bytes {counter.bytes:.3e} (global)")
+              f"temp {_gb(ma['temp_size_bytes'])} | flops/dev "
+              f"{counter.flops:.3e} bytes/dev {counter.bytes:.3e} coll/dev "
+              f"{coll['coll_bytes']:.3e} {coll['coll_counts']}")
         print("         " + rl.summarize(report))
     if save:
         d = Path(results_dir or RESULTS_DIR)
@@ -382,7 +494,8 @@ def reanalyze_all(results_dir=None) -> None:
             out = json.load(f)
         report = _report(out["arch"], out["shape"], out["mesh"],
                          out["chips"], out["counts"]["flops"],
-                         out["counts"]["bytes"])
+                         out["counts"]["bytes"],
+                         out["hlo_analysis"]["coll_bytes"])
         out["roofline"] = _roofline_dict(report)
         with open(fn, "w") as f:
             json.dump(out, f, indent=1)

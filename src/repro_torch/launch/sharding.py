@@ -1,6 +1,6 @@
 """Sharding rules: logical-axis rules for activations and per-parameter
-partition specs derived from tree paths, and the bytes each device holds
-under them.
+partition specs derived from tree paths, the bytes each device holds under
+them, and the DTensors that hold one device's share.
 
 Counterpart of ``repro/launch/sharding.py``, with its rules to the letter.
 Baseline layout:
@@ -10,16 +10,19 @@ Baseline layout:
   * expert FSDP  -> optionally shard expert d_model over data (the two
     Mixtrals when training)
 
-The port runs one card per process: no tensor is split by these specs.
-They feed the dry run's accounting (``shard_shape``, ``bytes_per_device``)
-in place of the reference's ``NamedSharding`` placement, and
-``apply_rules`` only hands back the activation rules.
+The port runs one card per process. For the dry run's sharded trace a spec
+becomes DTensor placements on a ``launch.mesh.fake_mesh`` (``placements``,
+the reference's ``to_shardings``), and a tree of tensors becomes DTensors
+built from rank 0's blocks (``to_dtensors``), whose bytes are exactly
+``bytes_per_device``'s. ``apply_rules`` installs the activation rules that
+``models.common.shard`` reads.
 """
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 from typing import Optional
+
+import torch
 
 from repro_torch.configs.base import ModelConfig
 
@@ -175,6 +178,62 @@ def param_specs(cfg: ModelConfig, params, prof: ShardingProfile):
     return _map_with_path(spec, params)
 
 
+def placements(spec: P, mesh, ndim: int) -> tuple:
+    """DTensor placements on ``mesh`` (a ``DeviceMesh`` with the spec's
+    axis names) for a tensor of ``ndim`` dims under ``spec``: each named
+    mesh dim shards the tensor dim that names it, and the rest replicate.
+    A tuple of axes on one dim shards it over each, major to minor in the
+    tuple's order, as JAX orders them; DTensor orders shards of one dim by
+    mesh dim, so the tuple must follow the mesh's order. A mesh dim of
+    size 1 replicates."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    names = mesh.mesh_dim_names
+    out = [Replicate()] * len(names)
+    for d, axes in enumerate(spec):
+        if axes is None or d >= ndim:
+            continue
+        axes = tuple(axes) if isinstance(axes, (tuple, list)) else (axes,)
+        dims = [names.index(a) for a in axes]
+        if dims != sorted(dims):
+            raise ValueError(f"{spec}: axes {axes} out of the mesh's order "
+                             f"{names}")
+        for m in dims:
+            if mesh.size(m) > 1:      # a split over one device replicates
+                out[m] = Shard(d)
+    return tuple(out)
+
+
+def _block(leaf: torch.Tensor, spec: P, mesh_shape) -> torch.Tensor:
+    """Rank 0's block of ``leaf`` under a sanitized ``spec``: the leading
+    slice of every split dim, a fresh contiguous tensor (empty on meta)."""
+    shape = shard_shape(tuple(leaf.shape), spec, mesh_shape)
+    if leaf.device.type == "meta":
+        return torch.empty(shape, dtype=leaf.dtype, device="meta")
+    return leaf[tuple(slice(0, n) for n in shape)].clone(
+        memory_format=torch.contiguous_format)
+
+
+def to_dtensors(tree, spec_tree, mesh, mesh_shape):
+    """``tree``'s tensors as DTensors on ``mesh`` (a ``DeviceMesh``), each
+    built from rank 0's block under its spec in ``spec_tree`` (sanitized
+    against ``mesh_shape``, the ``MeshShape`` of ``mesh``, first): the
+    local bytes sum to ``bytes_per_device``. Leaves that are not tensors
+    (None, a host int) pass through."""
+    from torch.distributed.tensor import DTensor
+
+    def one(spec, leaf):
+        if not isinstance(leaf, torch.Tensor):
+            return leaf
+        spec = sanitize_spec(spec, tuple(leaf.shape), mesh_shape)
+        return DTensor.from_local(
+            _block(leaf, spec, mesh_shape), mesh,
+            placements(spec, mesh, leaf.ndim), run_check=False,
+            shape=leaf.shape, stride=leaf.stride())
+
+    return _zip_specs(one, spec_tree, tree)
+
+
 def _axis_size(mesh, axes) -> int:
     if axes is None:
         return 1
@@ -268,6 +327,6 @@ def cache_specs(cache_shapes, prof: ShardingProfile):
 
 
 def apply_rules(prof: ShardingProfile):
-    """The reference's rules context, with nothing to apply on one card
-    (``models.common.shard`` is the identity): it yields the rules."""
-    return contextlib.nullcontext(activation_rules(prof))
+    """The reference's rules context (``models.common.axis_rules``)."""
+    from repro_torch.models.common import axis_rules
+    return axis_rules(activation_rules(prof))

@@ -23,13 +23,19 @@ Shapes: x [B, S, D]; q [B, S, H, hd]; k, v [B, S, KV, hd]; g = H // KV.
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.common import apply_rope, dense_init
+from repro_torch.models.common import (all_reduce, apply_rope, coordinate,
+                                       dense_init, is_sharded, local_call,
+                                       local_range, no_partial, padded_split,
+                                       remap, reshape, settle, shard,
+                                       shard_dims, unpad, ways, whole,
+                                       with_partial)
 
 NEG_INF = -1e30
 
@@ -44,20 +50,65 @@ def init_attn(gen, d_model: int, num_heads: int, num_kv_heads: int,
     }
 
 
+def _split_heads(t, b: int, s: int, n_heads: int, head_dim: int):
+    """[B, S, n * hd] -> [B, S, n, hd]. Under a mesh, a projection whose
+    feature split does not fall on head boundaries (the model axis does
+    not divide the heads) is gathered first: DTensor cannot view it."""
+    return whole(t, n_heads, 2).reshape(b, s, n_heads, head_dim)
+
+
 def _project_qkv(params, x, x_kv, num_heads, num_kv_heads, head_dim):
     b, s, _ = x.shape
     skv = x_kv.shape[1]
-    q = torch.matmul(x, params["wq"]).reshape(b, s, num_heads, head_dim)
-    k = torch.matmul(x_kv, params["wk"]).reshape(b, skv, num_kv_heads,
-                                                 head_dim)
-    v = torch.matmul(x_kv, params["wv"]).reshape(b, skv, num_kv_heads,
-                                                 head_dim)
+    q = _split_heads(torch.matmul(x, params["wq"]), b, s, num_heads,
+                     head_dim)
+    k = _split_heads(torch.matmul(x_kv, params["wk"]), b, skv, num_kv_heads,
+                     head_dim)
+    v = _split_heads(torch.matmul(x_kv, params["wv"]), b, skv, num_kv_heads,
+                     head_dim)
+    q = shard(q, "batch", None, "heads", None)
+    k = shard(k, "batch", None, "kv_heads", None)
+    v = shard(v, "batch", None, "kv_heads", None)
     return q, k, v
 
 
 def _out_proj(out, wo, dtype):
+    """[B, S, H, hd] @ wo -> [B, S, D]: the rows folded by hand (the fold
+    torch.matmul makes on a plain tensor; on a DTensor of one token per
+    row it would expand wo into a bmm)."""
     b, s = out.shape[:2]
-    return torch.matmul(out.reshape(b, s, -1).float(), wo.float()).to(dtype)
+    y = torch.matmul(reshape(out, b * s, -1).float(), wo.float())
+    return settle(y).to(dtype).reshape(b, s, -1)
+
+
+def _cache_out_proj(out, wo, num_kv_heads: int, dtype):
+    """The output projection of the cache paths (decode, chunked prefill,
+    paged). Split over more than one device, it is the reference's 4-D
+    form: wo as [KV, g, hd, D] on the cache's layout, contracted with the
+    attention output as [B, S, KV, g, hd], so a cache split by head dim is
+    never gathered; otherwise ``_out_proj``."""
+    if not is_sharded(out) or ways(out, (2, 3)) == 1:
+        return _out_proj(out, wo, dtype)
+    b, s, h, hd = out.shape
+    g = h // num_kv_heads
+    # wo's rows split by heads move to the cache's layout as [H, hd, D]
+    # (an all-to-all to a head-dim split), as XLA reshards the reference's
+    wo3 = shard(whole(wo, h, 0).reshape(h, hd, wo.shape[1]), "cache_heads",
+                "cache_hd", None)
+    wo4 = shard(wo3.reshape(num_kv_heads, g, hd, wo.shape[1]), "cache_heads",
+                None, "cache_hd", None)
+    out4 = whole(out, num_kv_heads, 2).reshape(b, s, num_kv_heads, g, hd)
+    # the contraction over the split (kv, g, hd) on rank 0's blocks: a
+    # partial sum over the axes that split them, reduced (DTensor cannot
+    # fold a split dim into the einsum's batch on every torch version)
+    o_pl = no_partial(out4.placements)
+    w_pl = remap(o_pl, {2: 0, 3: 1, 4: 2})
+    split = shard_dims(o_pl, 2) | shard_dims(o_pl, 4)
+    y = local_call(
+        lambda o, w: torch.einsum("bqkgh,kghd->bqd", o.float(), w.float()),
+        (out4, wo4), (o_pl, w_pl),
+        with_partial(remap(o_pl, {0: 0, 1: 1}), split))
+    return settle(y).to(dtype)
 
 
 def _attend(q, k, v, valid):
@@ -66,13 +117,55 @@ def _attend(q, k, v, valid):
     Returns [B, Sq, H, hd]."""
     b, sq, h, hd = q.shape
     kv_h = k.shape[2]
-    qg = q.reshape(b, sq, kv_h, h // kv_h, hd).float()
-    s = torch.einsum("bqkgh,bckh->bkgqc", qg, k.float()) * (hd ** -0.5)
-    if valid is not None:
-        s = torch.where(valid[:, None, None], s, NEG_INF)
-    p = torch.softmax(s, dim=-1)
-    out = torch.einsum("bkgqc,bckh->bqkgh", p, v.float())
+    qg = whole(q, kv_h, 2).reshape(b, sq, kv_h, h // kv_h, hd)
+    qg = shard(qg, "batch", None, "cache_heads", None, "cache_hd")
+    if is_sharded(k):
+        out = _attend_split(qg, k, v, valid)
+    else:
+        qg = qg.float()
+        s = torch.einsum("bqkgh,bckh->bkgqc", qg, k.float()) * (hd ** -0.5)
+        s = shard(s, "batch", "cache_heads", None, None, "cache_seq")
+        if valid is not None:
+            s = torch.where(valid[:, None, None], s, NEG_INF)
+        p = torch.softmax(s, dim=-1)
+        out = torch.einsum("bkgqc,bckh->bqkgh", p, v.float())
     return out.reshape(b, sq, h, hd).to(q.dtype)
+
+
+def _attend_split(qg, k, v, valid):
+    """``_attend``'s scores, softmax and p.v on rank 0's blocks of a split
+    cache (``local_call``), partitioned as XLA partitions the reference's
+    (its hints pin the scores to the cache's layout, [B, KV, g, Sq, C] on
+    ``("batch", "cache_heads", None, None, "cache_seq")``): split by kv
+    heads, nothing crosses; by head dim, the scores are partial sums,
+    all-reduced; by sequence, the softmax's max and sum are all-reduced
+    and p.v is a partial sum, all-reduced. qg [B, Sq, KV, g, hd] takes the
+    cache's layout. Returns [B, Sq, KV, g, hd] f32."""
+    mesh = k.device_mesh
+    kpl = no_partial(k.placements)                   # [B, C, KV, hd]
+    seq, hd_split = shard_dims(kpl, 1), shard_dims(kpl, 3)
+    q_pl = remap(kpl, {0: 0, 2: 2, 3: 4})
+    scale = qg.shape[-1] ** -0.5
+    args, in_pl = [qg, k, v], [q_pl, kpl, kpl]
+    if valid is not None:                            # [B | 1, Sq, C]
+        args.append(valid)
+        in_pl.append(remap(kpl, {0: 0, 1: 2} if valid.shape[0] == k.shape[0]
+                           else {1: 2}))
+
+    def local(ql, kl, vl, vd=None):
+        s = torch.einsum("bqkgh,bckh->bkgqc", ql.float(), kl.float()) * scale
+        s = all_reduce(s, "sum", mesh, hd_split)
+        if vd is not None:
+            s = torch.where(vd[:, None, None], s, NEG_INF)
+        if seq:
+            m = all_reduce(s.amax(-1, keepdim=True), "max", mesh, seq)
+            e = (s - m).exp()
+            p = e / all_reduce(e.sum(-1, keepdim=True), "sum", mesh, seq)
+        else:
+            p = torch.softmax(s, dim=-1)
+        out = torch.einsum("bkgqc,bckh->bqkgh", p, vl.float())
+        return all_reduce(out, "sum", mesh, seq)
+    return local_call(local, tuple(args), tuple(in_pl), q_pl)
 
 
 def _flash_attend(q, k, v, q_offset: int, *, causal: bool, window: int,
@@ -147,6 +240,57 @@ def _flash_attend(q, k, v, q_offset: int, *, causal: bool, window: int,
     return out[:, :sq].to(q.dtype)
 
 
+def _by_heads(attend, q, k, v):
+    """``attend(q, k, v)`` under a mesh, on rank 0's (batch, head) blocks
+    through ``local_map``: attention is local to a head, and DTensor cannot
+    view q's heads as (kv head, group) where the model axis does not
+    divide the kv heads. q keeps its placements after its hint; k and v
+    are split by batch as q and by heads where the kv heads divide as q's
+    heads do, else replicated on heads and cut, inside, to the kv heads
+    of rank 0's query heads (each device then holds its query heads' kv
+    heads, as a tensor-parallel GQA step does)."""
+    pl = no_partial(q.placements)
+    mesh = q.device_mesh
+    kv_h, h = k.shape[2], q.shape[2]
+    g = h // kv_h
+    pad = padded_split(q, 2, "heads")
+    if pad is not None:
+        return _by_padded_heads(attend, q, k, v, pad)
+    split = kv_h % ways(q, (2,)) == 0
+    kv_pl = remap(pl, {0: 0, 1: None, 2: 2 if split else None})
+    rank = coordinate(mesh, shard_dims(pl, 2))[1]
+
+    def local(ql, kl, vl):
+        if not split:
+            hq = ql.shape[2]
+            lo, hi = rank * hq // g, ((rank + 1) * hq - 1) // g + 1
+            kl, vl = kl[:, :, lo:hi], vl[:, :, lo:hi]
+        return attend(ql, kl, vl)
+    return local_call(local, (q, k, v), (pl, kv_pl, kv_pl), pl)
+
+
+def _by_padded_heads(attend, q, k, v, pad):
+    """``_by_heads`` where the model axis does not divide the heads (q
+    whole on heads): rank 0 attends with its share of them as XLA pads the
+    split, ceil(H / ways) query heads from ``pad``'s first and their kv
+    heads, its output padded to that share; the shares are then gathered
+    and cut back to the H heads (``unpad``) for the output projection."""
+    from torch.distributed.tensor import Shard
+    dims, per, first = pad
+    h, g = q.shape[2], q.shape[2] // k.shape[2]
+    lo, hi = first, min(h, first + per)
+    pl = remap(no_partial(q.placements), {0: 0, 1: 1, 3: 3})
+    out_pl = tuple(Shard(2) if m in dims else p for m, p in enumerate(pl))
+
+    def local(ql, kl, vl):
+        out = attend(ql[:, :, lo:hi], kl[:, :, lo // g:(hi - 1) // g + 1],
+                     vl[:, :, lo // g:(hi - 1) // g + 1])
+        return F.pad(out, (0, 0, 0, per - (hi - lo)))
+    kv_pl = remap(pl, {0: 0})
+    out = local_call(local, (q, k, v), (pl, kv_pl, kv_pl), out_pl)
+    return unpad(out, 2, h)
+
+
 def attn_forward(params, x, positions, *, num_heads, num_kv_heads, head_dim,
                  rope_theta, window: int = 0,
                  cross_embeds: Optional[torch.Tensor] = None):
@@ -161,8 +305,9 @@ def attn_forward(params, x, positions, *, num_heads, num_kv_heads, head_dim,
     if not cross:
         q = apply_rope(q, positions, rope_theta)
         k = apply_rope(k, positions, rope_theta)
-    out = _flash_attend(q, k, v, 0, causal=not cross,
-                        window=0 if cross else window)
+    flash = functools.partial(_flash_attend, q_offset=0, causal=not cross,
+                              window=0 if cross else window)
+    out = _by_heads(flash, q, k, v) if is_sharded(q) else flash(q, k, v)
     return _out_proj(out, params["wo"], x.dtype)
 
 
@@ -181,8 +326,8 @@ def attn_decode(params, x_tok, cache, pos, *, num_heads, num_kv_heads,
         k, v = cross_kv
         q = torch.matmul(x_tok, params["wq"]).reshape(b, 1, num_heads,
                                                       head_dim)
-        return _out_proj(_attend(q, k, v, None), params["wo"],
-                         x_tok.dtype), cache
+        return _cache_out_proj(_attend(q, k, v, None), params["wo"],
+                               num_kv_heads, x_tok.dtype), cache
     dev = x_tok.device
     cap = cache["k"].shape[1]
     q, k_new, v_new = _project_qkv(params, x_tok, x_tok, num_heads,
@@ -195,6 +340,9 @@ def attn_decode(params, x_tok, cache, pos, *, num_heads, num_kv_heads,
     rope_pos = pos_b.expand(b, 1)
     q = apply_rope(q, rope_pos, rope_theta)
     k_new = apply_rope(k_new, rope_pos, rope_theta)
+    # the cache's layout, so the write moves nothing between devices
+    k_new = shard(k_new, "batch", None, "cache_heads", "cache_hd")
+    v_new = shard(v_new, "batch", None, "cache_heads", "cache_hd")
     if per_row:
         rows = torch.arange(b, device=dev)
         slots = pos_b[:, 0] % cap
@@ -202,8 +350,11 @@ def attn_decode(params, x_tok, cache, pos, *, num_heads, num_kv_heads,
         cache["v"][rows, slots] = v_new[:, 0]
     else:
         slot = int(pos) % cap
-        cache["k"][:, slot] = k_new[:, 0]
-        cache["v"][:, slot] = v_new[:, 0]
+        for name, new in (("k", k_new), ("v", v_new)):
+            if is_sharded(cache[name]):
+                _write_slot(cache[name], slot, new[:, 0])
+            else:
+                cache[name][:, slot] = new[:, 0]
 
     # absolute position of each slot given the ring has wrapped: the latest
     # write <= pos. [B, C] (per-row) or [1, C] (lockstep)
@@ -213,7 +364,20 @@ def attn_decode(params, x_tok, cache, pos, *, num_heads, num_kv_heads,
     if window:
         valid = valid & (abs_pos > pos_b - window)
     out = _attend(q, cache["k"], cache["v"], valid[:, None, :])
-    return _out_proj(out, params["wo"], x_tok.dtype), cache
+    return _cache_out_proj(out, params["wo"], num_kv_heads,
+                           x_tok.dtype), cache
+
+
+def _write_slot(cache_t, slot: int, new) -> None:
+    """``cache_t[:, slot] = new`` on rank 0's block of a split cache, in
+    place: the slot is written where rank 0 holds it (a cache split by
+    sequence holds one range of slots), ``new`` at the cache's layout
+    after its hint. DTensor would gather a split cache to write into it."""
+    lo, n = local_range(cache_t, 1)
+    if lo <= slot < lo + n:
+        pl = remap(cache_t.placements, {0: 0, 2: 1, 3: 2})
+        cache_t.to_local()[:, slot - lo] = \
+            new.redistribute(new.device_mesh, pl).to_local()
 
 
 class ChunkPlan(NamedTuple):
@@ -287,10 +451,13 @@ def attn_prefill_chunk(params, x_chunk, cache, base_pos, tok_valid, *,
                                    num_kv_heads, head_dim)
     q = apply_rope(q, plan.pos, rope_theta)
     k_new = apply_rope(k_new, plan.pos, rope_theta)
+    k_new = shard(k_new, "batch", None, "cache_heads", "cache_hd")
+    v_new = shard(v_new, "batch", None, "cache_heads", "cache_hd")
     cache["k"][plan.rows, plan.slots] = k_new[plan.rows, plan.cols]
     cache["v"][plan.rows, plan.slots] = v_new[plan.rows, plan.cols]
     out = _attend(q, cache["k"], cache["v"], plan.valid)
-    return _out_proj(out, params["wo"], x_chunk.dtype), cache
+    return _cache_out_proj(out, params["wo"], num_kv_heads,
+                           x_chunk.dtype), cache
 
 
 # ---------------------------------------------------------------------------
@@ -357,6 +524,8 @@ def _attend_paged(params, x, cache, plan: PagedPlan, *, num_heads,
                                    head_dim)
     q = apply_rope(q, plan.pos, rope_theta)
     k_new = apply_rope(k_new, plan.pos, rope_theta)
+    k_new = shard(k_new, "batch", None, "cache_heads", "cache_hd")
+    v_new = shard(v_new, "batch", None, "cache_heads", "cache_hd")
     # the whole step is written before any query attends
     for name, new in (("k", k_new), ("v", v_new)):
         cache[name].view(p_bs, *new.shape[2:])[plan.phys] = \
@@ -365,7 +534,7 @@ def _attend_paged(params, x, cache, plan: PagedPlan, *, num_heads,
         k_rows = _gather_pages(cache["k"], plan.pages)
         v_rows = _gather_pages(cache["v"], plan.pages)
     out = _attend(q, k_rows, v_rows, plan.valid)
-    return _out_proj(out, params["wo"], x.dtype), cache
+    return _cache_out_proj(out, params["wo"], num_kv_heads, x.dtype), cache
 
 
 def attn_decode_paged(params, x_tok, cache, pos, block_tables, *, num_heads,

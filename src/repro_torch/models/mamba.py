@@ -15,7 +15,10 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import SSMConfig
-from repro_torch.models.common import dense_init, normal
+from repro_torch.models.common import (dense_init, is_sharded, local_call,
+                                       no_partial, normal, padded_split,
+                                       remap, reshape, shard, shard_dims,
+                                       unpad, whole, with_partial)
 
 CHUNK = 32
 
@@ -116,6 +119,50 @@ def ssd_sequential(a, xh, bt, ct, dt, h0):
     return y, h
 
 
+def _ssd_by_lanes(scan, a, xh, bt, ct, dt, h0):
+    """``scan`` on rank 0's (batch, head) lanes, at xh's placements after
+    its hint, through ``local_map``: the scan's chunk loop is local to a
+    head. The head-shared b and c are split by batch only, their
+    gradients partial sums over the head axes."""
+    pl = no_partial(xh.placements)
+    per_head = remap(pl, {0: 0, 2: 2})                        # a, dt
+    shared = remap(pl, {0: 0})                                # bt, ct
+    st = remap(pl, {0: 0, 2: 1})                              # h0
+    pad = padded_split(xh, 2, "dff")
+    if pad is not None:
+        return _ssd_padded(scan, (a, xh, bt, ct, dt, h0), pad,
+                           (per_head, pl, shared, shared, per_head, st))
+    heads = shard_dims(pl, 2)
+    return local_call(
+        scan, (a, xh, bt, ct, dt, h0),
+        (per_head, pl, shared, shared, per_head, st), (pl, st),
+        (per_head, pl, with_partial(shared, heads),
+         with_partial(shared, heads), per_head, st))
+
+
+def _ssd_padded(scan, args, pad, in_pl):
+    """``_ssd_by_lanes`` where the model axis does not divide the heads
+    (xh whole on heads): rank 0 scans its share of them as XLA pads the
+    split, ceil(H / ways) heads from ``pad``'s first, its outputs padded
+    to that share, then gathered and cut back to the H heads."""
+    from torch.distributed.tensor import Shard
+    dims, per, first = pad
+    h = args[1].shape[2]
+    lo, hi = first, min(h, first + per)
+
+    def split(pl, d):
+        return tuple(Shard(d) if m in dims else p for m, p in enumerate(pl))
+
+    def local(a, xh, bt, ct, dt, h0):
+        y, hn = scan(a[:, :, lo:hi], xh[:, :, lo:hi], bt, ct, dt[:, :, lo:hi],
+                     h0[:, lo:hi])
+        n = per - (hi - lo)
+        return (F.pad(y, (0, 0, 0, n)), F.pad(hn, (0, 0, 0, 0, 0, n)))
+    y, hn = local_call(local, args, in_pl,
+                       (split(in_pl[1], 2), split(in_pl[5], 1)))
+    return unpad(y, 2, h), unpad(hn, 1, h)
+
+
 def mamba_forward(params, x, state, cfg: SSMConfig, d_model: int):
     """x: [B, S, D]; state: dict(conv [B,W-1,inner], ssm [B,H,hd,N]).
     The chunked scan when S is a multiple of 32 (and > 1), else the
@@ -128,20 +175,24 @@ def mamba_forward(params, x, state, cfg: SSMConfig, d_model: int):
     z = torch.matmul(x, params["in_proj"])
     xi, gate, b, c, dt = _split_proj(z, inner, cfg.state_dim)
     xi, conv_tail = _causal_conv(xi, params["conv_w"], state["conv"])
+    xi = shard(xi, "batch", None, "dff")
 
     dt = F.softplus(dt.float() + params["dt_bias"])                 # [B,S,H]
     a = torch.exp(-F.softplus(params["A_log"]) * dt)                 # [B,S,H]
-    xh = xi.reshape(b_sz, s_len, n_heads, cfg.head_dim).float()
+    xh = whole(xi, n_heads, 2).reshape(b_sz, s_len, n_heads,
+                                       cfg.head_dim).float()
     bt, ct = b.float(), c.float()                                    # [B,S,N]
 
     h0 = state["ssm"].float()
-    if s_len % CHUNK == 0 and s_len > 1:
-        y_ssm, h_n = ssd_chunked(a, xh, bt, ct, dt, h0)
+    scan = ssd_chunked if s_len % CHUNK == 0 and s_len > 1 \
+        else ssd_sequential
+    if is_sharded(xh):
+        y_ssm, h_n = _ssd_by_lanes(scan, a, xh, bt, ct, dt, h0)
     else:
-        y_ssm, h_n = ssd_sequential(a, xh, bt, ct, dt, h0)
+        y_ssm, h_n = scan(a, xh, bt, ct, dt, h0)
     # y_t = h_t @ C_t + D * x_t
     y = y_ssm + params["D"][:, None] * xh
-    y = y.reshape(b_sz, s_len, inner).to(x.dtype)
+    y = reshape(y, b_sz, s_len, inner).to(x.dtype)
     y = y * F.silu(gate).to(x.dtype)
     out = torch.matmul(y, params["out_proj"]).to(x.dtype)
     return out, {"conv": conv_tail.float(), "ssm": h_n}

@@ -20,6 +20,7 @@ and the miss outcomes, for every policy of ``BuddyPolicy``) is one
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, NamedTuple, Optional
 
 import torch
@@ -29,7 +30,10 @@ from repro_torch.configs.base import MoEConfig
 from repro_torch.core.policy import BuddyPolicy
 from repro_torch.kernels import ops
 from repro_torch.kernels.quant_ffn import quant_operands
-from repro_torch.models.common import dense_init, normal, one_hot, swiglu
+from repro_torch.models.common import (dense_init, is_sharded, local_call,
+                                       no_partial, normal, one_hot, remap,
+                                       shard, shard_dims, swiglu,
+                                       with_partial)
 
 
 class BuddyState(NamedTuple):
@@ -189,6 +193,76 @@ def _degraded_outputs(params: dict, x_flat, e_flat, deg_flat):
     return _unbin(out.reshape(-1, d), flat, kept)
 
 
+def _capacity_bin(x_flat, new_idx, *, s_n: int, k_n: int, e_n: int,
+                  cap: int):
+    """The capacity branch's binning, row-local: each batch row's S*K
+    slots into its own cap rows of every expert, the buffer laid out
+    [E, B, cap] so that it is the kernel's [E, C, D]. Returns (buf
+    [E, B*cap, D], flat [B*S*K] grid row or the sink, kept [B*S*K],
+    n_capacity_dropped [] int32)."""
+    d = x_flat.shape[1]
+    rows = x_flat.shape[0] // s_n
+    row_e = new_idx.reshape(rows, s_n * k_n).long()
+    onehot = one_hot(row_e, e_n)                             # [B, S*K, E]
+    pos = (onehot.cumsum(1) * onehot).sum(-1) - 1
+    kept = pos < cap
+    n_dropped = (~kept).sum().to(torch.int32)
+    b_idx = torch.arange(rows, device=x_flat.device)[:, None]
+    flat = torch.where(kept, row_e * (rows * cap) + b_idx * cap + pos,
+                       e_n * rows * cap).reshape(-1)
+    x_rep = x_flat.repeat_interleave(k_n, 0)                 # [T*K, D]
+    buf = _bin(x_rep, flat, e_n * rows * cap).view(e_n, rows * cap, d)
+    return buf, flat, kept.reshape(-1), n_dropped
+
+
+def _by_rows(bin_fn, x_flat, new_idx):
+    """``bin_fn(x_flat, new_idx)``, under a mesh on each device's batch
+    rows (``local_map``: DTensor has no rule for the slot scatter): the
+    buffer split on its rows dim as x is on its tokens, the dropped count
+    a partial sum over those axes. As the reference's vmapped scatter,
+    no token crosses a batch shard."""
+    if not is_sharded(x_flat):
+        return bin_fn(x_flat, new_idx)
+    from torch.distributed.tensor import Replicate
+    rows = no_partial(remap(x_flat.placements, {0: 0}))
+    rep = (Replicate(),) * len(rows)
+    return local_call(bin_fn, (x_flat, new_idx), (rows, rows),
+                      (remap(rows, {0: 1}), rows, rows,
+                       with_partial(rep, shard_dims(rows, 0))))
+
+
+def _unbin_rows(out, flat, kept, k_n: int):
+    """Each slot's expert output back, [T, K, D] (dropped slots zero),
+    row-local as ``_by_rows``; a partial sum of ``out`` (d_ff split) stays
+    one, and its gradient is the whole one."""
+    d = out.shape[-1]
+
+    def unbin(o, fl, kp):
+        return _unbin(o.reshape(-1, d), fl, kp).reshape(-1, k_n, d)
+    if not is_sharded(out):
+        return unbin(out, flat, kept)
+    rows = flat.placements
+    return local_call(unbin, (out, flat, kept), (out.placements, rows, rows),
+                      remap(out.placements, {1: 0}),
+                      (no_partial(out.placements), rows, rows))
+
+
+def _per_expert_misses(idx, missed, e_n: int):
+    """[E] int32: misses by the router's expert; under a mesh counted on
+    each device's rows, a partial sum over the batch axes."""
+    def count(i, m):
+        return torch.zeros(e_n, dtype=torch.int32, device=i.device) \
+            .index_add_(0, i.reshape(-1).long(),
+                        m.reshape(-1).to(torch.int32))
+    if not is_sharded(idx):
+        return count(idx, missed)
+    from torch.distributed.tensor import Replicate
+    rows = no_partial(remap(idx.placements, {0: 0}))
+    rep = (Replicate(),) * len(rows)
+    return local_call(count, (idx, missed), (rows, rows),
+                      with_partial(rep, shard_dims(rows, 0)))
+
+
 def _load_balance(logits, new_idx, e_n: int):
     t_n, k_n = new_idx.shape
     p_mean = torch.softmax(logits, dim=-1).mean(0)
@@ -275,7 +349,7 @@ def moe_forward(params: dict, x: torch.Tensor, cfg: MoEConfig, *,
         xr = x_flat.repeat_interleave(k_n, 0)[:, None, :].float()  # [N,1,D]
         h = F.silu(torch.bmm(xr, params["w1"][e_flat].float()))
         g = torch.bmm(xr, params["w3"][e_flat].float())
-        hg = (h * g).to(x.dtype).float()
+        hg = shard((h * g).to(x.dtype), None, None, "dff").float()
         y_rep = torch.bmm(hg, params["w2"][e_flat].float()).to(x.dtype)[:, 0]
         if run_degraded:
             deg_f = degraded.reshape(-1)
@@ -286,22 +360,14 @@ def moe_forward(params: dict, x: torch.Tensor, cfg: MoEConfig, *,
         # ---- capacity-based dispatch (row-local) --------------------------
         rows = x.shape[0] if x.ndim == 3 else 1
         s_n = t_n // rows
-        row_e = new_idx.reshape(rows, s_n * k_n).long()
-        onehot = one_hot(row_e, e_n)                             # [B, S*K, E]
-        pos = (onehot.cumsum(1) * onehot).sum(-1) - 1
         cap = s_n * k_n if dropless \
             else _capacity(s_n, k_n, e_n, capacity_factor)
-        kept = pos < cap
-        n_dropped = (~kept).sum().to(torch.int32)
-        # buffer laid out [E, B, cap] so that it is the kernel's [E, C, D]
-        b_idx = torch.arange(rows, device=dev)[:, None]
-        flat = torch.where(kept, row_e * (rows * cap) + b_idx * cap + pos,
-                           e_n * rows * cap).reshape(-1)
-        x_rep = x_flat.repeat_interleave(k_n, 0)                 # [T*K, D]
-        buf = _bin(x_rep, flat, e_n * rows * cap).view(e_n, rows * cap, d)
+        buf, flat, kept, n_dropped = _by_rows(
+            functools.partial(_capacity_bin, s_n=s_n, k_n=k_n, e_n=e_n,
+                              cap=cap), x_flat, new_idx)
+        buf = shard(buf, "expert", "batch", None)
         out = ops.expert_ffn(buf, params["w1"], params["w3"], params["w2"])
-        yk = _unbin(out.reshape(-1, d), flat, kept.reshape(-1)) \
-            .reshape(t_n, k_n, d)
+        yk = _unbin_rows(out, flat, kept, k_n)
         if run_degraded:
             deg_f = degraded.reshape(-1)
             y_deg = _degraded_outputs(params, x_flat, new_idx.reshape(-1),
@@ -310,9 +376,7 @@ def moe_forward(params: dict, x: torch.Tensor, cfg: MoEConfig, *,
                              y_deg.reshape(t_n, k_n, d), yk)
 
     y = (yk * weights[..., None].to(x.dtype)).sum(1)
-    miss_per_expert = torch.zeros(e_n, dtype=torch.int32, device=dev) \
-        .index_add_(0, idx.reshape(-1).long(),
-                    missed.reshape(-1).to(torch.int32))
+    miss_per_expert = _per_expert_misses(idx, missed, e_n)
     aux = MoEAux(_load_balance(logits, new_idx, e_n), new_idx, idx, probs,
                  substituted.sum(), missed.sum(), n_dropped, miss_per_expert,
                  substituted, missed, degraded.sum(), degraded,

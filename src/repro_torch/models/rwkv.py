@@ -18,7 +18,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
-from repro_torch.models.common import dense_init, normal, rmsnorm, shard
+from repro_torch.models.common import (dense_init, is_sharded, local_call,
+                                       no_partial, normal, remap, rmsnorm,
+                                       shard, shard_dims, with_partial)
 
 CHUNK = 32
 
@@ -156,6 +158,21 @@ def wkv_scan(r, k, v, w, u, state):
     return torch.stack(outs, 1), s
 
 
+def _wkv_by_lanes(wkv, r, k, v, w, u, state):
+    """``wkv`` on rank 0's (batch, head) lanes, at r's placements after its
+    hint, through ``local_map``: the decay factors, the chunk loop or scan
+    and its autograd Function see plain tensors (DTensor has no rule for
+    them), u and the state split by heads as r is, u's gradient a partial
+    sum over the batch axes."""
+    pl = no_partial(r.placements)
+    u_pl = remap(pl, {2: 0})
+    st_pl = remap(pl, {0: 0, 2: 1})
+    in_pl = (pl, pl, pl, pl, u_pl, st_pl)
+    grad_pl = (pl, pl, pl, pl, with_partial(u_pl, shard_dims(pl, 0)), st_pl)
+    return local_call(wkv, (r, k, v, w, u, state), in_pl, (pl, st_pl),
+                      grad_pl)
+
+
 def rwkv_time_mix(params, x, state, x_prev, *, num_heads, head_dim):
     """x [B, S, D]; state [B, H, dk, dv]; x_prev [B, 1, D].
     Returns (y, new_state, new_x_prev)."""
@@ -165,10 +182,11 @@ def rwkv_time_mix(params, x, state, x_prev, *, num_heads, head_dim):
                                           head_dim)
     r = shard(r, "batch", None, "heads", None)
     k = shard(k, "batch", None, "heads", None)
-    if s % CHUNK == 0 and s > 1:
-        out, new_state = wkv_chunked(r, k, v, w, params["u"], state)
+    wkv = wkv_chunked if s % CHUNK == 0 and s > 1 else wkv_scan
+    if is_sharded(r):
+        out, new_state = _wkv_by_lanes(wkv, r, k, v, w, params["u"], state)
     else:
-        out, new_state = wkv_scan(r, k, v, w, params["u"], state)
+        out, new_state = wkv(r, k, v, w, params["u"], state)
     out = out.reshape(b, s, num_heads * head_dim)
     out = rmsnorm(out.to(x.dtype), params["ln_x"])
     out = out * F.silu(g.reshape(b, s, -1)).to(x.dtype)

@@ -50,8 +50,11 @@ from repro_torch.models import mamba as mb
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rwkv as rw
 from repro_torch.models.common import (dense_init, embed_init, fold_in,
-                                       resolve_device, rmsnorm, swiglu,
-                                       torch_dtype, tree_leaves, tree_map)
+                                       is_sharded, local_call, local_range,
+                                       no_partial, remap, resolve_device,
+                                       rmsnorm, settle, shard, swiglu,
+                                       torch_dtype, tree_leaves, tree_map,
+                                       with_partial)
 
 _COUNTERS = ("lb", "n_sub", "n_miss", "n_drop", "n_degraded", "n_miss_drop",
              "n_peer", "miss_per_expert")
@@ -255,26 +258,65 @@ def _self_attn(p, x, cache, ctx: StepCtx):
                             **kw)[0]
 
 
+class _Residual(torch.autograd.Function):
+    """x + h under a mesh: a partial sum in h (a product over the split
+    d_ff or heads) is reduced first, so the residual stream stays whole on
+    the model axis, as the reference's embedding hint leaves it; and its
+    gradient is reduced the same way before it goes back to x and h (one
+    all-reduce per sublayer each way, as a tensor-parallel step makes).
+    Else DTensor would carry the partial sums on, through the norm and the
+    next products, and gather their weights to keep them."""
+
+    @staticmethod
+    def forward(ctx, x, h):
+        return x + settle(h)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = settle(g)
+        return g, g
+
+
+def _residual(x, h):
+    """x + h (``_Residual`` under a mesh)."""
+    if is_sharded(h):
+        return _Residual.apply(x, h)
+    return x + h
+
+
+def _zero_state(x, make):
+    """``make(batch)``: a recurrent block's zero state for x's rows. Under
+    a mesh, rank 0's rows, as DTensors split by batch as x is (a state
+    made whole would be taken as replicated, and the batch with it)."""
+    if not is_sharded(x):
+        return make(x.shape[0])
+    from torch.distributed.tensor import DTensor
+    pl = no_partial(remap(x.placements, {0: 0}))
+    return {k: DTensor.from_local(v, x.device_mesh, pl, run_check=False)
+            for k, v in make(local_range(x, 0)[1]).items()}
+
+
 def _rwkv_block(p, x, cache, ctx: StepCtx):
     """RWKV6 time mix + channel mix. "full" starts from zero state and
     drops the final one; "step" reads the layer's state from ``cache`` and
     writes the new state back into it in place."""
     cfg = ctx.cfg
-    st = cache if cache is not None else rw.init_rwkv_state(
-        x.shape[0], cfg.ssm.num_heads, cfg.ssm.head_dim, cfg.d_model,
-        x.device)
+    st = cache if cache is not None else _zero_state(
+        x, lambda b: rw.init_rwkv_state(b, cfg.ssm.num_heads,
+                                        cfg.ssm.head_dim, cfg.d_model,
+                                        x.device))
     h, wkv, x_tm = rw.rwkv_time_mix(
         p, rmsnorm(x, p["ln1"], cfg.norm_eps), st["wkv"],
         st["x_tm"].to(x.dtype), num_heads=cfg.ssm.num_heads,
         head_dim=cfg.ssm.head_dim)
-    x = x + h
+    x = _residual(x, h)
     h, x_cm = rw.rwkv_channel_mix(p, rmsnorm(x, p["ln2"], cfg.norm_eps),
                                   st["x_cm"].to(x.dtype))
     if cache is not None:
         cache["wkv"].copy_(wkv)
         cache["x_tm"].copy_(x_tm)
         cache["x_cm"].copy_(x_cm)
-    return x + h, cache, None
+    return _residual(x, h), cache, None
 
 
 def _mamba_block(p, x, cache, ctx: StepCtx):
@@ -282,14 +324,14 @@ def _mamba_block(p, x, cache, ctx: StepCtx):
     final state dropped; with it, the layer's state read and the new one
     written back in place."""
     cfg = ctx.cfg
-    st = cache if cache is not None else mb.init_mamba_state(
-        x.shape[0], cfg.d_model, cfg.ssm, x.device)
+    st = cache if cache is not None else _zero_state(
+        x, lambda b: mb.init_mamba_state(b, cfg.d_model, cfg.ssm, x.device))
     h, new = mb.mamba_forward(p["mamba"], rmsnorm(x, p["ln"], cfg.norm_eps),
                               st, cfg.ssm, cfg.d_model)
     if cache is not None:
         cache["conv"].copy_(new["conv"])
         cache["ssm"].copy_(new["ssm"])
-    return x + h, cache, None
+    return _residual(x, h), cache, None
 
 
 def block_forward(kind: str, p, x, cache, ctx: StepCtx, buddy=None):
@@ -301,8 +343,8 @@ def block_forward(kind: str, p, x, cache, ctx: StepCtx, buddy=None):
         return _mamba_block(p, x, cache, ctx)
     if kind == CROSS_DENSE:
         raise ValueError("cross-attn blocks run inside vlm_super groups")
-    x = x + _self_attn(p["attn"], rmsnorm(x, p["ln1"], cfg.norm_eps), cache,
-                       ctx)
+    x = _residual(x, _self_attn(p["attn"], rmsnorm(x, p["ln1"], cfg.norm_eps),
+                                cache, ctx))
     xn = rmsnorm(x, p["ln2"], cfg.norm_eps)
     aux = None
     if kind == ATTN_MOE:
@@ -313,7 +355,7 @@ def block_forward(kind: str, p, x, cache, ctx: StepCtx, buddy=None):
         aux = _moe_aux_dict(moe_aux, ctx.record)
     else:
         y = swiglu(xn, p["ffn"]["w1"], p["ffn"]["w3"], p["ffn"]["w2"])
-    return x + y, cache, aux
+    return _residual(x, y), cache, aux
 
 
 def _zero_moe_aux(cfg: ModelConfig, device) -> dict:
@@ -332,12 +374,12 @@ def _hybrid_super(lp, x, lc, ctx: StepCtx, shared):
     cfg = ctx.cfg
     for i, mp in enumerate(_layers(lp["mamba"])):
         x, _, _ = _mamba_block(mp, x, _at(lc and lc["mamba"], i), ctx)
-    x = x + _self_attn(shared["attn"], rmsnorm(x, lp["ln_attn"],
-                                               cfg.norm_eps),
-                       lc and lc["kv"], ctx)
+    x = _residual(x, _self_attn(shared["attn"], rmsnorm(x, lp["ln_attn"],
+                                                        cfg.norm_eps),
+                                lc and lc["kv"], ctx))
     xn = rmsnorm(x, shared["ln2"], cfg.norm_eps)
-    return x + swiglu(xn, shared["ffn"]["w1"], shared["ffn"]["w3"],
-                      shared["ffn"]["w2"])
+    return _residual(x, swiglu(xn, shared["ffn"]["w1"], shared["ffn"]["w3"],
+                               shared["ffn"]["w2"]))
 
 
 def _vlm_super(lp, x, lc, ctx: StepCtx, cross_embeds):
@@ -362,9 +404,10 @@ def _cross_block(cp, x, ctx: StepCtx, cross_embeds, cross_kv):
     else:
         h, _ = attn.attn_decode(cp["attn"], xn, None, ctx.positions,
                                 cross_kv=cross_kv, **_attn_kwargs(cfg))
-    x = x + h
+    x = _residual(x, h)
     xn = rmsnorm(x, cp["ln2"], cfg.norm_eps)
-    return x + swiglu(xn, cp["ffn"]["w1"], cp["ffn"]["w3"], cp["ffn"]["w2"])
+    return _residual(x, swiglu(xn, cp["ffn"]["w1"], cp["ffn"]["w3"],
+                               cp["ffn"]["w2"]))
 
 
 def _run_group(kind: str, gparams, x, gcache, ctx: StepCtx, gbuddy=None,
@@ -500,8 +543,33 @@ def init_paged_caches(cfg: ModelConfig, n_blocks: int, block_size: int, *,
 # ===========================================================================
 # Entry points
 # ===========================================================================
+def _lookup(embed, ids):
+    """``embed[ids]``. Under a mesh, on rank 0's rows of ids and its block
+    of the table (``local_call``): the table split by d_model keeps the
+    gather local, as the reference's layout means it to (DTensor's own
+    rule for the gradient's scatter fails on some torch versions); its
+    gradient is a partial sum over the axes that split the ids."""
+    if not is_sharded(embed):
+        return embed[ids]
+    from torch.distributed.tensor import Replicate, Shard
+    ids_pl = ids.placements if is_sharded(ids) else \
+        (Replicate(),) * embed.device_mesh.ndim
+    n = len(ids.shape)
+    e_pl, out_pl = [], []
+    for i, e in zip(ids_pl, embed.placements):
+        e = Replicate() if i.is_shard() or not e.is_shard(1) else e
+        e_pl.append(e)
+        out_pl.append(i if i.is_shard() else
+                      (Shard(n) if e.is_shard(1) else Replicate()))
+    e_pl = tuple(e_pl)
+    return local_call(lambda e, i: e[i], (embed, ids), (e_pl, ids_pl),
+                      tuple(out_pl),
+                      (with_partial(e_pl, {m for m, p in enumerate(ids_pl)
+                                           if p.is_shard()}), ids_pl))
+
+
 def _embed(params, cfg: ModelConfig, tokens, cond_embeds):
-    x = params["embed"][tokens]
+    x = shard(_lookup(params["embed"], tokens), "batch", None, None)
     if cfg.num_cond_tokens and cfg.family == "audio":
         # audio: the stubbed codec frame embeddings as a causal prefix
         if cond_embeds is None:
@@ -530,7 +598,8 @@ def _audio_offset(cfg: ModelConfig) -> int:
 def _logits(params, cfg: ModelConfig, x):
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    return torch.matmul(x.float(), head.float())
+    logits = torch.matmul(x.float(), head.float())
+    return shard(logits, "batch", *([None] * (logits.ndim - 2)), "vocab")
 
 
 def _iter_groups(params, cfg, caches, buddies):
@@ -610,7 +679,7 @@ def decode_step(params, cfg: ModelConfig, token, caches, pos, *,
     Returns (logits [B, V] f32, caches, aux)."""
     if window < 0:
         window = cfg.sliding_window
-    x = params["embed"][token][:, None, :]                        # [B, 1, D]
+    x = _lookup(params["embed"], token)[:, None, :]               # [B, 1, D]
     if _audio_offset(cfg):
         pos = pos + _audio_offset(cfg)
     paged = (None if block_tables is None else attn.paged_plan(
@@ -643,7 +712,8 @@ def prefill_chunk(params, cfg: ModelConfig, tokens, caches, base_pos,
     require_attention_stack(cfg, "chunked prefill")
     if window < 0:
         window = cfg.sliding_window
-    x = params["embed"][tokens]                                   # [B, C, D]
+    x = shard(_lookup(params["embed"], tokens), "batch", None,
+              None)                                               # [B, C, D]
     if _audio_offset(cfg):
         base_pos = base_pos + _audio_offset(cfg)
     plan = paged = None

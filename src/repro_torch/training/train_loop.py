@@ -22,7 +22,10 @@ import torch
 
 from repro_torch.configs.base import ATTN_MOE, ModelConfig
 from repro_torch.models import transformer
-from repro_torch.models.common import fold_in, tree_leaves, tree_map
+from repro_torch.models.common import (all_reduce, fold_in, is_sharded,
+                                       local_call, local_range, no_partial,
+                                       remap, shard_dims, tree_leaves,
+                                       tree_map)
 from repro_torch.training.optimizer import (AdamWConfig, OptState,
                                             apply_updates, init_opt_state)
 
@@ -33,12 +36,60 @@ def lm_loss(params, cfg: ModelConfig, tokens, targets, *, cond_embeds=None,
     logits, aux = transformer.forward_train(params, cfg, tokens,
                                             cond_embeds=cond_embeds, rng=rng,
                                             remat=remat)
-    logp = torch.log_softmax(logits.float(), dim=-1)
-    nll = -torch.gather(logp, -1, targets[..., None])[..., 0]
-    ce = nll.mean()
+    if is_sharded(logits) and shard_dims(logits.placements, logits.ndim - 1):
+        ce = _vocab_split_nll(logits, targets).mean()
+    else:
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        nll = -torch.gather(logp, -1, targets[..., None])[..., 0]
+        ce = nll.mean()
     n_moe = max(sum(r for k, r in cfg.stack() if k == ATTN_MOE), 1)
     loss = ce + lb_coef * aux["lb"] / n_moe
     return loss, {"ce": ce, "lb": aux["lb"] / n_moe}
+
+
+class _SplitNLL(torch.autograd.Function):
+    """-log softmax(logits)[target] of one device's vocab shard (inside a
+    ``local_call``): the max, the sum of exponentials and the target's
+    logit reduced across the shards, as XLA partitions the reference's
+    log_softmax and take_along_axis (three all-reduces of [B, S]); the
+    gradient, softmax less the one-hot, is local."""
+
+    @staticmethod
+    def forward(ctx, logits, targets, lo: int, mesh, dims):
+        z = logits.float()
+        m = all_reduce(z.amax(-1), "max", mesh, dims)
+        shifted = z - m[..., None]
+        lse = all_reduce(shifted.exp().sum(-1), "sum", mesh, dims).log()
+        idx = targets - lo
+        mine = (idx >= 0) & (idx < z.shape[-1])
+        idx = idx.clamp(0, z.shape[-1] - 1)
+        picked = torch.gather(shifted, -1, idx[..., None])[..., 0]
+        picked = all_reduce(torch.where(mine, picked, 0.0), "sum", mesh,
+                            dims)
+        ctx.save_for_backward(shifted, lse, idx, mine)
+        ctx.dtype = logits.dtype
+        return lse - picked
+
+    @staticmethod
+    def backward(ctx, g):
+        shifted, lse, idx, mine = ctx.saved_tensors
+        grad = (shifted - lse[..., None]).exp() * g[..., None]
+        grad = grad.scatter_add(-1, idx[..., None],
+                                torch.where(mine, -g, 0.0)[..., None])
+        return grad.to(ctx.dtype), None, None, None, None
+
+
+def _vocab_split_nll(logits, targets):
+    """The per-token NLL [B, S] of logits [B, S, V] split by vocab on the
+    model axis (the dry run's sharded trace), through ``_SplitNLL`` on
+    each device's rows and vocab shard."""
+    mesh = logits.device_mesh
+    pl = no_partial(logits.placements)
+    dims = shard_dims(pl, logits.ndim - 1)
+    rows = remap(pl, {d: d for d in range(logits.ndim - 1)})
+    lo = local_range(logits, logits.ndim - 1)[0]
+    return local_call(lambda z, t: _SplitNLL.apply(z, t, lo, mesh, dims),
+                      (logits, targets), (pl, rows), rows)
 
 
 class Span:

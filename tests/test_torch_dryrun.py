@@ -3,7 +3,8 @@ reference's: decode caches and their partition specs, the decode window,
 the FLOPs of a step counted on the meta device against the reference's
 loop-aware HLO count (``repro.launch.roofline.analyze_hlo`` of a
 single-device compile), meta counts against CPU counts of the same step,
-and one production case written to JSON."""
+and one production case written to JSON (traced sharded on the 16 x 16
+mesh: per-device counts, collectives and temporaries)."""
 import dataclasses
 import functools
 import json
@@ -296,7 +297,7 @@ def test_run_one_writes_a_complete_json(tmp_path, monkeypatch):
         mem["argument_bytes_by_input"].values())
     assert mem["output_size_bytes"] == sum(
         mem["output_bytes_by_output"].values())
-    assert mem["temp_size_bytes"] is None and mem["temp_size_note"]
+    assert mem["peak_bytes"] >= mem["temp_size_bytes"] > 0
     # kv heads (5) do not divide the model axis, the head dim (64) does:
     # per device k and v [L, B / 16, S, KV, hd / 16] bf16
     assert mem["argument_bytes_by_input"]["caches"] == \
@@ -307,16 +308,20 @@ def test_run_one_writes_a_complete_json(tmp_path, monkeypatch):
     assert counts["flops"] > 0 and counts["bytes"] > 0
     assert counts["flops"] == sum(v["flops"] for v in
                                   counts["by_op"].values())
-    assert roof["split"] == "even" and roof["collective_s"] is None
-    assert roof["collective_s_reason"]
-    assert roof["flops_per_device"] == counts["flops"] / 256
-    assert roof["memory_s"] == counts["bytes"] / 256 / 3.35e12
-    assert roof["dominant"] in ("compute", "memory")
+    hla = out["hlo_analysis"]
+    assert roof["split"] == "sharded" and roof["collective_s"] > 0
+    assert roof["collective_s"] == hla["coll_bytes"] / rl.H100.link_bytes_per_s
+    assert hla["coll_bytes"] == sum(hla["coll_bytes_by_op"].values()) > 0
+    assert set(hla["coll_counts"]) == set(hla["coll_bytes_by_op"])
+    assert roof["flops_per_device"] == counts["flops"] == hla["flops"]
+    assert roof["memory_s"] == counts["bytes"] / 3.35e12
+    assert roof["dominant"] in ("compute", "memory", "collective")
     assert roof["model_flops"] == rl.model_flops(cfg, "decode", 32768, 128)
     monkeypatch.setattr(rl, "H100", rl.HardwareSpec(hbm_bytes_per_s=1e12))
     dryrun.reanalyze_all(tmp_path)
     again = json.loads(path.read_text())["roofline"]
-    assert again["memory_s"] == counts["bytes"] / 256 / 1e12
+    assert again["memory_s"] == counts["bytes"] / 1e12
+    assert again["collective_s"] == roof["collective_s"]
 
 
 def test_main_runs_a_case_into_the_results_dir(tmp_path, monkeypatch,

@@ -1,8 +1,9 @@
-"""The port stands alone: importing every ``repro_torch`` module pulls in no
-JAX and nothing of the JAX package (checked in a fresh interpreter, since
-the test process itself has JAX loaded), and no source file of the port,
-its examples (``examples/torch_*.py``) or the chip smoke script imports
-either."""
+"""The port stands alone: importing every ``repro_torch`` module, and
+bringing up the sharded dry run's fake process group (torch's own
+backend), pulls in no JAX and nothing of the JAX package (checked in a
+fresh interpreter, since the test process itself has JAX loaded), and no
+source file of the port, its examples (``examples/torch_*.py``) or the
+chip smoke script imports either."""
 import os
 import re
 import subprocess
@@ -39,9 +40,14 @@ names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                 "repro_torch.")]
 for n in names:
     importlib.import_module(n)
+# the sharded dry run's fake process group: torch's own backend
+from repro_torch.launch.mesh import fake_mesh, make_test_mesh
+with fake_mesh(make_test_mesh(8)) as m:
+    assert m.size() == 8
+fake = "torch.testing._internal.distributed.fake_pg" in sys.modules
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
-print(len(names), int(all(m in names for m in NEW)), bad)
+print(len(names), int(all(m in names for m in NEW) and fake), bad)
 """
 
 
