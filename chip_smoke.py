@@ -35,8 +35,10 @@ committed fixture under ``results/bench``). Phases, one JSON line each:
            (torch.profiler); wkv_chunk at the train shape and at head dim
            128 (dynamic shared memory), each with its device time, ring
            depth and a SHA-256 of its outputs' bytes, and its autograd
-           backward on the card against the same on the CPU; and the FFN
-           kernels and route at Mixtral-8x7B's shapes (one line,
+           backward on the card against the same on the CPU; topk_gate
+           and route on signed-zero router rows (-0.0 below +0.0, as
+           lax.top_k orders them) against their plain versions; and the
+           FFN kernels and route at Mixtral-8x7B's shapes (one line,
            kernel "mixtral_shapes"): expert_ffn on the capacity branch's
            decode buffer [8, 4 x 2, 4096] and a chunk-8 step's [8, 4 x 16,
            4096] (d_ff 14336), grouped_ffn on a fused decode step's
@@ -65,6 +67,38 @@ committed fixture under ``results/bench``). Phases, one JSON line each:
            Mixtral (window 128) from weights made on the CPU, 4 x 124
            prompt + 8 new tokens, capacity and fused, without and with
            the int8 tier, held the same way
+  claims   the paper's claims as tests/test_system.py states them (the CPU
+           twin is tests/test_torch_system.py), on its token stream
+           (MarkovLM seed 11, drawn in its order): (a) the committed
+           fixture on the CPU through the plain versions and on the card
+           through the kernels (the card's run in its own launch-count
+           window: topk_gate, route and expert_ffn launch), under the
+           committed tables_a0.95_k16.npz and under the tables the
+           reference's test builds (CFT over co-activation and output
+           similarity, the similarity computed on each device, the
+           tables equal): substitute errors of the top buddy and of a
+           random expert (within ERR_TOL), teacher-forced agreement with
+           the full model at cache rate 0.5 over 3 residency draws under
+           the buddy tables, core.make_random_table's table, mode
+           "random" on it, drop and none (n_sub and the substituted masks
+           equal, agreement within AGREE_TOL), ServeEngine buddy against
+           mode "none" (fetches, substitutions and bytes equal, tokens/s
+           within TPS_RTOL) and the gates (no substitution at tau = 1 or
+           beta = 0); on the card the paper's inequalities: buddy error
+           below random, mean agreement of buddy minus the random table
+           above -0.005, fewer fetches and bytes than on-demand; ms per
+           forward; (b) deepseek-v2-lite-buddy at full width, the serve
+           phase's 8 layers, random weights from seed 0, in one launch-
+           count window: the offline pipeline (4 record=True forwards of
+           8 x 64, CoactivationRecorder, build_buddy_lists, calibrate_tau
+           over tae_from_probs, p15), then agreement on 8 x 48 tokens
+           under the buddy tables, make_random_table and drop over 3
+           residency draws, and the gates (n_sub 0); launches equal to one
+           topk_gate per MoE layer per forward without a policy, one
+           route per MoE layer per forward with one, expert_ffn in every
+           forward, and the same in torch.profiler's count of kernel
+           functions over one forward of each kind; seconds per stage. No quality inequality at
+           full width: random weights carry no co-activation structure
   serve    deepseek-v2-lite-buddy at full width cut to 8 layers, random
            weights from seed 0, two paths, each in its own launch-count
            window: (1) buddy profiling, a fused-dispatch batch (4 x 8 prompt
@@ -291,11 +325,10 @@ the seven kernels launched; each frees its weights before the next.
            norm at every step; wall per step, the forward / backward /
            optimizer split, tokens/s, peak memory
 
-The line new_phase_seconds gives the seconds of the long-context phases
-(long_context and dryrun (c)'s two cases) and their sum, every phase's
-seconds (all_phases), and main's seconds in all and outside the phases. The kernels line's topk_gate and expert_ffn
-launches include moe_train's and the dryrun phase's (which adds route's
-too).
+The line new_phase_seconds gives the seconds of the claims phase, every
+phase's seconds (all_phases), and main's seconds in all and outside the
+phases. The kernels line's topk_gate and expert_ffn launches include
+claims', moe_train's and the dryrun phase's (which adds route's too).
 
 Then the kernels table line, the card's name and power limit as nvidia-smi
 prints them, and the result line. Without a CUDA card, or outside a checkout,
@@ -428,11 +461,13 @@ def device_us(fn, n: int = 10, by_op: bool = False) -> dict:
             out = {"device_us": sum(_self_device_us(e) for e in evts) / n,
                    "device_ops_per_call": sum(e.count for e in evts) / n}
             if by_op:
-                by = {}
+                by, count = {}, {}
                 for e in evts:
                     by[e.key[:60]] = (by.get(e.key[:60], 0.0)
                                       + _self_device_us(e) / n)
+                    count[e.key[:60]] = count.get(e.key[:60], 0) + e.count / n
                 out["device_us_by_op"] = by
+                out["device_ops_by_op"] = count
             return out
     return {"device_us": None, "device_ops_per_call": None}
 
@@ -537,6 +572,57 @@ def _route_slots(gen, t_n, e_n, k_n, dev):
                         for _ in range(t_n)]).to(torch.int32).to(dev)
 
 
+def _signed_zero_logits(gen, t_n: int, e_n: int, k_n: int):
+    """[T, E] f32 router logits with signed zeros, as the reference's
+    serving top-k (lax.top_k) orders them: -0.0 below +0.0. Row 0 holds
+    zeros of random sign only; each other row fewer than K positive logits,
+    then zeros of both signs across the K-th place, then negatives."""
+    import torch
+    z = torch.empty(t_n, e_n)
+    for i in range(t_n):
+        signs = torch.where(torch.rand(e_n, generator=gen) < 0.5, -1.0, 1.0)
+        if i == 0:
+            z[i] = signs * 0.0
+            continue
+        n_pos = int(torch.randint(0, k_n, (1,), generator=gen))
+        n_zero = min(e_n - n_pos, k_n - n_pos + 1
+                     + int(torch.randint(2, 8, (1,), generator=gen)))
+        row = torch.cat([
+            torch.randint(1, 3, (n_pos,), generator=gen).float(),
+            signs[:n_zero] * 0.0,
+            -torch.randint(1, 3, (e_n - n_pos - n_zero,),
+                           generator=gen).float()])
+        z[i] = row[torch.randperm(e_n, generator=gen)]
+    return z
+
+
+def _signed_zero_case(dev, gen, t_n: int, e_n: int, k_n: int) -> dict:
+    """topk_gate and route on the card against their plain versions on
+    signed-zero rows: equal indices and the picked logits' bits (their
+    signs) equal."""
+    import torch
+    from repro_torch.kernels.route import route_cuda, route_plain
+    from repro_torch.kernels.topk_gate import topk_gate_cuda, topk_gate_plain
+    z = _signed_zero_logits(gen, t_n, e_n, k_n).to(dev)
+    got, want = topk_gate_cuda(z, 0.2, k=k_n), topk_gate_plain(z, 0.2, k=k_n)
+    gate_eq = (torch.equal(got[0], want[0]) and torch.equal(got[4], want[4])
+               and torch.equal(got[1].view(torch.int32),
+                               want[1].view(torch.int32)))
+    table, q = _buddy_tables(gen, e_n, 8, dev)
+    resident = (torch.rand(e_n, generator=gen) < 0.5).to(dev)
+    args = (z, 0.2, 1.1, resident, table, q)
+    rg = route_cuda(*args, k=k_n, h=8, rho=3)
+    rw = route_plain(*args, k=k_n, h=8, rho=3)
+    route_eq = all(torch.equal(getattr(rg, f), getattr(rw, f))
+                   for f in ROUTE_EXACT) and torch.equal(
+        rg.topk_logits.view(torch.int32), rw.topk_logits.view(torch.int32))
+    require(gate_eq and route_eq, f"signed zeros T={t_n} E={e_n} K={k_n}: "
+                                  f"topk_gate {gate_eq}, route {route_eq}")
+    return {"topk_gate_equal": gate_eq, "route_equal": route_eq,
+            "negative_zero_picks": int((want[1].view(torch.int32)
+                                        == -2 ** 31).sum())}
+
+
 def kernel_topk(dev, gen):
     import torch
     from repro_torch.kernels.topk_gate import topk_gate_cuda, topk_gate_plain
@@ -564,8 +650,16 @@ def kernel_topk(dev, gen):
     z = (torch.randn(256, e_n, generator=gen) * 2).round().to(dev)
     got, want = topk_gate_cuda(z, tau, k=k_n), topk_gate_plain(z, tau, k=k_n)
     require(torch.equal(got[0], want[0]), "topk_gate: tie order differs")
+    # -0.0 below +0.0, as lax.top_k: [-0, +0, -0, +0] at K = 2 picks [1, 3]
+    zeros = torch.tensor([[-0.0, 0.0, -0.0, 0.0]], device=dev)
+    require(topk_gate_cuda(zeros, tau, k=2)[0].tolist() == [[1, 3]]
+            == topk_gate_plain(zeros, tau, k=2)[0].tolist(),
+            "topk_gate: -0.0 is not ordered below +0.0")
+    zgen = torch.Generator().manual_seed(33)  # leaves gen's draws as they were
+    signed = {f"T{t}_E{e}_K{k}": _signed_zero_case(dev, zgen, t, e, k)
+              for t, e, k in ((4, 64, 6), (33, 256, 16), (256, 64, 6))}
     emit({"phase": "kernels", "kernel": "topk_gate", "E": e_n, "K": k_n,
-          "by_T": rows, "ties_equal": True})
+          "by_T": rows, "ties_equal": True, "signed_zeros": signed})
     return rows[4]
 
 
@@ -1508,6 +1602,415 @@ def phase_parity():
         require(err <= LOGIT_TOL, f"parity ({tag}): logits err {err}")
     emit(out)
     return out
+
+
+# ---------------------------------------------------------------------------
+# the claims phase: tests/test_system.py's claims (the twin is
+# tests/test_torch_system.py), on the fixture CPU vs card, then the offline
+# pipeline and the policies at full width
+CLAIM_POLICY = dict(tau=0.05, beta=1.1, rho=6, H=16, fallback="drop")
+CLAIM_SERVE = {"buddy": dict(tau=0.0, beta=1.1, rho=6, H=16),
+               "none": dict(mode="none")}
+CLAIM_GATES = {"tau_1": dict(tau=1.0, beta=1.1, rho=6, H=16),
+               "beta_0": dict(tau=0.0, beta=0.0, rho=6, H=16)}
+CLAIM_TRIALS = 3
+CLAIM_B, CLAIM_S = 8, 48           # the agreement batch
+AGREE_TOL = 1.0 / (CLAIM_B * CLAIM_S)   # one token of B x S
+ERR_TOL = 1e-5                     # substitute errors ~1, CPU vs card: f32
+#                                    matmuls in another order
+TPS_RTOL = 1e-6                    # the modeled clock, CPU vs card
+# tests/test_system.py's draws from one MarkovLM(seed=11), in its order
+CLAIM_STREAM = (("sims", (4, 64)), ("errs", (2, 64)),
+                ("agree", (CLAIM_B, CLAIM_S)), ("serve_buddy", (2, 4)),
+                ("serve_none", (2, 4)), ("gates", (2, 16)))
+
+
+def _residency_draws(seed: int, l_n: int, e_n: int, trials: int) -> list:
+    """``trials`` residency masks [L, E], half of each layer's experts."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(trials):
+        resident = np.zeros((l_n, e_n), bool)
+        for l in range(l_n):
+            resident[l, rng.choice(e_n, e_n // 2, replace=False)] = True
+        out.append(resident)
+    return out
+
+
+def _tiled_random_table(l_n: int, e_n: int, r_max: int = 16):
+    """core.make_random_table (a CPU generator, seed 7) tiled over the
+    layers: (table [L, E, R], q) numpy."""
+    import numpy as np
+    import torch
+    from repro_torch.core import make_random_table
+    t, q = make_random_table(e_n, r_max,
+                             generator=torch.Generator().manual_seed(7))
+    return (np.tile(t.numpy()[None], (l_n, 1, 1)),
+            np.tile(q.numpy()[None], (l_n, 1, 1)))
+
+
+def _policy_forward(params, cfg, toks, policy, resident, table, q,
+                    record=False):
+    """forward_train with ``policy`` over BuddyState(resident, table, q)
+    (numpy) on the params' device: (logits, aux)."""
+    import torch
+    from repro_torch.models import transformer
+    from repro_torch.models.moe import BuddyState
+    dev = params["embed"].device
+    l_n, e_n = resident.shape
+    bud = BuddyState(torch.from_numpy(resident).to(dev),
+                     torch.from_numpy(table).to(dev),
+                     torch.from_numpy(q).to(dev),
+                     torch.zeros((l_n, e_n), dtype=torch.int32, device=dev))
+    with torch.no_grad():
+        return transformer.forward_train(params, cfg, toks, policy=policy,
+                                         buddies=bud, record=record)
+
+
+def _agreement_runs(params, cfg, toks, top1, runs, record=False) -> dict:
+    """{(name, trial): (agreement, n_sub, substituted masks)}: ``runs`` maps
+    a name to (BuddyPolicy, table, q), each over the residency draws of
+    tests/test_system.py (seed 1)."""
+    l_n, e_n = next(iter(runs.values()))[1].shape[:2]
+    out = {}
+    for name, (pol, tab, q) in runs.items():
+        for trial, resident in enumerate(_residency_draws(1, l_n, e_n,
+                                                          CLAIM_TRIALS)):
+            logits, aux = _policy_forward(params, cfg, toks, pol, resident,
+                                          tab, q, record=record)
+            require(bool(logits.isfinite().all()),
+                    f"claims: non-finite logits under {name}")
+            subs = (aux["recorded"][0]["substituted"].cpu().numpy()
+                    if record else None)
+            out[name, trial] = (
+                float((logits.argmax(-1).cpu().numpy() == top1).mean()),
+                int(aux["n_sub"]), subs)
+    return out
+
+
+def _mean_agreement(agree: dict, name: str) -> float:
+    import numpy as np
+    return float(np.mean([agree[name, t][0] for t in range(CLAIM_TRIALS)]))
+
+
+def _claims_fixture(device) -> dict:
+    """Claims 3-6 of tests/test_system.py on the committed fixture on
+    ``device``, under the committed CFT tables and the tables the
+    reference's test builds (co-activation and output similarity, the
+    similarity computed here): substitute errors, teacher-forced agreement
+    (buddy, the port's random table, mode "random" on it, drop, none),
+    ServeEngine buddy against mode "none", and the gates."""
+    import numpy as np
+    import torch
+    from repro_torch.checkpoint.io import load_npz
+    from repro_torch.configs.deepseek_v2_lite_buddy import profiling
+    from repro_torch.core import (DROP, ORIGINAL, BuddyPolicy, BuddyTables,
+                                  CoactivationRecorder, build_buddy_lists,
+                                  load_tables)
+    from repro_torch.core.similarity import (all_layer_similarities,
+                                             collect_layer_inputs)
+    from repro_torch.models import transformer
+    from repro_torch.runtime.cache import ExpertCache
+    from repro_torch.serving.engine import ServeEngine
+    from repro_torch.training.data import MarkovLM
+    cfg = profiling()
+    l_n, e_n = cfg.num_layers, cfg.moe.num_experts
+    params = load_npz(str(FIXTURE / "model.npz"), device)
+    lm = MarkovLM(cfg.vocab_size, num_blocks=8, seed=11)
+    stream = {name: lm.sample(*shape) for name, shape in CLAIM_STREAM}
+    profile = CoactivationRecorder.load(str(FIXTURE / "coact.npz"))
+    sims = all_layer_similarities(cfg, params, stream["sims"])
+    q = np.stack([profile.conditional(l) for l in range(l_n)])
+    built = build_buddy_lists(q, alpha=0.95, k_max=16, activity=profile.A,
+                              output_sim=sims)
+    committed = load_tables(str(FIXTURE / "tables_a0.95_k16.npz"))
+    buddy_sets = {"committed": committed, "built": built}
+    rt, rq = _tiled_random_table(l_n, e_n)
+    out = {"built_table": built.table}
+    # 3. substitute errors: each buddy set's draws (numpy, seed 0)
+    xs = collect_layer_inputs(cfg, params, stream["errs"])
+    moe = params["groups"][0]["moe"]
+    errs = {}
+    with torch.no_grad():
+        for name, tb in buddy_sets.items():
+            rng = np.random.default_rng(0)
+            e = {"buddy": [], "random": []}
+            for l in range(l_n):
+                x = xs[l][:128]
+                w = {k: moe[k][l] for k in ("w1", "w3", "w2")}
+
+                def y(j):
+                    return (torch.nn.functional.silu(x @ w["w1"][j])
+                            * (x @ w["w3"][j])) @ w["w2"][j]
+
+                for i in range(e_n):
+                    if profile.A[l, i] <= 0 or tb.table[l, i, 0] < 0:
+                        continue
+                    jr = int(rng.choice([v for v in range(e_n) if v != i]))
+                    yi = y(i)
+                    for kind, j in (("buddy", int(tb.table[l, i, 0])),
+                                    ("random", jr)):
+                        e[kind].append(float(torch.linalg.norm(yi - y(j))
+                                             / (torch.linalg.norm(yi)
+                                                + 1e-8)))
+            errs[name] = {k: np.array(v) for k, v in e.items()}
+    out["errs"] = errs
+    # 4. agreement
+    toks = torch.as_tensor(stream["agree"]).to(device)
+    with torch.no_grad():
+        top1 = transformer.forward_train(params, cfg, toks)[0] \
+            .argmax(-1).cpu().numpy()
+    pol = BuddyPolicy(**CLAIM_POLICY)
+    runs = {name: (pol, tb.table, tb.q) for name, tb in buddy_sets.items()}
+    runs.update(random=(pol, rt, rq),
+                random_mode=(BuddyPolicy(**CLAIM_POLICY, mode="random"),
+                             rt, rq),
+                drop=(DROP, committed.table, committed.q),
+                none=(ORIGINAL, committed.table, committed.q))
+    out["top1"] = top1
+    out["agree"] = _agreement_runs(params, cfg, toks, top1, runs,
+                                   record=True)
+    if device == "cuda":
+        resident = _residency_draws(1, l_n, e_n, 1)[0]
+        out["forward_ms"] = {
+            "full": time_ms(lambda: transformer.forward_train(
+                params, cfg, toks), reps=10),
+            "buddy": time_ms(lambda: _policy_forward(
+                params, cfg, toks, pol, resident, committed.table,
+                committed.q), reps=10)}
+    # 5. serving, 6. the gates
+    out["serve"], out["gates"] = {}, {}
+    for name, tb in buddy_sets.items():
+        tables = BuddyTables(tb.table, tb.q,
+                             (tb.table >= 0).sum(-1).astype(np.int32))
+        out["serve"][name] = {}
+        for mode, kw in CLAIM_SERVE.items():
+            eng = ServeEngine(cfg, params, tables=tables,
+                              policy=BuddyPolicy(**kw),
+                              cache=ExpertCache(l_n, e_n, 0.5, seed=2),
+                              seed=2)
+            eng.generate(stream["serve_" + mode], max_new_tokens=6)
+            out["serve"][name][mode] = {
+                "n_miss_fetch": eng.stats.n_miss_fetch,
+                "n_sub": eng.stats.n_sub,
+                "total_bytes": eng.ledger.total_bytes,
+                "tokens_per_s": eng.stats.tokens_per_s}
+        gate_toks = torch.as_tensor(stream["gates"]).to(device)
+        resident = _residency_draws(3, l_n, e_n, 1)[0]
+        out["gates"][name] = {
+            case: int(_policy_forward(params, cfg, gate_toks,
+                                      BuddyPolicy(**kw), resident, tb.table,
+                                      tb.q)[1]["n_sub"])
+            for case, kw in CLAIM_GATES.items()}
+    return out
+
+
+def _claims_full(smi: str) -> dict:
+    """DeepSeek-V2-Lite-buddy at full width, the serve phase's 8 layers,
+    random weights from seed 0 on the card: the offline pipeline (record=
+    True forwards, CoactivationRecorder, build_buddy_lists, calibrate_tau
+    over tae_from_probs of the profile), then agreement with the full model
+    under the buddy tables, make_random_table and drop at cache rate 0.5
+    over 3 residency draws, and the gates, in one launch-count window."""
+    import numpy as np
+    import torch
+    from repro_torch.core import (DROP, BuddyPolicy, CoactivationRecorder,
+                                  build_buddy_lists, calibrate_tau,
+                                  tae_from_probs)
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer
+    from repro_torch.training.data import MarkovLM
+    cfg = serve.model_config(serve.parse_args(SERVE_FLAGS))
+    n_moe = sum(r for k, r in cfg.stack() if k == "attn_moe")
+    l_n, e_n = n_moe, cfg.moe.num_experts
+    stages = {}
+    t0 = time.perf_counter()
+    params = transformer.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    torch.cuda.synchronize()
+    stages["init_s"] = time.perf_counter() - t0
+    ops.reset_launch_counts()                  # the path starts here
+    n_plain = n_policy = 0                     # forwards without / with one
+    t0 = time.perf_counter()
+    rec = CoactivationRecorder(n_moe, e_n)
+    lm = MarkovLM(cfg.vocab_size, seed=0)
+    taes = []
+    with torch.no_grad():
+        for _ in range(4):
+            toks = torch.as_tensor(lm.sample(CLAIM_B, 64)).to("cuda")
+            _, aux = transformer.forward_train(params, cfg, toks, record=True)
+            n_plain += 1
+            per = aux["recorded"][0]
+            idx = per["indices"].cpu().numpy()
+            for l in range(n_moe):
+                rec.update(l, idx[l], per["probs"][l].cpu().numpy())
+                taes.append(tae_from_probs(per["probs"][l]).cpu().numpy())
+            rec.step_done()
+    tau = calibrate_tau(np.concatenate(taes), percentile=15)
+    q = np.stack([rec.conditional(l) for l in range(n_moe)])
+    tables = build_buddy_lists(q, alpha=0.95, k_max=16, activity=rec.A)
+    stages["profile_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    toks = torch.as_tensor(MarkovLM(cfg.vocab_size, seed=1).sample(
+        CLAIM_B, CLAIM_S)).to("cuda")
+    with torch.no_grad():
+        full = transformer.forward_train(params, cfg, toks)[0]
+    n_plain += 1
+    require(bool(full.isfinite().all()), "claims full: non-finite logits")
+    top1 = full.argmax(-1).cpu().numpy()
+    pol = BuddyPolicy(**dict(CLAIM_POLICY, tau=tau))
+    rt, rq = _tiled_random_table(l_n, e_n)
+    runs = {"buddy": (pol, tables.table, tables.q), "random": (pol, rt, rq),
+            "drop": (DROP, tables.table, tables.q)}
+    agree = _agreement_runs(params, cfg, toks, top1, runs)
+    n_policy += len(runs) * CLAIM_TRIALS
+    stages["agreement_s"] = time.perf_counter() - t0
+    resident = _residency_draws(3, l_n, e_n, 1)[0]
+    gates = {case: int(_policy_forward(params, cfg, toks, BuddyPolicy(**kw),
+                                       resident, tables.table,
+                                       tables.q)[1]["n_sub"])
+             for case, kw in CLAIM_GATES.items()}
+    n_policy += len(CLAIM_GATES)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()               # ... and ends here
+    # the profiler's count of this repo's device kernels in one forward
+    # without and one with a policy, by kernel function: topk_gate is one
+    # gate_kernel per MoE layer, route at 384 rows its two-launch form
+    # (gate_kernel, substitute_kernel), expert_ffn gate_up_kernel and
+    # down_kernel
+    prof = {
+        "plain": device_us(lambda: transformer.forward_train(
+            params, cfg, toks), n=1, by_op=True),
+        "policy": device_us(lambda: _policy_forward(
+            params, cfg, toks, pol, resident, tables.table, tables.q), n=1,
+            by_op=True)}
+    names = ("gate_kernel", "substitute_kernel", "route_cluster_kernel",
+             "gate_up_kernel", "down_kernel")
+    kernels_seen = {
+        k: {name: sum(c for op, c in (v.get("device_ops_by_op") or {})
+                      .items() if name in op.split("(")[0])
+            for name in names}
+        for k, v in prof.items()}
+    want_seen = {"plain": dict(zip(names, (n_moe, 0, 0, n_moe, n_moe))),
+                 "policy": dict(zip(names, (n_moe, n_moe, 0, n_moe, n_moe)))}
+    out = {"arch": cfg.arch_id, "layers": cfg.num_layers,
+           "d_model": cfg.d_model, "experts": e_n, "top_k": cfg.moe.top_k,
+           "batch": [CLAIM_B, CLAIM_S], "cache_rate": 0.5,
+           "tau_calibrated_p15": tau,
+           "buddy_list_mean": float(tables.sizes.mean()),
+           "agreement_mean": {n: _mean_agreement(agree, n) for n in runs},
+           "n_sub": {f"{n}_{t}": agree[n, t][1] for n, t in agree},
+           "gates_n_sub": gates, "launches": counts,
+           "launches_want": {"topk_gate": n_plain * n_moe,
+                             "route": n_policy * n_moe,
+                             "expert_ffn": (n_plain + n_policy) * n_moe},
+           "profiler_kernels": kernels_seen, "stages_s": stages,
+           "nvidia_smi": smi,
+           "note": "random initialised weights carry no co-activation "
+                   "structure: no quality inequality is asserted here"}
+    require(gates == {"tau_1": 0, "beta_0": 0},
+            f"claims full: a gate let a substitution through: {gates}")
+    require(all(counts[k] == v for k, v in out["launches_want"].items())
+            and counts["grouped_ffn"] == counts["quant_ffn"] == 0,
+            f"claims full: launches {counts}, want {out['launches_want']}")
+    require(kernels_seen == want_seen,
+            f"claims full: the profiler counted {kernels_seen}, want "
+            f"{want_seen}")
+    require(sum(agree["buddy", t][1] for t in range(CLAIM_TRIALS)) > 0,
+            "claims full: no substitution under the buddy tables")
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_claims(smi: str) -> dict:
+    """(a) The fixture's claims on the CPU (plain versions) and on the card
+    (kernels), in one launch-count window for the card's run; (b) the full-
+    width pipeline. Returns (a)'s launches."""
+    import numpy as np
+    from repro_torch.kernels import ops
+    t0 = time.perf_counter()
+    before = ops.launch_counts()
+    cpu = _claims_fixture("cpu")
+    require(ops.launch_counts() == before, "claims: the CPU run launched")
+    ops.reset_launch_counts()                  # the card's run starts here
+    card = _claims_fixture("cuda")
+    counts = ops.launch_counts()               # ... and ends here
+    fixture_s = time.perf_counter() - t0
+    require(counts["topk_gate"] > 0 and counts["route"] > 0
+            and counts["expert_ffn"] > 0,
+            f"claims: a kernel of the path did not launch: {counts}")
+    require(np.array_equal(cpu["built_table"], card["built_table"]),
+            "claims: the card built other buddy tables than the CPU")
+    require(np.array_equal(cpu["top1"], card["top1"]),
+            "claims: the full model's top-1 differs CPU vs card")
+    err_diff = max(float(np.abs(card["errs"][s][k] - cpu["errs"][s][k])
+                         .max()) for s in card["errs"]
+                   for k in ("buddy", "random"))
+    require(err_diff <= ERR_TOL, f"claims: substitute errors differ by "
+                                 f"{err_diff}")
+    for key, (a, n, subs) in card["agree"].items():
+        ca, cn, csubs = cpu["agree"][key]
+        require(n == cn and np.array_equal(subs, csubs),
+                f"claims {key}: substitutions differ CPU vs card ({n} / "
+                f"{cn})")
+        require(abs(a - ca) <= AGREE_TOL,
+                f"claims {key}: agreement {a} vs {ca} on the CPU")
+    for name, modes in card["serve"].items():
+        for mode, row in modes.items():
+            c = cpu["serve"][name][mode]
+            require(all(row[k] == c[k] for k in ("n_miss_fetch", "n_sub",
+                                                 "total_bytes"))
+                    and abs(row["tokens_per_s"] - c["tokens_per_s"])
+                    <= TPS_RTOL * c["tokens_per_s"],
+                    f"claims serve {name} {mode}: {row} vs {c} on the CPU")
+    require(card["gates"] == cpu["gates"]
+            and all(g == {"tau_1": 0, "beta_0": 0}
+                    for g in card["gates"].values()),
+            f"claims gates: {card['gates']} / {cpu['gates']}")
+    # the paper's inequalities on the card
+    agree = card["agree"]
+    diffs = {s: float(np.mean([agree[s, t][0] - agree["random", t][0]
+                               for t in range(CLAIM_TRIALS)]))
+             for s in ("committed", "built")}
+    err_means = {s: {k: float(v.mean()) for k, v in e.items()}
+                 for s, e in card["errs"].items()}
+    line = {"phase": "claims", "fixture": "results/bench/model.npz",
+            "seconds_fixture": fixture_s,
+            "agreement_mean": {n: _mean_agreement(agree, n)
+                               for n in ("committed", "built", "random",
+                                         "random_mode", "drop", "none")},
+            "agreement_buddy_minus_random": diffs,
+            "random_mode_equals_random_table": all(
+                agree["random_mode", t][:2] == agree["random", t][:2]
+                for t in range(CLAIM_TRIALS)),
+            "n_sub": {f"{n}_{t}": v[1] for (n, t), v in agree.items()},
+            "substitute_err_mean": err_means,
+            "err_max_diff_cpu": err_diff, "err_tol": ERR_TOL,
+            "agree_tol": AGREE_TOL, "serve": card["serve"],
+            "gates_n_sub": card["gates"],
+            "forward_ms": card["forward_ms"], "launches": counts,
+            "card_equals_cpu": True}
+    emit(line)
+    for s in ("committed", "built"):
+        e = err_means[s]
+        require(e["buddy"] < e["random"],
+                f"claims ({s}): buddy error {e['buddy']} !< random "
+                f"{e['random']}")
+        require(diffs[s] > -0.005,
+                f"claims ({s}): buddy agreement below random by {diffs[s]}")
+        b, o = card["serve"][s]["buddy"], card["serve"][s]["none"]
+        require(b["n_sub"] > 0 and o["n_miss_fetch"] > 0
+                and b["n_miss_fetch"] < o["n_miss_fetch"]
+                and b["total_bytes"] < o["total_bytes"],
+                f"claims ({s}): buddy does not fetch less: {b} vs {o}")
+    t0 = time.perf_counter()
+    full = _claims_full(smi)
+    emit(dict({"phase": "claims_full_width",
+               "seconds": time.perf_counter() - t0}, **full))
+    return {k: counts[k] + full["launches"][k] for k in counts}
 
 
 def _serve_path(serve, flags, params, gather_steps: int) -> dict:
@@ -3830,6 +4333,7 @@ def main() -> int:
     timed("kernels_mixtral", kernel_mixtral, dev, gen)
     timed("kernels_train_grads", kernel_train_grads, dev, gen)
     timed("parity", phase_parity)
+    claims = timed("claims", phase_claims, smi)
     counts, params = timed("serve", phase_serve)
     cont, ring_row = timed("continuous", phase_continuous, params)
     paged = timed("paged", phase_paged, params, ring_row)
@@ -3841,8 +4345,9 @@ def main() -> int:
     sims = timed("similarity", phase_similarity, params, cfg)
     dry_mix = timed("dryrun_mixtral", phase_dryrun_mixtral, params, cfg, smi)
     del params
-    counts = {k: counts[k] + cont[k] + paged[k] + tele[k] + mesh[k]
-              + place[k] + mix[k] + sims[k] + dry_mix[k] for k in counts}
+    counts = {k: counts[k] + claims[k] + cont[k] + paged[k] + tele[k]
+              + mesh[k] + place[k] + mix[k] + sims[k] + dry_mix[k]
+              for k in counts}
     timed("train_parity", phase_train_parity)
     timed("train_parity_smollm", phase_train_parity, "smollm-360m")
     counts["wkv_chunk"], params, cfg = timed(
@@ -3867,9 +4372,7 @@ def main() -> int:
     dry_sh = timed("dryrun_sharded", phase_dryrun_sharded, smi)
     counts = {k: counts[k] + dry_train[k] + dry_long[k] + dry_4k[k]
               + dry_sh[k] for k in counts}
-    new_s = {name: phase_s[name] for name in
-             ("dryrun_mixtral", "dryrun_train", "dryrun_prefill_32k",
-              "dryrun_train_4k", "dryrun_sharded")}
+    new_s = {name: phase_s[name] for name in ("claims",)}
     # the hybrid, VLM and audio families: no kernel of this repo
     family_phases = (("families_parity", phase_families_parity),
                      ("hybrid", phase_hybrid), ("vlm", phase_vlm),

@@ -23,10 +23,9 @@ import numpy as np
 import torch
 
 from repro_torch.configs.deepseek_v2_lite_buddy import profiling
-from repro_torch.core.buddies import build_buddy_lists
-from repro_torch.core.coactivation import CoactivationRecorder
-from repro_torch.core.gates import tae_from_logits
-from repro_torch.core.policy import BuddyPolicy
+from repro_torch.core import (BuddyPolicy, CoactivationRecorder,
+                              build_buddy_lists, calibrate_tau,
+                              tae_from_probs)
 from repro_torch.models import transformer
 from repro_torch.models.common import resolve_device
 from repro_torch.runtime.cache import ExpertCache
@@ -58,10 +57,9 @@ def main():
                 probs = per["probs"][l]
                 rec.update(l, per["indices"][l].cpu().numpy(),
                            probs.cpu().numpy())
-                # TAE of the renormalized top-k probabilities (Eq. 1)
-                taes.append(tae_from_logits(torch.log(probs)).cpu().numpy())
+                taes.append(tae_from_probs(probs).cpu().numpy())
             rec.step_done()
-    tau = float(np.percentile(np.concatenate(taes), 15))
+    tau = calibrate_tau(np.concatenate(taes), percentile=15)
     print(f"calibrated TAE gate tau (p15): {tau:.3f}")
 
     # ---- buddy lists via CFT (§3.3) ----

@@ -1,4 +1,6 @@
-"""Checkpoint I/O: the reference's npz key scheme <-> nested torch dicts.
+"""Checkpoint I/O: the reference's npz key scheme <-> nested torch dicts,
+and configs <-> json (``save_config`` / ``load_config``, the reference's
+format).
 
 Keys follow ``repro/checkpoint/io.py``: a '/'-joined path through the
 parameter tree (``embed``, ``groups/0/attn/wq``, ``groups/0/moe/w1``, ...),
@@ -7,6 +9,7 @@ Each group's arrays keep their stacked ``[L, ...]`` layout.
 """
 from __future__ import annotations
 
+import json
 import os
 from typing import Any
 
@@ -65,3 +68,16 @@ def load_npz(path: str, device) -> dict:
     """Load a reference ``save_pytree`` npz straight into torch tensors."""
     with np.load(path) as data:
         return params_from_numpy({k: data[k] for k in data.files}, device)
+
+
+def save_config(path: str, cfg_dict: dict) -> None:
+    """A config dict as indented json (values json cannot hold as str), as
+    the reference's ``save_config`` writes it."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with open(path, "w") as f:
+        json.dump(cfg_dict, f, indent=2, default=str)
+
+
+def load_config(path: str) -> dict:
+    with open(path) as f:
+        return json.load(f)

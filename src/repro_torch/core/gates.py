@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 
@@ -22,6 +23,18 @@ def tae_from_logits(topk_logits: torch.Tensor,
         return torch.zeros(topk_logits.shape[:-1], dtype=torch.float32,
                            device=topk_logits.device)
     p = torch.softmax(topk_logits.float() / temperature, dim=-1)
+    ent = -(p * torch.log(p.clamp(min=1e-20))).sum(-1)
+    return ent / math.log(k)
+
+
+def tae_from_probs(topk_probs) -> torch.Tensor:
+    """TAE from already-renormalized top-k probabilities ([..., K] tensor or
+    array -> [...] f32 tensor)."""
+    p = torch.as_tensor(topk_probs).float()
+    k = p.shape[-1]
+    if k <= 1:
+        return torch.zeros(p.shape[:-1], dtype=torch.float32, device=p.device)
+    p = p / p.sum(-1, keepdim=True).clamp(min=1e-20)
     ent = -(p * torch.log(p.clamp(min=1e-20))).sum(-1)
     return ent / math.log(k)
 
@@ -62,3 +75,11 @@ def distribution_gate(indices: torch.Tensor, resident: torch.Tensor,
                       beta: float) -> torch.Tensor:
     """True (scalar) when substitution is ALLOWED (delta < beta)."""
     return distribution_delta(indices, resident) < beta
+
+
+def calibrate_tau(tae_samples, percentile: float = 15.0) -> float:
+    """Percentile calibration of tau from a profiling TAE distribution
+    (§3.1: p in [10, 20]); tensor or array samples."""
+    if isinstance(tae_samples, torch.Tensor):
+        tae_samples = tae_samples.detach().cpu().numpy()
+    return float(np.percentile(np.asarray(tae_samples), percentile))

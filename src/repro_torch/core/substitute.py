@@ -199,3 +199,23 @@ def substitute(indices: torch.Tensor,
 
     return SubstituteResult(new_idx.to(torch.int32), substituted, missed,
                             allowed, dist_ok, degraded, dropped, peered)
+
+
+def make_random_table(num_experts: int, r_max: int, *,
+                      generator: torch.Generator) -> tuple:
+    """Random-substitution baseline (the paper's Tables 2-4): each expert's
+    'buddy list' is a uniform random permutation of the other experts, cut
+    to ``r_max``. Returns (table int32 [E, min(r_max, E - 1)], q f32 of the
+    same shape, every entry 1 / (E - 1)) on the generator's device. The
+    draws come from ``torch.randperm`` and cannot reproduce the
+    reference's ``jax.random.permutation``; the same generator state gives
+    the same table."""
+    dev = generator.device
+    rows = []
+    for i in range(num_experts):
+        perm = torch.randperm(num_experts, generator=generator, device=dev)
+        rows.append(perm[perm != i][:r_max])
+    table = torch.stack(rows).to(torch.int32)
+    q = torch.full(table.shape, 1.0 / max(num_experts - 1, 1),
+                   dtype=torch.float32, device=dev)
+    return table, q

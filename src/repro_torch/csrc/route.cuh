@@ -70,6 +70,11 @@ __device__ __forceinline__ float topk_softmax(float my_v, int K, float temperatu
   return ent;
 }
 
+// f32 bits -> an int32 whose order is the float order with -0.0 below
+// +0.0 (negative floats have their magnitude bits flipped). Its own
+// inverse. Logits are finite on every path: NaN order is not defined here.
+__device__ __forceinline__ int order_key(int bits) { return bits ^ ((bits >> 31) & 0x7fffffff); }
+
 // Warp sum of a double (every lane gets it).
 __device__ __forceinline__ double warp_sum(double x) {
 #pragma unroll
@@ -78,7 +83,8 @@ __device__ __forceinline__ double warp_sum(double x) {
 }
 
 // Router gate of row `row` by one warp (all 32 lanes call it): top-k by
-// iterative max with ties to the smallest expert index (signed zeros tie),
+// iterative max with ties to the smallest expert index, on order_key's
+// total order (-0.0 below +0.0, as lax.top_k orders them),
 // p = softmax of the top-k logits, TAE = entropy(p) / log K (0 when K = 1),
 // and the token gate (TokenGate). The row stays in registers (E <= 256
 // logits, 8 per lane); each of the K rounds is a warp-shuffle argmax on
@@ -124,20 +130,21 @@ __device__ __forceinline__ void gate_row(const float* __restrict__ logits, int r
   float my_v = 0.f;  // lane k < K: the k-th pick's logit and expert
   int my_i = 0;
   for (int k = 0; k < K; ++k) {
-    // lane-local best: strictly greater wins, so the smallest index among
-    // equal values stays (indices grow with j)
-    float best = 0.f;
+    // lane-local best key: strictly greater wins, so the smallest index
+    // among equal keys stays (indices grow with j)
+    int best = 0;
     int bi = NONE;
 #pragma unroll
     for (int j = 0; j < PER_LANE; ++j) {
-      if (!((taken >> j) & 1u) && (bi == NONE || v[j] > best)) {
-        best = v[j];
+      const int key = order_key(__float_as_int(v[j]));
+      if (!((taken >> j) & 1u) && (bi == NONE || key > best)) {
+        best = key;
         bi = lane + 32 * j;
       }
     }
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) {
-      const float ov = __shfl_xor_sync(FULL, best, off);
+      const int ov = __shfl_xor_sync(FULL, best, off);
       const int oi = __shfl_xor_sync(FULL, bi, off);
       if (oi != NONE && (bi == NONE || ov > best || (ov == best && oi < bi))) {
         best = ov;
@@ -147,7 +154,7 @@ __device__ __forceinline__ void gate_row(const float* __restrict__ logits, int r
     if ((bi & 31) == lane) taken |= 1u << (bi >> 5);
     if ((bi >> 5) == lane) req_word |= 1u << (bi & 31);
     if (k == lane) {
-      my_v = best;
+      my_v = __int_as_float(order_key(best));
       my_i = bi;
     }
   }

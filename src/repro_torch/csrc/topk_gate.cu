@@ -2,7 +2,8 @@
 // Activating Entropy (TAE) and the TAE gate, in one pass over the logits.
 //
 // Replaces the TPU kernel topk_gate_pallas (src/repro/kernels/topk_gate.py):
-// top-k by iterative max with ties to the smallest expert index, p =
+// top-k by iterative max with ties to the smallest expert index (-0.0
+// below +0.0, as lax.top_k orders them), p =
 // softmax(top-k logits), TAE = entropy(p) / log K (0 when K = 1), allow =
 // TAE > tau. Temperature 1 and no margin co-gate (route.cu has both).
 //

@@ -2,10 +2,12 @@
 gate (``csrc/topk_gate.cu``), plus its plain PyTorch version.
 
 Replaces the TPU kernel ``topk_gate_pallas`` (repro/kernels/topk_gate.py).
-Top-k is by iterative max with ties going to the smallest expert index;
-``torch.topk`` does not promise that order, so the plain version takes a
-stable descending sort. Bound on the H100: launch latency (a few KB per
-call); see the source note in the .cu file for the design.
+Top-k is by iterative max with ties going to the smallest expert index,
+on a total order of the floats that puts -0.0 below +0.0 as ``lax.top_k``
+(the reference's serving path, ``models/moe.py router_topk``) does;
+``torch.topk`` promises neither, so the plain version takes a stable
+descending sort of ``order_key``. Bound on the H100: launch latency (a
+few KB per call); see the source note in the .cu file for the design.
 
 The JAX package has no backward kernel (it trains on ``lax.top_k`` and a
 softmax), so ``TopkGate``'s gradient is torch ops, the same on both
@@ -25,12 +27,21 @@ MAX_E = 256
 MAX_K = 16
 
 
+def order_key(z: torch.Tensor) -> torch.Tensor:
+    """f32 -> int32 keys in the float order with -0.0 below +0.0: the
+    magnitude bits of negative floats flipped (route.cuh's order_key).
+    Logits are finite on every path; NaN order is not defined here."""
+    b = z.detach().view(torch.int32)
+    return b ^ ((b >> 31) & 0x7fffffff)
+
+
 def topk_gate_plain(logits: torch.Tensor, tau: float, *, k: int):
     """logits [T, E]; returns (idx [T,K] int32, vals [T,K] f32, probs [T,K]
     f32, tae [T] f32, allow [T] bool)."""
     z = logits.float()
-    vals_all, idx_all = torch.sort(z, dim=-1, descending=True, stable=True)
-    vals, idx = vals_all[:, :k], idx_all[:, :k]
+    idx = torch.sort(order_key(z), dim=-1, descending=True,
+                     stable=True).indices[:, :k]
+    vals = z.gather(1, idx)
     p = torch.exp(vals - vals[:, :1])
     p = p / p.sum(-1, keepdim=True).clamp(min=1e-20)
     if k > 1:

@@ -36,6 +36,7 @@ from repro_torch.kernels.wkv_chunk import (wkv_chunk_cuda,  # noqa: E402
 from repro_torch.kernels.wkv_chunk import stages as wkv_stages  # noqa: E402
 from repro_torch.models import moe as M  # noqa: E402
 from repro_torch.models import rwkv as R  # noqa: E402
+from _signed_zeros import ZEROS_ROW, signed_zero_rows  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 # f32 sums over D or F in another order; bf16 hidden products may round one
@@ -150,6 +151,30 @@ def test_route(dev, t, case):
     assert route_plan(t, k).launches == (1 if t <= CLUSTER_T else 2)
     if case == "none_masks":
         assert not got.substituted.any()
+
+
+@pytest.mark.parametrize("t,e,k", [(1, 4, 2), (4, 64, 6), (33, 256, 16),
+                                   (40, 8, 1), (300, 64, 6)])
+def test_signed_zeros(dev, t, e, k):
+    """Rows of mixed +-0.0, and rows whose k-th place falls among zeros of
+    both signs: topk_gate and route on the card pick what their plain
+    versions pick (-0.0 below +0.0, as lax.top_k), with the signs kept."""
+    z = torch.from_numpy(signed_zero_rows(t * 3 + e, t, e, k)).to(dev)
+    got, want = topk_gate_cuda(z, 0.3, k=k), topk_gate_plain(z, 0.3, k=k)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[4], want[4])
+    assert torch.equal(got[1].view(torch.int32), want[1].view(torch.int32))
+    g = _gen(t + e)
+    table = torch.stack([torch.randperm(e, generator=g)[:min(8, e - 1)]
+                         for _ in range(e)]).to(torch.int32)
+    q = torch.rand(table.shape, generator=g).sort(-1, descending=True).values
+    resident = torch.rand(e, generator=g) < 0.5
+    args = (z, 0.2, 1.1, resident.to(dev), table.to(dev), q.to(dev))
+    got = _route_check(args, dict(k=k, h=8, rho=3))
+    assert torch.equal(got.topk_logits.view(torch.int32),
+                       want[1].view(torch.int32))
+    if t == 1:
+        zeros = torch.from_numpy(ZEROS_ROW).to(dev)
+        assert topk_gate_cuda(zeros, 0.3, k=2)[0].tolist() == [[1, 3]]
 
 
 @pytest.mark.parametrize("t", [2, 258])

@@ -23,6 +23,7 @@ from repro_torch.kernels.quant_ffn import quant_ffn_cuda  # noqa: E402
 from repro_torch.kernels.route import route_cuda  # noqa: E402
 from repro_torch.kernels.topk_gate import (topk_gate_cuda,  # noqa: E402
                                            topk_gate_plain)
+from _signed_zeros import ZEROS_ROW, same_bits, signed_zero_rows  # noqa: E402
 
 # f32: both sides sum the same products in another order -> ~1e-6 relative;
 # bf16: the hidden product is rounded to bf16 between the matmuls on both
@@ -54,14 +55,47 @@ def test_topk_gate_matches_pallas(t, e, k):
 def test_topk_gate_ties_to_smallest_index(scale):
     """Logits on a coarse grid tie often: the plain version, the Pallas
     kernel and lax.top_k all take the smallest index first. Signed zeros
-    are normalized first: lax.top_k orders -0.0 below +0.0, while the plain
-    version and the CUDA kernel treat them as the tie they compare as."""
+    are normalized first, because the reference's own two paths differ on
+    them: lax.top_k (ref_topk_gate, and router_topk, which the reference
+    serves on) orders -0.0 below +0.0, while the Pallas kernel's iterative
+    max ties them. The port follows lax.top_k
+    (test_topk_gate_signed_zeros_follow_lax_top_k)."""
     rng = np.random.default_rng(7)
     z = (np.round(rng.normal(size=(32, 16)) * scale) + 0.0).astype(np.float32)
     got = topk_gate_plain(_t(z), 0.5, k=5)
     for want in (jops.topk_gate(jnp.asarray(z), 0.5, k=5),
                  ref.ref_topk_gate(jnp.asarray(z), 0.5, k=5)):
         np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
+
+
+@pytest.mark.parametrize("t,e,k", [(1, 4, 2), (32, 16, 5), (64, 64, 6),
+                                   (40, 8, 1), (9, 256, 16)])
+def test_topk_gate_signed_zeros_follow_lax_top_k(t, e, k):
+    """Rows of mixed +-0.0, and rows whose k-th place falls among zeros of
+    both signs, compared with no normalization: the plain version picks
+    what lax.top_k picks (-0.0 below +0.0), and its vals keep their sign."""
+    z = signed_zero_rows(t * 7 + e, t, e, k)
+    got = topk_gate_plain(_t(z), 0.5, k=k)
+    want = ref.ref_topk_gate(jnp.asarray(z), 0.5, k=k)
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
+    assert same_bits(got[1].numpy(), np.asarray(want[1]))
+    for g, w in zip(got[2:4], want[2:4]):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-5,
+                                   atol=1e-6)
+    np.testing.assert_array_equal(got[4].numpy(), np.asarray(want[4]))
+
+
+def test_topk_gate_signed_zeros_row_of_zeros():
+    """[-0, +0, -0, +0] at k = 2: lax.top_k and the plain version pick
+    [1, 3]; the reference's Pallas kernel, whose iterative max ties the
+    zeros, picks [0, 1]."""
+    z = jnp.asarray(ZEROS_ROW)
+    got = topk_gate_plain(_t(ZEROS_ROW), 0.5, k=2)[0].numpy()
+    np.testing.assert_array_equal(got, [[1, 3]])
+    want = np.asarray(ref.ref_topk_gate(z, 0.5, k=2)[0])
+    np.testing.assert_array_equal(want, [[1, 3]])
+    np.testing.assert_array_equal(np.asarray(jops.topk_gate(z, 0.5, k=2)[0]),
+                                  [[0, 1]])
 
 
 # --------------------------------------------------------- buddy_substitute

@@ -18,6 +18,7 @@ import jax.numpy as jnp  # noqa: E402
 from repro.core.gates import distribution_gate as jdist_gate  # noqa: E402
 from repro.core.policy import BuddyPolicy as JPolicy  # noqa: E402
 from repro.core.substitute import substitute as jsubstitute  # noqa: E402
+from repro.kernels import ref as jref  # noqa: E402
 from repro.kernels.topk_gate import topk_gate_pallas  # noqa: E402
 from repro_torch.configs.base import MoEConfig  # noqa: E402
 from repro_torch.core.policy import BuddyPolicy  # noqa: E402
@@ -27,6 +28,7 @@ from repro_torch.kernels.route import (CLUSTER_T,  # noqa: E402
                                        WORD_OUTPUTS, Route, launch_plan,
                                        outputs, route_plain)
 from repro_torch.models import moe as M  # noqa: E402
+from _signed_zeros import ZEROS_ROW, same_bits, signed_zero_rows  # noqa: E402
 
 E, K, R, H, RHO = 16, 4, 6, 5, 2
 TOL = 1e-6
@@ -48,18 +50,26 @@ def _tables(rng, e=E, r=R):
 
 
 def _compare(logits, tau, beta, resident, table, q, *, k=K, h=H, rho=RHO,
-             mode="buddy", quant_ok=None, peer_ok=None, **policy):
+             mode="buddy", quant_ok=None, peer_ok=None, served=False,
+             **policy):
     """route_plain against the JAX reference chain; returns the port's
     Route. ``policy``: route_plain's cost-mode, Psi and token-gate keyword
-    arguments (numpy arrays for the vectors)."""
+    arguments (numpy arrays for the vectors). The chain's router gate is
+    the Pallas kernel (interpret mode), or with ``served`` the lax.top_k
+    gate of the path the reference serves on (``ref.ref_topk_gate``: the
+    top-k of ``models/moe.py router_topk`` with its softmax and TAE)."""
     vecs = ("fid_cost", "fetch_cost", "peer_cost", "hop")
     got = route_plain(_t(logits), tau, beta, _t(resident), _t(table), _t(q),
                       k=k, h=h, rho=rho, substitute=mode != "none",
                       quant_ok=_t(quant_ok), peer_ok=_t(peer_ok),
                       **{n: _t(v) if n in vecs else v
                          for n, v in policy.items()})
-    idx, vals, probs, tae, allow = topk_gate_pallas(
-        jnp.asarray(logits), tau, k=k, interpret=True)
+    if served:
+        idx, vals, probs, tae, allow = jref.ref_topk_gate(
+            jnp.asarray(logits), tau, k=k)
+    else:
+        idx, vals, probs, tae, allow = topk_gate_pallas(
+            jnp.asarray(logits), tau, k=k, interpret=True)
     dist_ok = jdist_gate(idx, jnp.asarray(resident), beta)
     scalars = {n: v for n, v in policy.items() if n not in vecs}
     cost = scalars.pop("cost", False)
@@ -83,7 +93,7 @@ def _compare(logits, tau, beta, resident, table, q, *, k=K, h=H, rho=RHO,
     if pol.temperature == 1.0 and pol.margin_gamma >= 1.0:
         # the token gate is then the router kernel's own TAE gate
         np.testing.assert_array_equal(got.allow.numpy(), np.asarray(allow))
-    np.testing.assert_array_equal(got.topk_logits.numpy(), np.asarray(vals))
+    assert same_bits(got.topk_logits.numpy(), np.asarray(vals))
     for name, want in (("probs", probs), ("tae", tae)):
         np.testing.assert_allclose(getattr(got, name).numpy(),
                                    np.asarray(want), rtol=0, atol=TOL,
@@ -146,8 +156,9 @@ def test_route_plain_matches_reference(t, masks, mode, kind):
     logits = (rng.normal(size=(t, E)) * (4 if "g" in masks else 1)).astype(
         np.float32)
     if kind == "ties":
-        # +0.0: lax.top_k orders -0.0 below +0.0, the port treats them as
-        # the tie they compare as (tests/test_torch_kernels.py)
+        # +0.0: the chain's Pallas gate ties -0.0 with +0.0, the port
+        # orders -0.0 below as lax.top_k, the gate the reference serves
+        # on (test_route_plain_signed_zeros_follow_served_reference)
         logits = (np.round(logits * 1.5) + 0.0).astype(np.float32)
     resident = rng.random(E) < 0.5
     table, q = _tables(rng)
@@ -172,6 +183,38 @@ def test_route_plain_matches_reference(t, masks, mode, kind):
     if "g" in masks:
         # the margin co-gate shuts some gates that TAE alone opens
         assert not torch.equal(got.allow, got.tae > 0.2)
+
+
+@pytest.mark.parametrize("t,masks,mode", [
+    (1, "", "buddy"), (4, "qp", "buddy"), (32, "", "buddy"),
+    (32, "qp", "none"), (64, "cdr", "buddy"), (300, "h", "buddy")])
+def test_route_plain_signed_zeros_follow_served_reference(t, masks, mode):
+    """Rows of mixed +-0.0, and rows whose K-th place falls among zeros of
+    both signs, with no normalization: route_plain against lax.top_k's
+    gate, the distribution gate and core.substitute, every output."""
+    rng = np.random.default_rng(t * 5 + len(masks))
+    logits = signed_zero_rows(t + 101, t, E, K)
+    resident = rng.random(E) < 0.5
+    table, q = _tables(rng)
+    quant_ok = rng.random(E) < 0.4 if "q" in masks else None
+    peer_ok = rng.random(E) < 0.4 if "p" in masks else None
+    got = _compare(logits, 0.2, 1.1, resident, table, q, mode=mode,
+                   quant_ok=quant_ok, peer_ok=peer_ok, served=True,
+                   **_policy(rng, masks))
+    if mode == "buddy" and t >= 4 and "c" not in masks:
+        assert got.substituted.any()
+
+
+def test_route_plain_signed_zeros_row_of_zeros():
+    """[-0, +0, -0, +0] at K = 2: experts [1, 3] as lax.top_k picks them;
+    1 is not resident and its buddy 0 is substituted for it."""
+    table = np.array([[1, 2, 3], [0, 2, 3], [0, 1, 3], [0, 1, 2]], np.int32)
+    q = np.full((4, 3), 0.5, np.float32)
+    resident = np.array([True, False, True, True])
+    got = _compare(ZEROS_ROW, 0.2, 1.1, resident, table, q, k=2, h=3, rho=1,
+                   served=True)
+    np.testing.assert_array_equal(got.idx.numpy(), [[1, 3]])
+    np.testing.assert_array_equal(got.new_idx.numpy(), [[0, 3]])
 
 
 def _rows(picks, e=E):
