@@ -168,10 +168,38 @@ committed fixture under ``results/bench``). Phases, one JSON line each:
            push at two devices, the int8 replicas where they were and no
            more device memory held after the run or at its peak than
            without placement; expert_ffn and quant_ffn launches
-  mixtral  after placement, with the DeepSeek weights freed:
-           mixtral-8x7b at full width (d_model 4096, 32 query heads over 8
+  full_depth  after placement, with the 8-layer weights freed (under 1
+           GB allocated at the start): the serve launcher at its defaults,
+           serve.main with no --layers, so deepseek-v2-lite-buddy at all 27
+           layers in f32 (65.17 GB of weights), batch 4, 32 new tokens,
+           cache-rate 0.5, buddy, prev-step, precedence; four paths, each
+           in its own launch-count window: (1) the defaults (random weights
+           from seed 0: the gather branch, T*K = 24 < E = 64); (2) the same
+           weights through serve.main(argv, params=) with --fused-dispatch
+           (grouped_ffn); (3) --quant-tier int8 --miss-policy cost
+           (quant_ffn, the cost argmin in route; the int8 replicas of every
+           expert, 14.98 GB, beside the weights); (4) --mode continuous
+           --num-requests 8 --prefill-chunk 8 --fused-dispatch. Each path:
+           route once per MoE layer per step and no standalone routing
+           kernel; every kernel of the path launched, topk_gate and
+           expert_ffn once per MoE layer in each of buddy profiling's four
+           record=True forwards; every route call's slot outcomes (hit,
+           buddy, degraded, peer, fetch, drop) partition its T*K slots; at
+           layer 26, on the step's own operands, every route call equal to
+           route_plain (ints and masks) and the path's last DEEP_KEEP calls
+           of each other kernel equal to its plain version (the kernels
+           phase's tolerance); init_params's allocation equal to the meta count
+           (within 512 bytes a leaf). Gather and fused: the first step's
+           routing at every layer equal and its logits within LOGIT_TOL x
+           (1 + max |logit|); the route calls equal from the start and the
+           greedy tokens alike are counted. Printed per path: set-up
+           seconds (init_params, profile_buddies, attach_quant_tier), peak
+           memory, median decode ms after the first step, one profiled
+           step's device ms and ops and the idle share
+  mixtral  mixtral-8x7b at full width (d_model 4096, 32 query heads over 8
            KV heads, 8 experts x 14336, top-2, window 4096, f32) cut to 4
-           of its 32 layers, random weights from seed 0 on the card, four
+           of its 32 layers, random weights from seed 0 on the card (their
+           allocation equal to the meta count), four
            paths through the launcher's entry points, each in its own
            launch-count window: (1) the default batch (4 x 8 prompt + 8
            new tokens), every decode step in the capacity branch
@@ -180,10 +208,20 @@ committed fixture under ``results/bench``). Phases, one JSON line each:
            slots); (4) --mode continuous --slots 4 --num-requests 8
            --prefill-chunk 8. Every request completes, every step launches
            route once per MoE layer and no standalone routing kernel, and
-           every step off the fused path expert_ffn once per layer; wall
-           ms per step (synchronized host clock), peak memory, parameter
-           count (reduced Mixtral's CPU-vs-card parity is in the parity
-           phase)
+           every step off the fused path expert_ffn once per layer; the
+           slot outcomes and the last layer's kernels as in full_depth;
+           wall ms per step (synchronized host clock), one profiled step's
+           device ms and the idle share, peak memory, parameter count, and
+           each FFN kernel of the path on its kept last-layer operands with
+           the most filled rows (the capacity decode buffer [8, 8, D], the
+           fused [16, 8, D], the tier's [8, 8, D] with counts): ms, device
+           ms and the plain version's ms against its bound (reduced
+           Mixtral's CPU-vs-card parity is in the parity phase)
+  mixtral_8x22b  after dryrun_mixtral, with the 8x7B weights freed: the
+           mixtral phase's paths and checks for mixtral-8x22b (d_model
+           6144, 48 query heads over 8 KV heads, 8 experts x 16384) cut to
+           4 of its 56 layers (41.68 GB): the FFN tile at D = 6144, F =
+           16384
   similarity  expert output similarity, the path in its own launch-count
            window: the committed fixture's all_layer_similarities on the
            card, and every Mixtral layer's [8, 256, 4096] calibration rows
@@ -325,9 +363,9 @@ the seven kernels launched; each frees its weights before the next.
            norm at every step; wall per step, the forward / backward /
            optimizer split, tokens/s, peak memory
 
-The line new_phase_seconds gives the seconds of the claims phase, every
-phase's seconds (all_phases), and main's seconds in all and outside the
-phases. The kernels line's topk_gate and expert_ffn launches include
+The line new_phase_seconds gives the seconds of the full_depth and
+mixtral_8x22b phases, every phase's seconds (all_phases), and main's
+seconds in all and outside the phases. The kernels line's topk_gate and expert_ffn launches include
 claims', moe_train's and the dryrun phase's (which adds route's too).
 
 Then the kernels table line, the card's name and power limit as nvidia-smi
@@ -384,6 +422,8 @@ OUT_DIR = ROOT / "chiprun_out"     # trace exports (git ignores it)
 MIXTRAL_FLAGS = ["--arch", "mixtral-8x7b", "--layers", "4", "--cache-rate",
                  "0.5", "--policy", "buddy", "--predictor", "prev-step",
                  "--batch", "4", "--steps", "8"]
+# the mixtral_8x22b phase: Mixtral-8x22B at full width, 4 of its 56 layers
+MIXTRAL_8X22B_FLAGS = ["--arch", "mixtral-8x22b"] + MIXTRAL_FLAGS[2:]
 SIM_TOL = 1e-5                 # output cosine means, card vs CPU and kernel
 #                                vs plain: f32 sums over D and N in another
 #                                order, each cosine in [-1, 1]
@@ -436,27 +476,15 @@ def device_us(fn, n: int = 10, by_op: bool = False) -> dict:
     and copies) per call, from torch.profiler over ``n`` back-to-back
     calls: what the card spends apart from waiting for the host (with
     ``by_op``, also per device op, by the first 60 characters of its
-    name, summed over the ops that share them). Two spin
-    kernels (torch.cuda._sleep) open and close the window and are left out:
-    the profiler can drop a window's first or last device event. A window
-    with no device event (seen once) is taken again, up to three times;
-    then the numbers are None, "not measured"."""
+    name, summed over the ops that share them). The window is
+    ``profiled``'s. A window with no device event (seen once) is taken
+    again, up to three times; then the numbers are None, "not
+    measured"."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
     for _ in range(3):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            torch.cuda._sleep(1000)
-            for _ in range(n):
-                fn()
-            torch.cuda._sleep(1000)
-            torch.cuda.synchronize()
-        evts = [e for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA
-                and _self_device_us(e) > 0 and "spin" not in e.key.lower()]
+        _, evts = profiled(lambda: [fn() for _ in range(n)])
         if evts:
             out = {"device_us": sum(_self_device_us(e) for e in evts) / n,
                    "device_ops_per_call": sum(e.count for e in evts) / n}
@@ -470,6 +498,26 @@ def device_us(fn, n: int = 10, by_op: bool = False) -> dict:
                 out["device_ops_by_op"] = count
             return out
     return {"device_us": None, "device_ops_per_call": None}
+
+
+def profiled(fn) -> tuple:
+    """(fn's result, the device events of its one call): torch.profiler
+    over the call between two spin kernels (torch.cuda._sleep), which open
+    and close the window and are left out, since the profiler can drop a
+    window's first or last device event; events with no device time are
+    left out too."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(1000)
+        out = fn()
+        torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+    return out, [e for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA
+                 and _self_device_us(e) > 0 and "spin" not in e.key.lower()]
 
 
 def device_ops(fn) -> list:
@@ -2140,14 +2188,25 @@ def phase_serve():
 class StepLog:
     """Records every ServeEngine.step and .prefill_rows call while open
     (patched on the class, so it also sees the engines that serve.main
-    builds): its kind ("chunk", "decode", or "probe" for the lockstep batch
-    that sizes the auto arrival rate), tokens fed, wall ms on a host clock
-    synchronized with the card, and the kernel launches it made; and the
-    range of every sampled token array."""
+    builds): its kind ("chunk", "decode", or "probe" for a lockstep batch:
+    generate's steps, and the probe that sizes the auto arrival rate),
+    tokens fed, wall ms on a host clock synchronized with the card, and the
+    kernel launches it made; and the range of every sampled token array.
+    ``profile``: (kind, n), the n-th step of that kind runs under
+    torch.profiler (``profiled``) and gets its device ms and device ops
+    (None where the window caught no device event: not measured) and the
+    flag "profiled"; ``keep_logits``: every step's logits, on the host."""
 
-    def __init__(self):
-        self.steps, self.sampled = [], []
+    def __init__(self, profile=None, keep_logits: bool = False):
+        self.steps, self.sampled, self.logits = [], [], []
         self.engine = None             # the engine of the last step
+        self.profile = profile
+        self.keep_logits = keep_logits
+
+    def walls(self, kind: str) -> list:
+        """Wall ms of the steps of ``kind``, the profiled one left out."""
+        return [st["ms"] for st in self.steps
+                if st["kind"] == kind and not st.get("profiled")]
 
     def __enter__(self):
         from repro_torch.serving.engine import ServeEngine
@@ -2184,21 +2243,240 @@ class StepLog:
                 pos = a[1] if len(a) > 1 else kw["pos"]
                 kind = "decode" if isinstance(pos, np.ndarray) else "probe"
                 fed = int(tokens.shape[0])
+            nth = sum(st["kind"] == kind for st in self.steps)
+            prof = self.profile == (kind, nth)
             before = ops.launch_counts()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            out = fn(eng, tokens, *a, **kw)
+            if prof:
+                out, evts = profiled(lambda: fn(eng, tokens, *a, **kw))
+            else:
+                out = fn(eng, tokens, *a, **kw)
             torch.cuda.synchronize()
             ms = (time.perf_counter() - t0) * 1e3
             after = ops.launch_counts()
             self.engine = eng
-            self.steps.append({"kind": kind, "tokens": fed, "ms": ms,
-                               "layers": eng.num_moe_layers,
-                               "launches": {k: after[k] - before[k]
-                                            for k in after}})
+            rec = {"kind": kind, "tokens": fed, "ms": ms,
+                   "layers": eng.num_moe_layers,
+                   "launches": {k: after[k] - before[k] for k in after}}
+            if prof:
+                rec.update(profiled=True, device_ms=(
+                    sum(_self_device_us(e) for e in evts) / 1e3
+                    if evts else None),
+                    device_ops=sum(e.count for e in evts) if evts else None)
+            self.steps.append(rec)
+            if self.keep_logits and name == "step":
+                self.logits.append(out[0].detach().float().cpu())
             return out
 
         return call
+
+
+class SetupLog:
+    """Records the launcher's set-up calls while open (patched where
+    build_engine and ServeEngine look them up): transformer.init_params,
+    serve.profile_buddies and quantize.attach_quant_tier, each with its
+    seconds on the synchronized host clock, the device memory it left
+    allocated (bytes after minus before), the peak since the last reset of
+    the peak and its kernel launches. After init_params the peak is reset,
+    so a path's peak is that of serving beside the weights."""
+
+    NAMES = (("repro_torch.models.transformer", "init_params"),
+             ("repro_torch.launch.serve", "profile_buddies"),
+             ("repro_torch.core.quantize", "attach_quant_tier"))
+
+    def __init__(self):
+        self.calls = []
+
+    def __enter__(self):
+        import importlib
+        self._orig = []
+        for mod, name in self.NAMES:
+            m = importlib.import_module(mod)
+            fn = getattr(m, name)
+            self._orig.append((m, name, fn))
+            setattr(m, name, self._timed(name, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for m, name, fn in self._orig:
+            setattr(m, name, fn)
+
+    def _timed(self, name, fn):
+        import torch
+        from repro_torch.kernels import ops
+
+        def call(*a, **kw):
+            torch.cuda.synchronize()
+            mem, before = torch.cuda.memory_allocated(), ops.launch_counts()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            after = ops.launch_counts()
+            self.calls.append({"name": name, "s": time.perf_counter() - t0,
+                               "allocated_bytes":
+                                   torch.cuda.memory_allocated() - mem,
+                               "peak_gb":
+                                   torch.cuda.max_memory_allocated() / 1e9,
+                               "launches": {k: after[k] - before[k]
+                                            for k in after}})
+            if name == "init_params":
+                torch.cuda.reset_peak_memory_stats()
+            return out
+
+        return call
+
+    def seconds(self) -> dict:
+        out = {}
+        for c in self.calls:
+            out[c["name"]] = out.get(c["name"], 0.0) + c["s"]
+        return out
+
+    def one(self, name: str) -> dict:
+        got = [c for c in self.calls if c["name"] == name]
+        require(len(got) == 1, f"set-up: {len(got)} calls of {name}")
+        return got[0]
+
+
+TAPPED = ("route", "topk_gate", "expert_ffn", "grouped_ffn", "quant_ffn")
+DEEP_KEEP = 8             # deepest-layer calls a KernelTap keeps per kernel
+
+
+class KernelTap:
+    """Wraps the kernel dispatchers a MoE layer calls (``ops.<name>`` for
+    the TAPPED kernels) while open, for a model of ``layers`` MoE layers
+    whose every forward and step calls each tapped kernel it runs once per
+    layer, in layer order: so a kernel's call i is at layer i % layers.
+    Keeps every route call's output with a copy of its residency mask (the
+    slot-outcome partition), every deepest-layer route call's inputs
+    (copies) and output, and the last DEEP_KEEP deepest-layer calls of
+    each other kernel (their operands and outputs: fresh buffers and the
+    weights, which nothing writes). Counts the calls per kernel."""
+
+    def __init__(self, layers: int):
+        import collections
+        self.layers = layers
+        self.calls = dict.fromkeys(TAPPED, 0)
+        self.routes, self.deep_routes = [], []
+        self.deep = collections.defaultdict(
+            lambda: collections.deque(maxlen=DEEP_KEEP))
+
+    def __enter__(self):
+        from repro_torch.kernels import ops
+        self._orig = {n: getattr(ops, n) for n in TAPPED}
+        for n in TAPPED:
+            setattr(ops, n, self._tap(n, self._orig[n]))
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import ops
+        for n, fn in self._orig.items():
+            setattr(ops, n, fn)
+
+    def _tap(self, name, fn):
+        import torch
+
+        def cp(v):
+            return v.clone() if torch.is_tensor(v) else v
+
+        def call(*a, **kw):
+            deep = self.calls[name] % self.layers == self.layers - 1
+            self.calls[name] += 1
+            if name == "route":
+                args = ([cp(v) for v in a], {k: cp(v) for k, v in kw.items()})
+            out = fn(*a, **kw)
+            if name == "route":
+                self.routes.append((args[0][3], out))
+                if deep:
+                    self.deep_routes.append((*args, out))
+            elif deep:
+                self.deep[name].append((a, kw, out))
+            return out
+
+        return call
+
+    def partition(self) -> dict:
+        """Every route call's slots split into the six outcomes: hit (the
+        router's expert resident), buddy (substituted), degraded, peer,
+        fetch (missed) and drop; each slot must be exactly one of them, so
+        the counts sum to T*K per call. Returns the counts over all calls
+        and the slots checked."""
+        import torch
+        names = ("hit", "buddy", "degraded", "peer", "fetch", "drop")
+        tot = dict.fromkeys(names, 0)
+        slots = 0
+        for resident, r in self.routes:
+            masks = torch.stack([resident[r.idx.long()], r.substituted,
+                                 r.degraded, r.peered, r.missed, r.dropped])
+            per_slot = masks.to(torch.int32).sum(0)
+            require(bool((per_slot == 1).all()),
+                    f"slot outcomes do not partition T*K: {per_slot.tolist()}"
+                    f" at T = {r.idx.shape[0]}")
+            for n, c in zip(names, masks.sum((1, 2)).tolist()):
+                tot[n] += int(c)
+            slots += r.idx.numel()
+        require(sum(tot.values()) == slots, f"outcomes {tot} of {slots}")
+        return {"route_calls": len(self.routes), "slots": slots, **tot}
+
+    def deep_parity(self) -> dict:
+        """At the deepest layer, on the path's own operands: every route
+        call against route_plain (ints and masks equal, floats within
+        TOL_GATE), and the kept calls of each other kernel against its
+        plain version (topk_gate: indices and the gate equal, floats within
+        TOL_GATE; the FFN kernels within TOL_F32 x (1 + max |plain|), the
+        kernels phase's tolerance)."""
+        import torch
+        from repro_torch.kernels.expert_ffn import expert_ffn_plain
+        from repro_torch.kernels.grouped_ffn import grouped_ffn_plain
+        from repro_torch.kernels.quant_ffn import quant_ffn_plain
+        from repro_torch.kernels.route import route_plain
+        from repro_torch.kernels.topk_gate import topk_gate_plain
+        out = {}
+        if self.deep_routes:
+            err, equal = 0.0, True
+            for a, kw, got in self.deep_routes:
+                want = route_plain(*a, **kw)
+                equal &= all(torch.equal(getattr(got, f), getattr(want, f))
+                             for f in ROUTE_EXACT)
+                err = max(err, max(max_err(getattr(got, f), getattr(want, f))
+                                   for f in ("topk_logits", "probs", "tae")))
+            out["route"] = {"calls": len(self.deep_routes),
+                            "ints_and_masks_equal": equal,
+                            "max_abs_err": err}
+            require(equal and err <= TOL_GATE,
+                    f"route at layer {self.layers - 1} differs from "
+                    f"route_plain: {out['route']}")
+        for a, kw, got in self.deep.get("topk_gate", ()):
+            want = topk_gate_plain(*a, **kw)
+            equal = torch.equal(got[0], want[0]) and torch.equal(got[-1],
+                                                                 want[-1])
+            err = max(max_err(g, w) for g, w in zip(got[1:], want[1:])
+                      if g.is_floating_point())
+            row = out.setdefault("topk_gate", {
+                "shape": list(a[0].shape), "calls": 0,
+                "idx_and_allow_equal": True, "max_abs_err": 0.0})
+            row["calls"] += 1
+            row["idx_and_allow_equal"] &= equal
+            row["max_abs_err"] = max(row["max_abs_err"], err)
+            require(equal and err <= TOL_GATE,
+                    f"topk_gate at layer {self.layers - 1}: {row}")
+        plains = {"expert_ffn": expert_ffn_plain,
+                  "grouped_ffn": grouped_ffn_plain,
+                  "quant_ffn": quant_ffn_plain}
+        for name, plain in plains.items():
+            for a, kw, got in self.deep.get(name, ()):
+                want = plain(*a, **kw)
+                err, top = max_err(got, want), float(want.abs().max())
+                row = out.setdefault(name, {
+                    "shape": list(a[0].shape), "calls": 0,
+                    "max_abs_err": 0.0, "max_abs_plain": 0.0})
+                row["calls"] += 1
+                row["max_abs_err"] = max(row["max_abs_err"], err)
+                row["max_abs_plain"] = max(row["max_abs_plain"], top)
+                require(err <= TOL_F32 * (1 + top),
+                        f"{name} at layer {self.layers - 1}, "
+                        f"{tuple(a[0].shape)}: err {err}")
+        return out
 
 
 def _continuous_row(log: StepLog, s: dict, counts: dict) -> dict:
@@ -2652,33 +2930,11 @@ def phase_telemetry(params):
     return counts
 
 
-def _route_recorder(calls: list):
-    """ops.route wrapped to keep a copy of every call's inputs and output
-    (the peer inputs included) for the check against route_plain."""
-    import torch
-    from repro_torch.kernels import ops
-    real = ops.route
-
-    def route(*a, **kw):
-        got = real(*a, **kw)
-
-        def cp(v):
-            return v.clone() if torch.is_tensor(v) else v
-
-        calls.append(([cp(v) for v in a], {k: cp(v) for k, v in kw.items()},
-                      type(got)(*[cp(v) for v in got])))
-        return got
-
-    return real, route
-
-
 def phase_mesh(params):
     """The simulated expert-parallel mesh at full width (8 layers) on the
     serve phase's weights; see the module note. Returns the launches."""
-    import torch
     import numpy as np
     from repro_torch.kernels import ops
-    from repro_torch.kernels.route import route_plain
     from repro_torch.launch import serve
     t_phase = time.perf_counter()
     out = {"phase": "mesh"}
@@ -2692,14 +2948,10 @@ def phase_mesh(params):
         args = serve.parse_args(flags + extra)
         eng, lm = serve.build_engine(args, params=params)
         prompts = lm.sample(args.batch, 8)
-        calls = captured.setdefault(tag, [])
-        real, recorder = _route_recorder(calls)
-        ops.route = recorder
-        try:
-            with StepLog() as log:
-                toks = eng.generate(prompts, args.steps)
-        finally:
-            ops.route = real
+        # KernelTap(1): every call is kept with its inputs
+        with KernelTap(1) as tap, StepLog() as log:
+            toks = eng.generate(prompts, args.steps)
+        captured[tag] = tap
         s = eng.summary()
         st = s["stats"]
         row = {**_step_ms(log), "n_hit": st["n_hit"], "n_sub": st["n_sub"],
@@ -2708,8 +2960,8 @@ def phase_mesh(params):
                "stall_breakdown": s["stall_breakdown"]}
         require(np.all((toks >= 0) & (toks < eng.cfg.vocab_size)),
                 f"mesh ({tag}): a token outside the vocabulary")
-        require(len(calls) == eng.num_moe_layers * st["steps"],
-                f"mesh ({tag}): {len(calls)} route calls for "
+        require(len(tap.routes) == eng.num_moe_layers * st["steps"],
+                f"mesh ({tag}): {len(tap.routes)} route calls for "
                 f"{st['steps']} steps")
         if "mesh" in s:
             m = s["mesh"]
@@ -2742,26 +2994,18 @@ def phase_mesh(params):
 
     # route on every captured layer call of the D = 4 runs (the engine's
     # peer_ok / peer_cost, hop and costs as they reached the card) against
-    # route_plain on the same inputs on the card
+    # route_plain on the same inputs on the card (KernelTap.deep_parity)
     for tag in ("d4_precedence", "d4_cost"):
-        n_peered, err, equal = 0, 0.0, True
-        for a, kw, got in captured[tag]:
-            want = route_plain(*a, **kw)
-            equal &= all(torch.equal(getattr(got, f), getattr(want, f))
-                         for f in ROUTE_EXACT)
-            err = max(err, max(max_err(getattr(got, f), getattr(want, f))
-                               for f in ("topk_logits", "probs", "tae")))
-            n_peered += int(got.peered.sum())
-        vec = {k: kw[k] is not None for k in ("peer_ok", "peer_cost",
-                                              "fetch_cost")}
-        out[tag]["route_vs_plain"] = {
-            "calls": len(captured[tag]), "ints_and_masks_equal": equal,
-            "max_abs_err": err, "n_peered": n_peered, "inputs": vec}
-        require(equal and err <= TOL_GATE,
-                f"mesh ({tag}): route differs from route_plain on the "
-                f"engine's inputs: {out[tag]['route_vs_plain']}")
-        require(n_peered > 0 and (vec["peer_cost"] if "cost" in tag
-                                  else vec["peer_ok"]),
+        tap = captured[tag]
+        kw = tap.deep_routes[-1][1]
+        row = dict(tap.deep_parity()["route"],
+                   n_peered=sum(int(r.peered.sum()) for _, r in tap.routes),
+                   inputs={k: kw[k] is not None
+                           for k in ("peer_ok", "peer_cost", "fetch_cost")})
+        out[tag]["route_vs_plain"] = row
+        require(row["n_peered"] > 0 and (row["inputs"]["peer_cost"]
+                                         if "cost" in tag
+                                         else row["inputs"]["peer_ok"]),
                 f"mesh ({tag}): no peer input or peered slot reached route")
 
     # the committed fixture on a 4-device mesh, CPU against the card
@@ -2882,6 +3126,226 @@ def phase_placement(params):
 
 
 # ---------------------------------------------------------------------------
+# the full_depth phase: the serve launcher at its defaults (no --layers:
+# deepseek-v2-lite-buddy at all 27 layers, f32, batch 4, 32 new tokens,
+# cache-rate 0.5, buddy, prev-step, precedence); (tag, flags, kernels the
+# path must launch: topk_gate and expert_ffn in buddy profiling)
+FULL_DEPTH_PATHS = (
+    ("gather", [], ("route", "topk_gate", "expert_ffn")),
+    ("fused", ["--fused-dispatch"],
+     ("route", "topk_gate", "expert_ffn", "grouped_ffn")),
+    ("cost_int8_tier", ["--quant-tier", "int8", "--miss-policy", "cost"],
+     ("route", "topk_gate", "expert_ffn", "quant_ffn")),
+    ("continuous", ["--mode", "continuous", "--num-requests", "8",
+                    "--prefill-chunk", "8", "--fused-dispatch"],
+     ("route", "topk_gate", "expert_ffn", "grouped_ffn")))
+FRESH_BYTES = 1 << 30     # device memory a full-size phase may find taken
+ALLOC_ROUND = 512         # the caching allocator rounds each block up to it
+PROFILED_STEP = 4         # the step of each path run under torch.profiler
+
+
+def moe_layers(cfg) -> int:
+    return sum(r for k, r in cfg.stack() if k == "attn_moe")
+
+
+def meta_weight_bytes(cfg) -> tuple:
+    """(bytes, leaves) of init_params(cfg) counted on the meta device."""
+    from repro_torch.models import transformer
+    from repro_torch.models.common import tree_leaves
+    leaves = tree_leaves(transformer.init_params(cfg, None, "meta"))
+    return nbytes(*leaves), len(leaves)
+
+
+def _launcher_path(serve, argv, params, layers: int) -> dict:
+    """serve.main(argv, params=params) in its own launch-count window, its
+    printed summary kept out of the log, with its set-up calls (SetupLog),
+    its kernel calls (KernelTap) and its steps (StepLog, the logits kept,
+    step PROFILED_STEP of the path's kind profiled) recorded."""
+    import contextlib
+    import io
+    import torch
+    from repro_torch.kernels import ops
+    kind = "decode" if "continuous" in argv else "probe"
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.memory_allocated()
+    ops.reset_launch_counts()                  # this path starts here
+    t0 = time.perf_counter()
+    with SetupLog() as setup, KernelTap(layers) as tap, \
+            StepLog(profile=(kind, PROFILED_STEP), keep_logits=True) as log:
+        with contextlib.redirect_stdout(io.StringIO()):
+            s = serve.main(argv, params=params)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()               # ... and ends here
+    return {"summary": s, "setup": setup, "tap": tap, "log": log,
+            "kind": kind, "counts": counts, "run_s": time.perf_counter() - t0,
+            "allocated_gb_at_start": start / 1e9,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def _check_launcher_path(tag: str, run: dict, kernels, vocab: int,
+                         layers: int) -> dict:
+    """The checks of a full-depth serve path and its row: launches per step
+    and per path, the set-up's launches, the slot-outcome partition, the
+    deepest layer's kernels against their plain versions, tokens in the
+    vocabulary; decode ms (median of the steps of the path's kind after
+    the first), the profiled step's device ms and the idle share."""
+    s, log, counts = run["summary"], run["log"], run["counts"]
+    st = s["stats"] if "stats" in s else s["engine"]["stats"]
+    for step in log.steps:
+        d = step["launches"]
+        require(d["route"] == layers and d["topk_gate"] == 0
+                and d["buddy_substitute"] == 0,
+                f"{tag}: want route once per MoE layer and no standalone "
+                f"routing kernel in every step, got {step}")
+    require(all(counts[k] > 0 for k in kernels),
+            f"{tag}: a kernel of the path did not launch: {counts}")
+    prof = run["setup"].one("profile_buddies")
+    forwards = 4 * layers                      # profile_buddies' 4 forwards
+    require(prof["launches"]["topk_gate"] == forwards
+            and prof["launches"]["expert_ffn"] == forwards
+            and prof["launches"]["route"] == 0,
+            f"{tag}: buddy profiling launched {prof['launches']}, want "
+            f"topk_gate and expert_ffn once per MoE layer per forward")
+    require(all(0 <= lo and hi < vocab for lo, hi in log.sampled),
+            f"{tag}: a token outside the vocabulary")
+    require(st["n_hit"] + st["n_sub"] + st["n_miss_fetch"] > 0,
+            f"{tag}: no expert slot was served")
+    walls = log.walls(run["kind"])[1:]
+    prof_step = [x for x in log.steps if x.get("profiled")]
+    require(len(prof_step) == 1, f"{tag}: no profiled step")
+    dev_ms = prof_step[0]["device_ms"]
+    med = statistics.median(walls)
+    row = {"run_s": run["run_s"], "steps": len(log.steps),
+           "decode_wall_ms_median": med,
+           "decode_wall_ms_mean": statistics.fmean(walls),
+           "decode_steps_timed": len(walls),
+           "profiled_step": {"kind": run["kind"], "n": PROFILED_STEP,
+                             "wall_ms": prof_step[0]["ms"],
+                             "device_ms": dev_ms,
+                             "device_ops": prof_step[0]["device_ops"]},
+           "idle_share": None if dev_ms is None else 1 - dev_ms / med,
+           "setup_s": run["setup"].seconds(),
+           "allocated_gb_at_start": run["allocated_gb_at_start"],
+           "peak_gb": run["peak_gb"],
+           "n_hit": st["n_hit"], "n_sub": st["n_sub"],
+           "n_miss_fetch": st["n_miss_fetch"],
+           "n_miss_drop": st["n_miss_drop"],
+           "n_upgrade_issued": st["n_upgrade_issued"],
+           "kernel_calls": run["tap"].calls,
+           "slot_outcomes": run["tap"].partition(),
+           "deep_layer_parity": run["tap"].deep_parity(),
+           "launches": counts,
+           "launches_in_profiling": prof["launches"]}
+    tier = s.get("tier") or s.get("engine", {}).get("tier")
+    if tier is not None:
+        row["degraded_slots"] = tier["degraded_tokens"]
+        row["tier_quant_gb"] = tier["quant_bytes"] / 1e9
+    return row
+
+
+def phase_full_depth(smi: str) -> dict:
+    """The serve launcher at its defaults, deepseek-v2-lite-buddy at all 27
+    layers; see the module note. Returns the launches."""
+    import numpy as np
+    import torch
+    from repro_torch.launch import serve
+    _fresh_card()
+    t_phase = time.perf_counter()
+    held = torch.cuda.memory_allocated()
+    require(held < FRESH_BYTES, f"full_depth: {held} bytes held on the card "
+            "at the start")
+    cfg = serve.model_config(serve.parse_args([]))
+    layers = moe_layers(cfg)
+    want_bytes, n_leaves = meta_weight_bytes(cfg)
+    out = {"phase": "full_depth", "nvidia_smi": smi, "arch": cfg.arch_id,
+           "layers": cfg.num_layers, "moe_layers": layers,
+           "d_model": cfg.d_model, "experts": cfg.moe.num_experts,
+           "d_ff_expert": cfg.moe.d_ff, "top_k": cfg.moe.top_k,
+           "dtype": cfg.dtype, "allocated_bytes_at_start": held}
+    params, total, runs = None, None, {}
+    for tag, flags, kernels in FULL_DEPTH_PATHS:
+        _fresh_card()
+        run = _launcher_path(serve, flags, params, layers)
+        if params is None:
+            # the defaults made the weights: every later path serves them
+            params = run["log"].engine.params
+            init = run["setup"].one("init_params")
+            got = init["allocated_bytes"]
+            out["weights"] = {"allocated_bytes": got, "meta_bytes": want_bytes,
+                              "leaves": n_leaves, "init_s": init["s"],
+                              "init_peak_gb": init["peak_gb"]}
+            require(0 <= got - want_bytes <= ALLOC_ROUND * n_leaves,
+                    f"full_depth: init_params left {got} bytes allocated, "
+                    f"the meta count is {want_bytes}")
+        row = _check_launcher_path(tag, run, kernels, cfg.vocab_size, layers)
+        if tag == "continuous":
+            s = run["summary"]
+            require(s["completed"] == s["num_requests"] > 0,
+                    f"full_depth (continuous): {s['completed']} of "
+                    f"{s['num_requests']} requests completed")
+            require(any(x["kind"] == "chunk" for x in run["log"].steps),
+                    "full_depth (continuous): no chunk step")
+            row.update(completed=s["completed"], requests=s["num_requests"],
+                       chunk_steps=sum(x["kind"] == "chunk"
+                                       for x in run["log"].steps))
+        else:
+            require(len(run["log"].steps) == 8 + 32 - 1,
+                    f"full_depth ({tag}): {len(run['log'].steps)} steps")
+        if tag == "cost_int8_tier":
+            q = run["setup"].one("attach_quant_tier")
+            row["quantize_and_fidelity_s"] = q["s"]
+            row["tier_allocated_bytes"] = q["allocated_bytes"]
+            require(row["degraded_slots"] > 0
+                    and row["n_upgrade_issued"] > 0,
+                    f"full_depth (cost_int8_tier): no degraded slot or no "
+                    f"upgrade: {row}")
+        run["tap"].deep.clear()     # its operands: the tier's replicas too
+        runs[tag] = run
+        out[tag] = row
+        total = run["counts"] if total is None else {
+            k: total[k] + run["counts"][k] for k in total}
+        # drop the path's engine (and with the tier, its replicas)
+        del run["log"].engine, run["summary"]
+    # gather and fused on the same weights and prompts: the first step's
+    # routing at every layer and its logits agree (the FFN sums run in
+    # another order, so later steps may part on a near tie: counted)
+    g, f = runs["gather"], runs["fused"]
+    first = [(a[1], b[1]) for a, b in zip(g["tap"].routes[:layers],
+                                          f["tap"].routes[:layers])]
+    same_route = all(torch.equal(getattr(a, n), getattr(b, n))
+                     for a, b in first for n in ROUTE_EXACT)
+    lg, lf = g["log"].logits, f["log"].logits
+    logit_err = max_err(lg[0], lf[0])
+    top = float(lg[0].abs().max())
+    lead = 0
+    for a, b in zip(g["tap"].routes, f["tap"].routes):
+        if not all(torch.equal(getattr(a[1], n), getattr(b[1], n))
+                   for n in ROUTE_EXACT):
+            break
+        lead += 1
+    toks_g = [int(x.argmax()) for x in torch.cat(lg[7:])]
+    toks_f = [int(x.argmax()) for x in torch.cat(lf[7:])]
+    out["gather_vs_fused"] = {
+        "first_step_routing_equal": same_route,
+        "first_step_logits_max_abs_err": logit_err,
+        "first_step_logits_max_abs": top,
+        "route_calls_equal_from_start": lead,
+        "route_calls": len(g["tap"].routes),
+        "greedy_tokens_equal": int(np.sum(np.array(toks_g)
+                                          == np.array(toks_f))),
+        "greedy_tokens": len(toks_g)}
+    require(same_route and logit_err <= LOGIT_TOL * (1 + top),
+            f"full_depth: gather and fused part at the first step: "
+            f"{out['gather_vs_fused']}")
+    del params, runs, g, f
+    _fresh_card()
+    out["launches"] = total
+    out["seconds"] = time.perf_counter() - t_phase
+    emit(out)
+    return total
+
+
+# ---------------------------------------------------------------------------
 # (tag, extra flags, kernels the path must launch, mode)
 MIXTRAL_PATHS = (
     ("capacity", [], ("route", "expert_ffn")),
@@ -2896,7 +3360,9 @@ def _mixtral_path(serve, argv, params) -> tuple:
     """One Mixtral path through the launcher's entry points, in its own
     launch-count window (buddy profiling included): a batch of 4 x 8
     prompt + 8 new tokens through build_engine and generate, or
-    serve.main in continuous mode. Returns (row, step log, counts)."""
+    serve.main in continuous mode, with its kernel calls (KernelTap) and
+    its steps (StepLog, step PROFILED_STEP of the path's kind profiled)
+    recorded. Returns (row, step log, counts, tap)."""
     import contextlib
     import io
     import numpy as np
@@ -2904,9 +3370,12 @@ def _mixtral_path(serve, argv, params) -> tuple:
     from repro_torch.kernels import ops
     torch.cuda.reset_peak_memory_stats()
     args = serve.parse_args(argv)
+    layers = moe_layers(serve.model_config(args))
+    kind = "decode" if args.mode == "continuous" else "probe"
     ops.reset_launch_counts()                  # this path starts here
     t0 = time.perf_counter()
-    with StepLog() as log:
+    with KernelTap(layers) as tap, \
+            StepLog(profile=(kind, PROFILED_STEP)) as log:
         if args.mode == "continuous":
             with contextlib.redirect_stdout(io.StringIO()):
                 s = serve.main(argv, params=params)
@@ -2923,11 +3392,21 @@ def _mixtral_path(serve, argv, params) -> tuple:
     torch.cuda.synchronize()
     counts = ops.launch_counts()               # ... and ends here
     st = s["stats"] if "stats" in s else s["engine"]["stats"]
-    ms = [x["ms"] for x in log.steps]
+    ms = [x["ms"] for x in log.steps if not x.get("profiled")]
+    walls = log.walls(kind)[1:]
+    prof = [x for x in log.steps if x.get("profiled")]
+    require(len(prof) == 1, f"{argv}: no profiled step")
+    dev_ms = prof[0]["device_ms"]
     row = {"run_s": time.perf_counter() - t0, "completed": done,
-           "requests": wanted, "steps": len(ms),
+           "requests": wanted, "steps": len(log.steps),
            "wall_ms_per_step_median": statistics.median(ms),
            "wall_ms_per_step_mean": statistics.fmean(ms),
+           "decode_wall_ms_median": statistics.median(walls),
+           "profiled_step": {"kind": kind, "n": PROFILED_STEP,
+                             "wall_ms": prof[0]["ms"], "device_ms": dev_ms,
+                             "device_ops": prof[0]["device_ops"]},
+           "idle_share": (None if dev_ms is None
+                          else 1 - dev_ms / statistics.median(walls)),
            "chunk_steps": sum(x["kind"] == "chunk" for x in log.steps),
            "n_sub": st["n_sub"], "n_hit": st["n_hit"],
            "n_miss_fetch": st["n_miss_fetch"],
@@ -2935,29 +3414,92 @@ def _mixtral_path(serve, argv, params) -> tuple:
            "launches": counts}
     if eng.tier is not None:
         row["degraded_slots"] = eng.tier.degraded_tokens
-    return row, log, counts
+    return row, log, counts, tap
 
 
-def phase_mixtral():
-    """Mixtral-8x7B at full width cut to 4 layers; see the module note.
-    Returns (launches, params, cfg)."""
-    import gc
+def _ffn_at_bound(tap) -> dict:
+    """Each FFN kernel on the path's kept deepest-layer operands with the
+    most filled rows (the last of them on a tie: the capacity branch's
+    decode buffer [E, 4 x 2, D]; the fused step's [2E, 8, D] with row
+    counts; the tier's degraded slots [E, 8, D] with counts): ms per call (CUDA events) and device time per call
+    (torch.profiler) against its bound, the plain version's ms beside
+    them. The bound: x, the output and, where there are row counts, the
+    live groups' weights and the counts, moved once; without counts every
+    group's weights (the kernel reads them all)."""
+    from repro_torch.kernels.expert_ffn import expert_ffn_plain, ffn_flops
+    from repro_torch.kernels.grouped_ffn import grouped_ffn_plain
+    from repro_torch.kernels.ops import _CUDA
+    from repro_torch.kernels.quant_ffn import quant_ffn_plain
+    plains = {"expert_ffn": expert_ffn_plain,
+              "grouped_ffn": grouped_ffn_plain, "quant_ffn": quant_ffn_plain}
+    out = {}
+    for name, plain in plains.items():
+        if not tap.deep.get(name):
+            continue
+        at = {"expert_ffn": 4, "grouped_ffn": 5, "quant_ffn": 7}[name]
+        calls = []
+        for a, kw, _ in tap.deep[name]:
+            g_n, c_n, _ = a[0].shape
+            counts = kw.get("counts", a[at] if len(a) > at else None)
+            if counts is None:
+                live, filled = list(range(g_n)), g_n * c_n
+            else:
+                cnt = counts.cpu()
+                live = (cnt > 0).nonzero()[:, 0].tolist()
+                filled = int(cnt.clamp(max=c_n).sum())
+            calls.append((filled, len(calls), a, kw, counts, live))
+        filled, _, a, kw, counts, live = max(calls, key=lambda c: c[:2])
+        x = a[0]
+        g_n, c_n, d_n = x.shape
+        f_n = a[1].shape[-1]
+        if name == "quant_ffn":
+            per = [3 * d_n * f_n + (2 * f_n + d_n) * 4] * g_n
+        else:
+            e_n = a[1].shape[0]
+            fp = nbytes(*a[1:4]) // e_n
+            q = (0 if name == "expert_ffn" or a[4] is None
+                 else nbytes(*a[4]) // e_n)
+            per = [fp] * e_n + [q] * (g_n - e_n)
+        moved = (sum(per[g] for g in live) + 2 * nbytes(x)
+                 + (nbytes(counts) if counts is not None else 0))
+        b_ms, b_by = bound(moved, ffn_flops(1, filled, d_n, f_n))
+        fn = _CUDA[name]
+        dev = device_us(lambda: fn(*a, **kw))["device_us"]
+        ms = time_ms(lambda: fn(*a, **kw), reps=10)
+        out[name] = {"shape": list(x.shape), "d_ff": f_n,
+                     "live_groups": len(live), "filled_rows": filled,
+                     "bytes": moved, "bound_ms": b_ms, "bound_by": b_by,
+                     "ms": ms, "share_of_bound": b_ms / ms,
+                     "device_ms": None if dev is None else dev / 1e3,
+                     "device_share_of_bound": (None if dev is None
+                                               else b_ms / (dev / 1e3)),
+                     "plain_ms": time_ms(lambda: plain(*a, **kw), reps=5)}
+    return out
+
+
+def phase_mixtral(name: str = "mixtral", flags=MIXTRAL_FLAGS):
+    """A Mixtral at full width cut to 4 layers (``flags``); see the module
+    note. Returns (launches, params, cfg)."""
     import torch
     from repro_torch.launch import serve
     from repro_torch.models import transformer
     from repro_torch.models.common import resolve_device, tree_leaves
-    gc.collect()
-    torch.cuda.empty_cache()
+    _fresh_card()
     t_phase = time.perf_counter()
-    args = serve.parse_args(MIXTRAL_FLAGS)
+    held = torch.cuda.memory_allocated()
+    require(held < FRESH_BYTES, f"{name}: {held} bytes held on the card at "
+            "the start")
+    args = serve.parse_args(flags)
     cfg, dev = serve.model_config(args), resolve_device(args.device)
+    want_bytes, n_leaves = meta_weight_bytes(cfg)
     t0 = time.perf_counter()
     # the launcher's own weights (build_engine's: seed 0 on the card),
     # made once and given to every path
     params = transformer.init_params(
         cfg, torch.Generator(device=dev).manual_seed(0), dev)
     torch.cuda.synchronize()
-    out = {"phase": "mixtral", "arch": cfg.arch_id, "layers": cfg.num_layers,
+    got = torch.cuda.memory_allocated() - held
+    out = {"phase": name, "arch": cfg.arch_id, "layers": cfg.num_layers,
            "d_model": cfg.d_model, "heads": cfg.num_heads,
            "kv_heads": cfg.num_kv_heads, "head_dim": cfg.head_dim,
            "experts": cfg.moe.num_experts, "d_ff_expert": cfg.moe.d_ff,
@@ -2966,32 +3508,41 @@ def phase_mixtral():
            "params": sum(t.numel() for t in tree_leaves(params)),
            "weight_gb": sum(t.numel() * t.element_size()
                             for t in tree_leaves(params)) / 1e9,
+           "weights": {"allocated_bytes": got, "meta_bytes": want_bytes,
+                       "leaves": n_leaves},
            "init_s": time.perf_counter() - t0}
+    require(0 <= got - want_bytes <= ALLOC_ROUND * n_leaves,
+            f"{name}: init_params left {got} bytes allocated, the meta "
+            f"count is {want_bytes}")
     total = None
     for tag, extra, kernels in MIXTRAL_PATHS:
-        row, log, counts = _mixtral_path(serve, MIXTRAL_FLAGS + extra, params)
+        row, log, counts, tap = _mixtral_path(serve, flags + extra, params)
         out[tag] = row
         require(row["completed"] == row["requests"] > 0,
-                f"mixtral ({tag}): {row['completed']} of {row['requests']} "
-                "requests completed")
+                f"{name} ({tag}): {row['completed']} of {row['requests']} "
+                f"requests completed")
         require(all(counts[k] > 0 for k in kernels),
-                f"mixtral ({tag}): a kernel of the path did not launch: "
+                f"{name} ({tag}): a kernel of the path did not launch: "
                 f"{counts}")
         for st in log.steps:
             d = st["launches"]
             require(d["route"] == st["layers"] and d["topk_gate"] == 0
                     and d["buddy_substitute"] == 0,
-                    f"mixtral ({tag}): want route once per MoE layer and no "
+                    f"{name} ({tag}): want route once per MoE layer and no "
                     f"standalone routing kernel in every step, got {st}")
             require(tag == "fused" or d["expert_ffn"] == st["layers"],
-                    f"mixtral ({tag}): a step left the capacity branch: "
+                    f"{name} ({tag}): a step left the capacity branch: "
                     f"{st}")
+        row["slot_outcomes"] = tap.partition()
+        row["deep_layer_parity"] = tap.deep_parity()
+        row["ffn_at_bound"] = _ffn_at_bound(tap)
+        tap.deep.clear()
         total = counts if total is None else {k: total[k] + counts[k]
                                               for k in total}
     require(out["int8_tier"]["degraded_slots"] > 0,
-            "mixtral (int8_tier): the tier served no slot")
+            f"{name} (int8_tier): the tier served no slot")
     require(out["continuous"]["chunk_steps"] > 0,
-            "mixtral (continuous): no chunk step")
+            f"{name} (continuous): no chunk step")
     out["launches"] = total
     out["seconds"] = time.perf_counter() - t_phase
     emit(out)
@@ -4341,13 +4892,17 @@ def main() -> int:
     mesh = timed("mesh", phase_mesh, params)
     place = timed("placement", phase_placement, params)
     del params
+    full = timed("full_depth", phase_full_depth, smi)
     mix, params, cfg = timed("mixtral", phase_mixtral)
     sims = timed("similarity", phase_similarity, params, cfg)
     dry_mix = timed("dryrun_mixtral", phase_dryrun_mixtral, params, cfg, smi)
     del params
+    m22, params, _ = timed("mixtral_8x22b", phase_mixtral, "mixtral_8x22b",
+                           MIXTRAL_8X22B_FLAGS)
+    del params
     counts = {k: counts[k] + claims[k] + cont[k] + paged[k] + tele[k]
-              + mesh[k] + place[k] + mix[k] + sims[k] + dry_mix[k]
-              for k in counts}
+              + mesh[k] + place[k] + full[k] + mix[k] + sims[k] + dry_mix[k]
+              + m22[k] for k in counts}
     timed("train_parity", phase_train_parity)
     timed("train_parity_smollm", phase_train_parity, "smollm-360m")
     counts["wkv_chunk"], params, cfg = timed(
@@ -4372,7 +4927,7 @@ def main() -> int:
     dry_sh = timed("dryrun_sharded", phase_dryrun_sharded, smi)
     counts = {k: counts[k] + dry_train[k] + dry_long[k] + dry_4k[k]
               + dry_sh[k] for k in counts}
-    new_s = {name: phase_s[name] for name in ("claims",)}
+    new_s = {name: phase_s[name] for name in ("full_depth", "mixtral_8x22b")}
     # the hybrid, VLM and audio families: no kernel of this repo
     family_phases = (("families_parity", phase_families_parity),
                      ("hybrid", phase_hybrid), ("vlm", phase_vlm),

@@ -15,10 +15,12 @@ numerics:
   * calibrated per-expert fidelity: the relative round-trip weight error
     the runtime trades against expected transfer stall.
 
-Everything runs on the weights' device, one stacked layer at a time, so
-full-width quantization happens on the card with f32 temporaries of one
-layer. int4 values are stored as int8 in [-7, 7]; byte accounting uses the
-4-bit payload (runtime.memory.quant_expert_nbytes).
+Everything runs on the weights' device, a few experts of one stacked
+layer at a time (``PASS_BYTES``), so full-width quantization happens on the
+card beside the full-precision weights with small f32 temporaries: at
+deepseek-v2-lite-buddy's 27 layers the f32 weights and the int8 replicas
+alone come to 80.15 GB. int4 values are stored as int8 in [-7, 7]; byte
+accounting uses the 4-bit payload (runtime.memory.quant_expert_nbytes).
 """
 from __future__ import annotations
 
@@ -28,6 +30,9 @@ import numpy as np
 import torch
 
 TIER_BITS = {"int8": 8, "int4": 4}
+# f32 bytes of one weight's slice quantized per pass of attach_quant_tier:
+# its temporaries are a few such slices (at least one expert per pass)
+PASS_BYTES = 1 << 28
 
 
 def qmax_for_bits(bits: int) -> int:
@@ -90,29 +95,34 @@ def attach_quant_tier(cfg, params: dict, bits: int) -> Tuple[dict, np.ndarray]:
     whose attn_moe groups carry a ``quant`` sub-dict (stacked [R, E, ...]
     int8 weights + f32 scales, on the weights' device) next to the
     full-precision weights. Shared experts are always resident and are not
-    quantized."""
+    quantized. Every expert is quantized on its own (per-channel scales
+    within an expert), so the passes over a few experts at a time give the
+    replicas of one pass over the whole stack, bit for bit."""
     groups = list(params["groups"])
     fids = []
     for gi, (kind, _repeat) in enumerate(cfg.stack()):
         if kind != "attn_moe":
             continue
         moe_p = dict(groups[gi]["moe"])
-        n_layers = moe_p["w1"].shape[0]
-        fid = []
-        quant = {}
-        # one stacked layer at a time, written into the stacked outputs:
-        # the f32 temporaries are those of a single layer's experts
+        ws = [moe_p[n] for n in ("w1", "w3", "w2")]
+        dev = ws[0].device
+        # the stacked outputs, shaped as quantize_expert_ffn shapes them
+        quant = {k: torch.empty(v.shape, dtype=v.dtype, device=dev)
+                 for k, v in quantize_expert_ffn(
+                     *(torch.empty_like(w, device="meta") for w in ws),
+                     bits).items()}
+        n_layers, n_exp = ws[0].shape[:2]
+        step = max(1, PASS_BYTES // (ws[0][0, 0].numel() * 4))
+        fid = np.empty((n_layers, n_exp), np.float32)
         for li in range(n_layers):
-            lw = [moe_p[n][li] for n in ("w1", "w3", "w2")]
-            lq = quantize_expert_ffn(*lw, bits)
-            fid.append(expert_fidelity(*lw, lq))
-            for k, v in lq.items():
-                if k not in quant:
-                    quant[k] = torch.empty((n_layers, *v.shape),
-                                           dtype=v.dtype, device=v.device)
-                quant[k][li] = v
+            for e0 in range(0, n_exp, step):
+                part = [w[li, e0:e0 + step] for w in ws]
+                lq = quantize_expert_ffn(*part, bits)
+                fid[li, e0:e0 + step] = expert_fidelity(*part, lq)
+                for k, v in lq.items():
+                    quant[k][li, e0:e0 + step] = v
         moe_p["quant"] = quant
-        fids.append(np.stack(fid))
+        fids.append(fid)
         g = dict(groups[gi])
         g["moe"] = moe_p
         groups[gi] = g

@@ -537,6 +537,53 @@ def test_quant_ffn_equals_grouped_ffn_degraded_half(dev, e, c, d, f, dtype):
     assert torch.all(both[:e] == 0)
 
 
+# Mixtral-8x22B's widths (d_model 6144, d_ff 16384): the FFN tile's grid
+# and offsets outside D in {2048, 4096}; two experts, a few rows each
+WIDE_D, WIDE_F = 6144, 16384
+
+
+def _wide_case(seed, groups, rows, dev):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    ws = [torch.randn(2, a, b, generator=g, device=dev).mul_(0.02)
+          for a, b in ((WIDE_D, WIDE_F), (WIDE_D, WIDE_F), (WIDE_F, WIDE_D))]
+    x = torch.randn(groups, rows, WIDE_D, generator=g, device=dev)
+    return x, ws
+
+
+@pytest.mark.parametrize("rows", [3, 8])
+def test_expert_ffn_at_mixtral_8x22b_width(dev, rows):
+    x, ws = _wide_case(rows, 2, rows, dev)
+    assert launch_plan(4, 2, rows, WIDE_D, WIDE_F)["instance"] == "vec16"
+    torch.testing.assert_close(expert_ffn_cuda(x, *ws),
+                               expert_ffn_plain(x, *ws),
+                               rtol=TOL[torch.float32],
+                               atol=TOL[torch.float32])
+
+
+def test_grouped_ffn_at_mixtral_8x22b_width(dev):
+    """Two fp groups and two int8 groups, one of them empty."""
+    x, ws = _wide_case(1, 4, 4, dev)
+    quant = _replicas(ws)
+    counts = torch.tensor([3, 1, 0, 2], dtype=torch.int32, device=dev)
+    x[torch.arange(4, device=dev)[None, :] >= counts[:, None]] = 0.0
+    got = grouped_ffn_cuda(x, *ws, quant, counts)
+    torch.testing.assert_close(got, grouped_ffn_plain(x, *ws, quant, counts),
+                               rtol=TOL[torch.float32],
+                               atol=TOL[torch.float32])
+    assert torch.all(got[2] == 0)
+
+
+def test_quant_ffn_at_mixtral_8x22b_width(dev):
+    x, ws = _wide_case(2, 2, 4, dev)
+    quant = _replicas(ws)
+    counts = torch.tensor([4, 1], dtype=torch.int32, device=dev)
+    x[1, 1:] = 0.0
+    torch.testing.assert_close(quant_ffn_cuda(x, *quant, counts),
+                               quant_ffn_plain(x, *quant, counts),
+                               rtol=TOL[torch.float32],
+                               atol=TOL[torch.float32])
+
+
 def test_wrappers_check_their_operands(dev):
     z = torch.randn(4, 8, device=dev)
     with pytest.raises(ValueError):

@@ -152,12 +152,19 @@ def test_serve_refuses_unported_flags(flag, capsys):
 
 
 def test_serve_defaults_to_cuda_and_never_falls_back():
+    """The defaults serve the full config (every layer, f32) on the card;
+    without one, the launcher refuses before it makes a weight, at the
+    full size as at the reduced one."""
     args = serve.parse_args([])
     assert args.device == "cuda"
+    assert args.layers == 0 and not args.reduced
+    assert serve.model_config(args).num_layers == 27
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: nothing to refuse")
     with pytest.raises(RuntimeError, match="cuda"):
         serve.build_engine(serve.parse_args(["--reduced"]))
+    with pytest.raises(RuntimeError, match="cuda"):
+        serve.main([])
 
 
 def test_serve_batch_mode_on_cpu(capsys):
