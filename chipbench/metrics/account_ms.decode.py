@@ -1,0 +1,6 @@
+"""Host ms per decode step in the engine's _account (the replay of the modeled transfer timeline), after the step's device work is done."""
+from chipbench import readers
+
+
+def read(run):
+    return readers.account_ms(run, "decode")

@@ -1,0 +1,6 @@
+"""Percent of the card's float32 peak: the operations the prefill steps' valid tokens need over the steps' wall time."""
+from chipbench import readers
+
+
+def read(run):
+    return readers.mfu(run, "prefill")
