@@ -69,6 +69,7 @@ from repro_torch.core.policy import BuddyPolicy
 from repro_torch.core.quantize import TIER_BITS
 from repro_torch.models import transformer
 from repro_torch.models.common import resolve_device
+from repro_torch.runtime import trace
 from repro_torch.runtime.cache import ExpertCache
 from repro_torch.runtime.placement import PlacementController
 from repro_torch.runtime.prefetch import (AdaptiveBudgetController,
@@ -94,22 +95,32 @@ PREDICTORS = {
 
 def profile_buddies(cfg, params, lm, *, steps: int = 4, batch: int = 4,
                     seq: int = 64, alpha: float = 0.9, k_max: int = 8):
-    """Offline phase: router traces -> co-activation -> CFT buddy lists."""
+    """Offline phase: router traces -> co-activation -> CFT buddy lists.
+    Host spans: ``setup.profile_buddies`` and one ``setup.profile_forward``
+    per forward, each with its counter ``tokens`` (the tokens profiled)."""
     n_moe = sum(r for k, r in cfg.stack() if k == "attn_moe")
     rec = CoactivationRecorder(n_moe, cfg.moe.num_experts)
     dev = params["embed"].device
-    for _ in range(steps):
-        toks = torch.as_tensor(lm.sample(batch, seq), dtype=torch.int64) \
-            .to(dev)
-        _, aux = transformer.forward_train(params, cfg, toks, record=True)
-        per = aux["recorded"][0]
-        idx = per["indices"].cpu().numpy()
-        probs = per["probs"].cpu().numpy()
-        for l in range(n_moe):
-            rec.update(l, idx[l], probs[l])
-        rec.step_done()
-    q = np.stack([rec.conditional(l) for l in range(n_moe)])
-    return build_buddy_lists(q, alpha=alpha, k_max=k_max, activity=rec.A), rec
+    with trace.span("setup.profile_buddies") as sp:
+        if sp is not None:
+            sp.note("tokens", steps * batch * seq)
+        for _ in range(steps):
+            with trace.span("setup.profile_forward") as fp:
+                if fp is not None:
+                    fp.note("tokens", batch * seq)
+                toks = torch.as_tensor(lm.sample(batch, seq),
+                                       dtype=torch.int64).to(dev)
+                _, aux = transformer.forward_train(params, cfg, toks,
+                                                   record=True)
+                per = aux["recorded"][0]
+                idx = per["indices"].cpu().numpy()
+                probs = per["probs"].cpu().numpy()
+            for l in range(n_moe):
+                rec.update(l, idx[l], probs[l])
+            rec.step_done()
+        q = np.stack([rec.conditional(l) for l in range(n_moe)])
+        return build_buddy_lists(q, alpha=alpha, k_max=k_max,
+                                 activity=rec.A), rec
 
 
 def parse_args(argv=None):
@@ -251,11 +262,14 @@ def parse_args(argv=None):
     ap.add_argument("--telemetry", choices=["off", "on"], default="off",
                     help="attach the flight recorder: metrics registry, "
                          "miss-cost calibration and prefetch meters in the "
-                         "final summary")
+                         "final summary; and the host spans (wall clock "
+                         "of each step's parts, printed as a table)")
     ap.add_argument("--trace-out", default=None, metavar="PATH",
                     help="write the event log here after the run (implies "
                          "--telemetry on): '*.jsonl' = lossless JSONL, "
-                         "anything else = Chrome/Perfetto trace_event JSON")
+                         "anything else = Chrome/Perfetto trace_event JSON; "
+                         "the host spans go beside it, '.host' before the "
+                         "suffix")
     args = ap.parse_args(argv)
     if args.lookahead < 1:
         ap.error("--lookahead must be >= 1 (layers ahead to prefetch)")
@@ -404,11 +418,24 @@ def serve_continuous(args, eng, lm) -> dict:
 def main(argv=None, params=None) -> dict:
     """Serve a batch (--mode batch) or a request stream (--mode continuous)
     and print the summary, which it returns. ``params``: weights already on
-    the device (default: --checkpoint, or random from seed 0)."""
+    the device (default: --checkpoint, or random from seed 0). With
+    --telemetry on (or --trace-out) the host spans are on from the engine's
+    build to the end of serving."""
     args = parse_args(argv)
-    eng, lm = build_engine(args, params=params)
+    spans = args.telemetry == "on" or bool(args.trace_out)
+    host = trace.start_host() if spans else None
+    try:
+        eng, lm = build_engine(args, params=params)
+        if args.mode == "continuous":
+            s = serve_continuous(args, eng, lm)
+        else:
+            out = eng.generate(lm.sample(args.batch, 8),
+                               max_new_tokens=args.steps)
+            s = eng.summary()
+    finally:
+        if host is not None:
+            trace.stop_host()
     if args.mode == "continuous":
-        s = serve_continuous(args, eng, lm)
         print(json.dumps(s, indent=1, default=str))
         print(f"completed {s['completed']}/{s['num_requests']} "
               f"(rejected {s['rejected']})  "
@@ -416,10 +443,8 @@ def main(argv=None, params=None) -> dict:
               f"{s['ttft_s']['p99']*1e3:.2f}ms  "
               f"goodput {s['goodput_rps']:.1f} req/s  "
               f"SLO-met {s['slo_met_frac']*100:.0f}%")
-        report(s["engine"], eng, args.trace_out)
+        report(s["engine"], eng, args.trace_out, host)
         return s
-    out = eng.generate(lm.sample(args.batch, 8), max_new_tokens=args.steps)
-    s = eng.summary()
     print(json.dumps(s, indent=1, default=str))
     bd = s["stall_breakdown"]
     print(f"stalls: demand {bd['demand_stall_s']*1e3:.2f}ms  "
@@ -432,18 +457,18 @@ def main(argv=None, params=None) -> dict:
               f"{t['tier_budget_split']['cache_slots_per_layer']} full "
               f"slots/layer left")
     print("sample output tokens:", out[0, -16:].tolist())
-    report(s, eng, args.trace_out)
+    report(s, eng, args.trace_out, host)
     return s
 
 
-def report(s: dict, eng, trace_out=None) -> None:
+def report(s: dict, eng, trace_out=None, host=None) -> None:
     """The digests of an engine summary: paged KV, mesh, placement and
     telemetry (each only where its subsystem is on), then the trace
-    export."""
+    export; ``host`` (a runtime.trace.HostRecorder) adds its table."""
     report_prefix(s)
     report_mesh(s)
     report_placement(s)
-    report_telemetry(eng.telemetry, trace_out)
+    report_telemetry(eng.telemetry, trace_out, host)
 
 
 def report_mesh(s: dict) -> None:
@@ -476,9 +501,11 @@ def report_placement(s: dict) -> None:
           f"{p['peer_pushes']} peer pushes")
 
 
-def report_telemetry(tele, trace_out) -> None:
-    """One-line calibration and prefetch digest, then the --trace-out
-    export (the full nested summary is already in the engine summary)."""
+def report_telemetry(tele, trace_out, host=None) -> None:
+    """One-line calibration and prefetch digest, the host spans' table
+    (host ms per span name), then the --trace-out export (the full nested
+    summary is already in the engine summary) and the host spans' beside
+    it."""
     if tele is None:
         return
     parts = []
@@ -494,10 +521,26 @@ def report_telemetry(tele, trace_out) -> None:
           f"{pf['issued']} used-in-time {pf['used_in_time']} late "
           f"{pf['late']} expected-saved "
           f"{pf['expected_stall_saved_s']*1e3:.2f}ms")
+    if host is not None:
+        print("[host] span: count, total ms, mean ms")
+        for name, row in host.table().items():
+            print(f"[host]   {name}: {row['n']}, {row['total_ms']:.3f}, "
+                  f"{row['mean_ms']:.4f}")
     if trace_out:
         n = export_trace(tele.trace, trace_out)
         kind = "JSONL" if trace_out.endswith(".jsonl") else "Perfetto"
         print(f"[telemetry] wrote {n} {kind} trace events to {trace_out}")
+        if host is not None:
+            path = host_trace_path(trace_out)
+            n = export_trace(host, path)
+            print(f"[telemetry] wrote {n} {kind} host span events to {path}")
+
+
+def host_trace_path(trace_out: str) -> str:
+    """Where --trace-out's host spans go: ``.host`` before the suffix."""
+    stem, dot, suffix = trace_out.rpartition(".")
+    return f"{stem}.host.{suffix}" if dot and "/" not in suffix \
+        else f"{trace_out}.host"
 
 
 def report_prefix(s: dict) -> None:

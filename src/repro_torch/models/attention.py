@@ -36,6 +36,7 @@ from repro_torch.models.common import (all_reduce, apply_rope, coordinate,
                                        remap, reshape, settle, shard,
                                        shard_dims, unpad, ways, whole,
                                        with_partial)
+from repro_torch.runtime import trace
 
 NEG_INF = -1e30
 
@@ -530,7 +531,7 @@ def _attend_paged(params, x, cache, plan: PagedPlan, *, num_heads,
     for name, new in (("k", k_new), ("v", v_new)):
         cache[name].view(p_bs, *new.shape[2:])[plan.phys] = \
             new[plan.rows, plan.cols]
-    with torch.profiler.record_function("paged_gather"):
+    with trace.span("model.paged_gather"):
         k_rows = _gather_pages(cache["k"], plan.pages)
         v_rows = _gather_pages(cache["v"], plan.pages)
     out = _attend(q, k_rows, v_rows, plan.valid)

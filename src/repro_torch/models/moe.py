@@ -34,6 +34,7 @@ from repro_torch.models.common import (dense_init, is_sharded, local_call,
                                        no_partial, normal, one_hot, remap,
                                        shard, shard_dims, swiglu,
                                        with_partial)
+from repro_torch.runtime import trace
 
 
 class BuddyState(NamedTuple):
@@ -302,24 +303,26 @@ def moe_forward(params: dict, x: torch.Tensor, cfg: MoEConfig, *,
     tier_fid_cost = (buddy.fid_cost if (use_tier and buddy is not None)
                      else None)
 
-    logits = torch.matmul(x_flat.float(), params["router"].float())
-    if rng is not None and cfg.router_jitter > 0:
-        logits = logits + torch.empty_like(logits).uniform_(
-            -cfg.router_jitter, cfg.router_jitter, generator=rng)
-    if policy is not None and buddy is not None:
-        res = route_layer(logits, buddy, policy, k_n, quant_ok, tier_fid_cost)
-        idx, probs, new_idx = res.idx, res.probs, res.new_idx
-        substituted, missed, degraded = res.substituted, res.missed, \
-            res.degraded
-        dropped, peered = res.dropped, res.peered
-    else:
-        idx, _, probs, _, _ = ops.topk_gate(
-            logits, policy.tau if policy is not None else 0.0, k=k_n)
-        zeros = torch.zeros(idx.shape, dtype=torch.bool, device=dev)
-        new_idx, substituted, degraded, dropped, peered = (idx,) + \
-            (zeros,) * 4
-        # no policy: the raw residency miss count
-        missed = zeros if buddy is None else ~buddy.resident[idx.long()]
+    with trace.span("model.route"):
+        logits = torch.matmul(x_flat.float(), params["router"].float())
+        if rng is not None and cfg.router_jitter > 0:
+            logits = logits + torch.empty_like(logits).uniform_(
+                -cfg.router_jitter, cfg.router_jitter, generator=rng)
+        if policy is not None and buddy is not None:
+            res = route_layer(logits, buddy, policy, k_n, quant_ok,
+                              tier_fid_cost)
+            idx, probs, new_idx = res.idx, res.probs, res.new_idx
+            substituted, missed, degraded = res.substituted, res.missed, \
+                res.degraded
+            dropped, peered = res.dropped, res.peered
+        else:
+            idx, _, probs, _, _ = ops.topk_gate(
+                logits, policy.tau if policy is not None else 0.0, k=k_n)
+            zeros = torch.zeros(idx.shape, dtype=torch.bool, device=dev)
+            new_idx, substituted, degraded, dropped, peered = (idx,) + \
+                (zeros,) * 4
+            # no policy: the raw residency miss count
+            missed = zeros if buddy is None else ~buddy.resident[idx.long()]
     run_degraded = use_tier and (quant_ok is not None
                                  or tier_fid_cost is not None)
 
@@ -333,47 +336,57 @@ def moe_forward(params: dict, x: torch.Tensor, cfg: MoEConfig, *,
 
     decode = x.ndim == 3 and x.shape[1] == 1
     n_dropped = torch.zeros((), dtype=torch.int32, device=dev)
-    if policy is not None and policy.use_fused_dispatch:
-        # ---- single-dispatch fused path (grouped kernel) -----------------
-        skip = dropped | missed if policy.fallback == "drop" else dropped
-        cap = t_n * k_n if (dropless or decode) \
-            else _capacity(t_n, k_n, e_n, capacity_factor)
-        y_rep, n_dropped = _fused_dispatch(params, x_flat, new_idx, degraded,
-                                           skip, run_degraded, cap)
-        yk = y_rep.reshape(t_n, k_n, d)
-    elif not dropless and decode and t_n * k_n < e_n:
-        # ---- active-expert gather (tiny-batch decode) ---------------------
-        # reads only the selected experts' weights; plain batched matmuls,
-        # as the reference leaves this branch to XLA
-        e_flat = new_idx.reshape(-1).long()
-        xr = x_flat.repeat_interleave(k_n, 0)[:, None, :].float()  # [N,1,D]
-        h = F.silu(torch.bmm(xr, params["w1"][e_flat].float()))
-        g = torch.bmm(xr, params["w3"][e_flat].float())
-        hg = shard((h * g).to(x.dtype), None, None, "dff").float()
-        y_rep = torch.bmm(hg, params["w2"][e_flat].float()).to(x.dtype)[:, 0]
-        if run_degraded:
-            deg_f = degraded.reshape(-1)
-            y_deg = _degraded_outputs(params, x_flat, e_flat, deg_f)
-            y_rep = torch.where(deg_f[:, None], y_deg, y_rep)
-        yk = y_rep.reshape(t_n, k_n, d)
-    else:
-        # ---- capacity-based dispatch (row-local) --------------------------
-        rows = x.shape[0] if x.ndim == 3 else 1
-        s_n = t_n // rows
-        cap = s_n * k_n if dropless \
-            else _capacity(s_n, k_n, e_n, capacity_factor)
-        buf, flat, kept, n_dropped = _by_rows(
-            functools.partial(_capacity_bin, s_n=s_n, k_n=k_n, e_n=e_n,
-                              cap=cap), x_flat, new_idx)
-        buf = shard(buf, "expert", "batch", None)
-        out = ops.expert_ffn(buf, params["w1"], params["w3"], params["w2"])
-        yk = _unbin_rows(out, flat, kept, k_n)
-        if run_degraded:
-            deg_f = degraded.reshape(-1)
-            y_deg = _degraded_outputs(params, x_flat, new_idx.reshape(-1),
-                                      deg_f)
-            yk = torch.where(deg_f.reshape(t_n, k_n, 1),
-                             y_deg.reshape(t_n, k_n, d), yk)
+    with trace.span("model.dispatch") as sp:
+        if policy is not None and policy.use_fused_dispatch:
+            # ---- single-dispatch fused path (grouped kernel) -------------
+            skip = dropped | missed if policy.fallback == "drop" else dropped
+            cap = t_n * k_n if (dropless or decode) \
+                else _capacity(t_n, k_n, e_n, capacity_factor)
+            y_rep, n_dropped = _fused_dispatch(params, x_flat, new_idx,
+                                               degraded, skip, run_degraded,
+                                               cap)
+            yk = y_rep.reshape(t_n, k_n, d)
+            if sp is not None:
+                sp.dispatch("grouped_ffn", t_n * k_n, t_n, k_n)
+        elif not dropless and decode and t_n * k_n < e_n:
+            # ---- active-expert gather (tiny-batch decode) -----------------
+            # reads only the selected experts' weights; plain batched
+            # matmuls, as the reference leaves this branch to XLA
+            e_flat = new_idx.reshape(-1).long()
+            xr = x_flat.repeat_interleave(k_n, 0)[:, None, :].float()
+            h = F.silu(torch.bmm(xr, params["w1"][e_flat].float()))
+            g = torch.bmm(xr, params["w3"][e_flat].float())
+            hg = shard((h * g).to(x.dtype), None, None, "dff").float()
+            y_rep = torch.bmm(hg, params["w2"][e_flat].float()) \
+                .to(x.dtype)[:, 0]
+            if run_degraded:
+                deg_f = degraded.reshape(-1)
+                y_deg = _degraded_outputs(params, x_flat, e_flat, deg_f)
+                y_rep = torch.where(deg_f[:, None], y_deg, y_rep)
+            yk = y_rep.reshape(t_n, k_n, d)
+            if sp is not None:
+                sp.dispatch("gather", t_n * k_n, t_n, k_n)
+        else:
+            # ---- capacity-based dispatch (row-local) ----------------------
+            rows = x.shape[0] if x.ndim == 3 else 1
+            s_n = t_n // rows
+            cap = s_n * k_n if dropless \
+                else _capacity(s_n, k_n, e_n, capacity_factor)
+            buf, flat, kept, n_dropped = _by_rows(
+                functools.partial(_capacity_bin, s_n=s_n, k_n=k_n, e_n=e_n,
+                                  cap=cap), x_flat, new_idx)
+            buf = shard(buf, "expert", "batch", None)
+            out = ops.expert_ffn(buf, params["w1"], params["w3"],
+                                 params["w2"])
+            yk = _unbin_rows(out, flat, kept, k_n)
+            if run_degraded:
+                deg_f = degraded.reshape(-1)
+                y_deg = _degraded_outputs(params, x_flat,
+                                          new_idx.reshape(-1), deg_f)
+                yk = torch.where(deg_f.reshape(t_n, k_n, 1),
+                                 y_deg.reshape(t_n, k_n, d), yk)
+            if sp is not None:
+                sp.dispatch("expert_ffn", e_n * rows * cap, t_n, k_n)
 
     y = (yk * weights[..., None].to(x.dtype)).sum(1)
     miss_per_expert = _per_expert_misses(idx, missed, e_n)

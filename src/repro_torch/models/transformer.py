@@ -55,6 +55,7 @@ from repro_torch.models.common import (dense_init, embed_init, fold_in,
                                        rmsnorm, settle, shard, swiglu,
                                        torch_dtype, tree_leaves, tree_map,
                                        with_partial)
+from repro_torch.runtime import trace
 
 _COUNTERS = ("lb", "n_sub", "n_miss", "n_drop", "n_degraded", "n_miss_drop",
              "n_peer", "miss_per_expert")
@@ -343,8 +344,10 @@ def block_forward(kind: str, p, x, cache, ctx: StepCtx, buddy=None):
         return _mamba_block(p, x, cache, ctx)
     if kind == CROSS_DENSE:
         raise ValueError("cross-attn blocks run inside vlm_super groups")
-    x = _residual(x, _self_attn(p["attn"], rmsnorm(x, p["ln1"], cfg.norm_eps),
-                                cache, ctx))
+    with trace.span("model.attn"):
+        x = _residual(x, _self_attn(p["attn"],
+                                    rmsnorm(x, p["ln1"], cfg.norm_eps),
+                                    cache, ctx))
     xn = rmsnorm(x, p["ln2"], cfg.norm_eps)
     aux = None
     if kind == ATTN_MOE:
@@ -354,7 +357,8 @@ def block_forward(kind: str, p, x, cache, ctx: StepCtx, buddy=None):
             dropless=ctx.mode == "chunk", rng=ctx.rng)
         aux = _moe_aux_dict(moe_aux, ctx.record)
     else:
-        y = swiglu(xn, p["ffn"]["w1"], p["ffn"]["w3"], p["ffn"]["w2"])
+        with trace.span("model.ffn"):
+            y = swiglu(xn, p["ffn"]["w1"], p["ffn"]["w3"], p["ffn"]["w2"])
     return _residual(x, y), cache, aux
 
 
@@ -411,7 +415,7 @@ def _cross_block(cp, x, ctx: StepCtx, cross_embeds, cross_kv):
 
 
 def _run_group(kind: str, gparams, x, gcache, ctx: StepCtx, gbuddy=None,
-               shared_attn=None, cross_embeds=None):
+               shared_attn=None, cross_embeds=None, layer0: int = 0):
     """One group, layer by layer over the stacked [R, ...] params; under
     ``ctx.remat`` one torch.utils.checkpoint per block, or per super-block
     (the hybrid's with ``shared_attn``, the VLM's with ``cross_embeds``),
@@ -419,7 +423,9 @@ def _run_group(kind: str, gparams, x, gcache, ctx: StepCtx, gbuddy=None,
     jitter draws from ``fold_in`` of the ctx generator's seed and i, as
     the reference folds its key per layer; the generator is made inside
     the layer, so that under remat the recomputed forward draws the same
-    noise and routes the same. Returns (x, cache, reduced aux)."""
+    noise and routes the same. ``layer0`` is the stack index of the
+    group's first layer (the host spans' layer). Returns (x, cache,
+    reduced aux)."""
     if kind in (HYBRID_SUPER, VLM_SUPER):
         body, extra = ((_hybrid_super, shared_attn) if kind == HYBRID_SUPER
                        else (_vlm_super, cross_embeds))
@@ -443,11 +449,12 @@ def _run_group(kind: str, gparams, x, gcache, ctx: StepCtx, gbuddy=None,
         lb = (moe_mod.BuddyState(*[None if a is None else a[i]
                                    for a in gbuddy])
               if gbuddy is not None else None)
-        if ctx.remat:
-            x, _, aux = checkpoint(layer, lp, x, lc, lb, i,
-                                   use_reentrant=False)
-        else:
-            x, _, aux = layer(lp, x, lc, lb, i)
+        with trace.span("model.layer", layer0 + i):
+            if ctx.remat:
+                x, _, aux = checkpoint(layer, lp, x, lc, lb, i,
+                                       use_reentrant=False)
+            else:
+                x, _, aux = layer(lp, x, lc, lb, i)
         auxs.append(aux if aux is not None
                     else _zero_moe_aux(ctx.cfg, x.device))
     red = {k: torch.stack([a[k] for a in auxs]).sum(0) for k in _COUNTERS}
@@ -569,7 +576,8 @@ def _lookup(embed, ids):
 
 
 def _embed(params, cfg: ModelConfig, tokens, cond_embeds):
-    x = shard(_lookup(params["embed"], tokens), "batch", None, None)
+    with trace.span("model.embed"):
+        x = shard(_lookup(params["embed"], tokens), "batch", None, None)
     if cfg.num_cond_tokens and cfg.family == "audio":
         # audio: the stubbed codec frame embeddings as a causal prefix
         if cond_embeds is None:
@@ -596,15 +604,18 @@ def _audio_offset(cfg: ModelConfig) -> int:
 
 
 def _logits(params, cfg: ModelConfig, x):
-    x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
-    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    logits = torch.matmul(x.float(), head.float())
-    return shard(logits, "batch", *([None] * (logits.ndim - 2)), "vocab")
+    with trace.span("model.head"):
+        x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
+        head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+        logits = torch.matmul(x.float(), head.float())
+        return shard(logits, "batch", *([None] * (logits.ndim - 2)),
+                     "vocab")
 
 
 def _iter_groups(params, cfg, caches, buddies):
-    """Yields (kind, gparams, gcache, gbuddy) with MoE buddy slices."""
-    moe_off = 0
+    """Yields (kind, gparams, gcache, gbuddy, layer0) with MoE buddy
+    slices; layer0 is the stack index of the group's first layer."""
+    moe_off = layer0 = 0
     for gi, (kind, repeat) in enumerate(cfg.stack()):
         gc = None
         if caches is not None:
@@ -616,7 +627,8 @@ def _iter_groups(params, cfg, caches, buddies):
                                       else a[moe_off:moe_off + repeat]
                                       for a in buddies])
             moe_off += repeat
-        yield kind, params["groups"][gi], gc, gb
+        yield kind, params["groups"][gi], gc, gb, layer0
+        layer0 += repeat
 
 
 def _accumulate(total, aux, rec, record: bool):
@@ -631,10 +643,10 @@ def _run(params, cfg: ModelConfig, x, caches, ctx: StepCtx, buddies,
     """Every group in order. Returns (x, aux)."""
     total = _zero_moe_aux(cfg, x.device)
     rec = []
-    for kind, gp, gc, gb in _iter_groups(params, cfg, caches, buddies):
+    for kind, gp, gc, gb, l0 in _iter_groups(params, cfg, caches, buddies):
         x, _, aux = _run_group(kind, gp, x, gc, ctx, gbuddy=gb,
                                shared_attn=params.get("shared_attn"),
-                               cross_embeds=cross)
+                               cross_embeds=cross, layer0=l0)
         _accumulate(total, aux, rec, ctx.record)
     if ctx.record:
         total["recorded"] = rec
@@ -679,11 +691,14 @@ def decode_step(params, cfg: ModelConfig, token, caches, pos, *,
     Returns (logits [B, V] f32, caches, aux)."""
     if window < 0:
         window = cfg.sliding_window
-    x = _lookup(params["embed"], token)[:, None, :]               # [B, 1, D]
+    with trace.span("model.embed"):
+        x = _lookup(params["embed"], token)[:, None, :]           # [B, 1, D]
     if _audio_offset(cfg):
         pos = pos + _audio_offset(cfg)
-    paged = (None if block_tables is None else attn.paged_plan(
-        block_tables, pos, None, caches[0]["kv"]["k"].shape[2], x.device))
+    with trace.span("model.plan"):
+        paged = (None if block_tables is None else attn.paged_plan(
+            block_tables, pos, None, caches[0]["kv"]["k"].shape[2],
+            x.device))
     ctx = StepCtx(cfg, "step", window, policy, pos, record, paged=paged)
     x, total = _run(params, cfg, x, caches, ctx, buddies)
     return _logits(params, cfg, x[:, 0]), caches, total
@@ -712,17 +727,20 @@ def prefill_chunk(params, cfg: ModelConfig, tokens, caches, base_pos,
     require_attention_stack(cfg, "chunked prefill")
     if window < 0:
         window = cfg.sliding_window
-    x = shard(_lookup(params["embed"], tokens), "batch", None,
-              None)                                               # [B, C, D]
+    with trace.span("model.embed"):
+        x = shard(_lookup(params["embed"], tokens), "batch", None,
+                  None)                                           # [B, C, D]
     if _audio_offset(cfg):
         base_pos = base_pos + _audio_offset(cfg)
     plan = paged = None
     width = caches[0]["kv"]["k"].shape[2]          # ring capacity, or block
-    if block_tables is None:
-        plan = attn.chunk_plan(base_pos, tok_valid, width, window, x.device)
-    else:
-        paged = attn.paged_plan(block_tables, base_pos, tok_valid, width,
-                                x.device)
+    with trace.span("model.plan"):
+        if block_tables is None:
+            plan = attn.chunk_plan(base_pos, tok_valid, width, window,
+                                   x.device)
+        else:
+            paged = attn.paged_plan(block_tables, base_pos, tok_valid,
+                                    width, x.device)
     ctx = StepCtx(cfg, "chunk", window, policy, base_pos, record,
                   tok_valid=tok_valid, plan=plan, paged=paged)
     x, total = _run(params, cfg, x, caches, ctx, buddies)

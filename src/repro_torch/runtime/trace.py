@@ -39,10 +39,18 @@ Zero-overhead-when-off contract: the recorder is opt-in. Call sites hold
 ``None`` instead of a recorder and guard every emission with an ``is not
 None`` check, so a telemetry-off run executes the exact pre-telemetry code
 path (bit-identical outputs and summaries).
+
+Host spans (``HostRecorder``, the second half of this module) put the
+same record format on the WALL clock (``time.perf_counter``): where the
+serving path spends the host's time, step by step and layer by layer,
+and, while a ``torch.profiler`` session records, which program span the
+host was in during each idle gap of the device. They live in their own
+recorder, so the simulated-clock exports above never change.
 """
 from __future__ import annotations
 
 import json
+import time
 from typing import Dict, List, Optional
 
 # Canonical track names -> Chrome trace pids (stable, documented in
@@ -194,3 +202,228 @@ def export_trace(recorder: Optional[FlightRecorder], path: str) -> int:
     if path.endswith(".jsonl"):
         return recorder.export_jsonl(path)
     return recorder.export_perfetto(path)
+
+
+# ===========================================================================
+# Host spans: the serving path on the wall clock
+# ===========================================================================
+# Track of the program spans (lane = the scheduler's step index, -1 outside
+# a step) and of the request records (lane = request id).
+HOST_TRACK = "host"
+HOST_REQUEST_TRACK = "host:requests"
+HOST_KINDS = ("span", "admit", "request")
+# Every program span, in the order a step opens them, then the set-up's
+# (docs/trace_schema.md says where each one opens and closes).
+SPAN_NAMES = ("serve.step", "sched.admit", "sched.feed", "engine.issue",
+              "engine.kv_map", "engine.kv_cow_copy", "engine.state",
+              "model.embed", "model.plan", "model.layer", "model.attn",
+              "model.paged_gather", "model.route", "model.dispatch",
+              "model.ffn", "model.head", "engine.wait", "engine.replay",
+              "sched.select", "engine.sample", "sched.emit",
+              "sched.feedback",
+              "setup.profile_buddies", "setup.profile_forward")
+
+HOST: Optional["HostRecorder"] = None   # the active recorder; None = off
+
+
+class _Off:
+    """What every span call site enters while no recorder is active: a
+    shared object that does nothing, entered as None."""
+    __slots__ = ()
+
+    def __enter__(self):
+        return None
+
+    def __exit__(self, *exc):
+        return False
+
+
+_OFF = _Off()
+
+
+def span(name: str, layer: Optional[int] = None,
+         step: Optional[int] = None):
+    """``with span(name):`` records the block as a program span of the
+    active ``HostRecorder`` (entered as its ``HostSpan``), or does nothing
+    (entered as None) while there is none: one ``is None`` test, and
+    nothing allocated. ``layer`` (default: the enclosing span's) and
+    ``step`` (``serve.step`` only: the scheduler's step index, the lane of
+    every span it encloses) label the record."""
+    h = HOST
+    if h is None:
+        return _OFF
+    return HostSpan(h, name, layer, step)
+
+
+def admitted(r) -> None:
+    """Wall time of request ``r``'s admission (``r.wall_admitted_s``)."""
+    h = HOST
+    if h is not None:
+        h.admit(r)
+
+
+def emitted(r) -> None:
+    """Wall time of a token just appended to ``r.tokens``."""
+    h = HOST
+    if h is not None:
+        h.token(r)
+
+
+def start_host() -> "HostRecorder":
+    """Turn host spans on: a fresh recorder becomes the active one. While
+    a ``torch.profiler`` session records, every span also opens a
+    ``record_function``, so that the session holds the spans beside the
+    kernels (outside one, a range would cost tens of microseconds and show
+    nothing)."""
+    global HOST
+    if HOST is not None:
+        raise RuntimeError("a host recorder is already active")
+    HOST = HostRecorder()
+    return HOST
+
+
+def stop_host() -> Optional["HostRecorder"]:
+    """Turn host spans off; returns the recorder that was active."""
+    global HOST
+    h, HOST = HOST, None
+    return h
+
+
+class HostSpan:
+    """One open program span: a record of the ``host`` track whose ``ts``
+    is its wall start and ``dur`` its length, ``args`` its parent's
+    ``seq`` (the enclosing open span), its layer, and its counters."""
+    __slots__ = ("h", "name", "layer", "step", "rec", "index", "rf",
+                 "prev_step", "owns_tokens", "dropped")
+
+    def __init__(self, h: "HostRecorder", name: str, layer, step):
+        self.h, self.name, self.layer, self.step = h, name, layer, step
+        self.rf = None
+        self.owns_tokens = self.dropped = False
+
+    def __enter__(self) -> "HostSpan":
+        h = self.h
+        parent = h.open_spans[-1] if h.open_spans else None
+        args = {}
+        if parent is not None:
+            args["parent"] = parent.rec["seq"]
+            if self.layer is None:
+                self.layer = parent.layer
+        if self.layer is not None:
+            args["layer"] = int(self.layer)
+        self.prev_step = h.step
+        if self.step is not None:
+            h.step = int(self.step)
+        if h.profiling():
+            label = (self.name if self.layer is None
+                     else f"{self.name}[{self.layer}]")
+            self.rf = h.record_function(label)
+            self.rf.__enter__()
+        self.index = len(h.events)
+        self.rec = h._record(HOST_TRACK, -1 if h.step is None else h.step,
+                             "span", self.name, time.perf_counter(), 0.0,
+                             args)
+        self.rec["args"] = args
+        h.open_spans.append(self)
+        return self
+
+    def __exit__(self, *exc):
+        t = time.perf_counter()
+        h = self.h
+        self.rec["dur"] = max(0.0, t - self.rec["ts"])
+        if not self.rec["args"]:
+            del self.rec["args"]
+        if self.rf is not None:
+            self.rf.__exit__(*exc)
+        h.open_spans.pop()
+        h.step = self.prev_step
+        if self.owns_tokens:
+            h.tokens = None
+        if self.dropped:
+            del h.events[self.index:]
+        return False
+
+    def note(self, key: str, value) -> None:
+        """A counter of this span (a JSON scalar) into its ``args``."""
+        self.rec["args"][key] = value
+
+    def feed(self, tokens: int) -> None:
+        """The step's active tokens (its counter ``tokens``): the
+        dispatches inside count their routed rows from it."""
+        self.note("tokens", int(tokens))
+        self.h.tokens = int(tokens)
+        self.owns_tokens = True
+
+    def dispatch(self, kernel: str, rows: int, t_n: int, k_n: int) -> None:
+        """The expert dispatch's counters: the kernel launched, the rows
+        it is given, and the routed rows of active tokens (the step's
+        ``tokens`` x K; all ``t_n`` tokens outside an engine step)."""
+        active = self.h.tokens if self.h.tokens is not None else t_n
+        self.note("kernel", kernel)
+        self.note("rows", int(rows))
+        self.note("routed", int(active) * int(k_n))
+
+    def drop(self) -> None:
+        """Take this span and every record made inside it out when it
+        closes (a scheduler iteration that ran no step)."""
+        self.dropped = True
+
+
+class HostRecorder(FlightRecorder):
+    """Program spans and request records on the wall clock, in the
+    ``FlightRecorder``'s record format and exports (``ts`` / ``dur`` in
+    ``time.perf_counter`` seconds). Kept in memory; ``export_jsonl`` /
+    ``export_perfetto`` write them at the end, ``table`` sums them."""
+
+    def __init__(self) -> None:
+        import torch
+        from torch.profiler import record_function
+        super().__init__()
+        self.open_spans: List[HostSpan] = []
+        self.step: Optional[int] = None     # the open serve.step's index
+        self.tokens: Optional[int] = None   # the issuing step's tokens
+        self.record_function = record_function
+        self.profiling = torch._C._autograd._profiler_enabled
+
+    def admit(self, r) -> None:
+        r.wall_admitted_s = time.perf_counter()
+        r.wall_token_s = []
+        self._record(HOST_REQUEST_TRACK, r.rid, "admit", f"req{r.rid}",
+                     r.wall_admitted_s, None, self._req_args(r))
+
+    def token(self, r) -> None:
+        """The token's wall on ``r``; its last one closes the request's
+        span (the walls stay on ``r``, not one record a token)."""
+        t = time.perf_counter()
+        if r.wall_token_s is None:          # admitted before recording
+            r.wall_token_s = []
+        r.wall_token_s.append(t)
+        if len(r.tokens) >= r.max_new_tokens and r.wall_admitted_s >= 0:
+            args = self._req_args(r)
+            args["tokens"] = len(r.wall_token_s)
+            args["first_token_s"] = r.wall_token_s[0] - r.wall_admitted_s
+            self._record(HOST_REQUEST_TRACK, r.rid, "request",
+                         f"req{r.rid}", r.wall_admitted_s,
+                         t - r.wall_admitted_s, args)
+
+    def _req_args(self, r) -> dict:
+        args = {"rid": int(r.rid)}
+        if self.step is not None:
+            args["step"] = self.step
+        return args
+
+    def spans(self, name: Optional[str] = None) -> List[dict]:
+        """The span records (of ``name``), in the order they opened."""
+        return [e for e in self.events if e["kind"] == "span"
+                and (name is None or e["name"] == name)]
+
+    def table(self) -> Dict[str, dict]:
+        """Per span name: count, total and mean host ms, largest total
+        first."""
+        tot: Dict[str, list] = {}
+        for e in self.spans():
+            t = tot.setdefault(e["name"], [0, 0.0])
+            t[0] += 1
+            t[1] += e["dur"]
+        return {k: {"n": n, "total_ms": s * 1e3, "mean_ms": s * 1e3 / n}
+                for k, (n, s) in sorted(tot.items(), key=lambda kv: -kv[1][1])}

@@ -52,6 +52,7 @@ from repro_torch.core.buddies import BuddyTables
 from repro_torch.core.policy import BuddyPolicy
 from repro_torch.models import transformer
 from repro_torch.models.moe import BuddyState
+from repro_torch.runtime import trace
 from repro_torch.runtime.cache import ExpertCache
 from repro_torch.runtime.costs import MissCostModel, best_resident_q
 from repro_torch.runtime.memory import (DEFAULT_HW, HardwareModel,
@@ -377,7 +378,7 @@ class ServeEngine:
         if pairs:
             src, dst = torch.tensor(pairs, dtype=torch.int64).T \
                 .to(self.device)
-            with torch.profiler.record_function("kv_cow_copy"):
+            with trace.span("engine.kv_cow_copy"):
                 for g in caches:
                     for a in g["kv"].values():
                         a[:, dst] = a[:, src]
@@ -410,22 +411,28 @@ class ServeEngine:
         still flow through the step but are excluded from all expert-usage,
         transfer and throughput accounting. Returns (logits [B, V],
         caches)."""
-        if active is None:
-            active = np.ones(int(token.shape[0]), bool)
-        tables = None
-        if self._paged:
-            # paged decode is always per-row: broadcast a lockstep scalar;
-            # the block table and positions go up in the step's plan
-            pos = np.broadcast_to(np.asarray(pos, np.int64),
-                                  (int(token.shape[0]),))
-            tables = self._map_rows(caches, np.where(active, pos, 0),
-                                    np.where(active, pos + 1, 0))
-        elif isinstance(pos, np.ndarray) and pos.ndim == 1:
-            pos = torch.from_numpy(pos.astype(np.int64)).to(self.device)
-        logits, caches, aux = transformer.decode_step(
-            self.params, self.cfg, token, caches, pos, policy=self.policy,
-            buddies=self._buddy_state(), window=self.window, record=True,
-            block_tables=tables)
+        with trace.span("engine.issue") as sp:
+            if active is None:
+                active = np.ones(int(token.shape[0]), bool)
+            if sp is not None:
+                sp.feed(np.count_nonzero(active))
+            tables = None
+            if self._paged:
+                # paged decode is always per-row: broadcast a lockstep
+                # scalar; the block table and positions go up in the
+                # step's plan
+                pos = np.broadcast_to(np.asarray(pos, np.int64),
+                                      (int(token.shape[0]),))
+                tables = self._map_rows(caches, np.where(active, pos, 0),
+                                        np.where(active, pos + 1, 0))
+            elif isinstance(pos, np.ndarray) and pos.ndim == 1:
+                pos = torch.from_numpy(pos.astype(np.int64)).to(self.device)
+            with trace.span("engine.state"):
+                buddies = self._buddy_state()
+            logits, caches, aux = transformer.decode_step(
+                self.params, self.cfg, token, caches, pos,
+                policy=self.policy, buddies=buddies, window=self.window,
+                record=True, block_tables=tables)
         self._account(aux, active=np.asarray(active, bool))
         return logits, caches
 
@@ -448,35 +455,42 @@ class ServeEngine:
         multi-token chunk would wrap the ring KV cache; in paged mode there
         is no ring (a slot's index is its content position) and the rows'
         write ranges are mapped in the pool instead."""
-        if not torch.is_tensor(tokens):
-            tokens = self._tokens(tokens)
-        tokens = tokens.to(self.device)
-        b, c = tokens.shape
-        rows = np.asarray(rows, bool)
-        if tok_valid is None:
-            tok_valid = np.repeat(rows[:, None], c, axis=1)
-        tok_valid = np.asarray(tok_valid, bool) & rows[:, None]
-        base = np.asarray(base_pos, np.int64)
-        counts = tok_valid.sum(axis=1)
-        tables = None
-        if self._paged:
-            tables = self._map_rows(caches, base, base + counts)
-        else:
-            # a multi-token chunk is scattered into the ring before its
-            # queries attend, so it must not wrap it (attn_prefill_chunk);
-            # single-token rows are plain decode writes
-            cap = caches[0]["kv"]["k"].shape[2]
-            multi = counts > 1
-            if multi.any() and int((base[multi] + counts[multi]).max()) > cap:
-                raise ValueError(
-                    "chunked prefill would wrap the KV ring buffer: size "
-                    "caches to the full prompt (prompt end "
-                    f"{int((base[multi] + counts[multi]).max())} > capacity "
-                    f"{cap})")
-        logits, caches, aux = transformer.prefill_chunk(
-            self.params, self.cfg, tokens, caches, base, tok_valid,
-            policy=self.policy, buddies=self._buddy_state(),
-            window=self.window, record=True, block_tables=tables)
+        with trace.span("engine.issue") as sp:
+            if not torch.is_tensor(tokens):
+                tokens = self._tokens(tokens)
+            tokens = tokens.to(self.device)
+            b, c = tokens.shape
+            rows = np.asarray(rows, bool)
+            if tok_valid is None:
+                tok_valid = np.repeat(rows[:, None], c, axis=1)
+            tok_valid = np.asarray(tok_valid, bool) & rows[:, None]
+            base = np.asarray(base_pos, np.int64)
+            counts = tok_valid.sum(axis=1)
+            if sp is not None:
+                sp.feed(counts.sum())
+            tables = None
+            if self._paged:
+                tables = self._map_rows(caches, base, base + counts)
+            else:
+                # a multi-token chunk is scattered into the ring before
+                # its queries attend, so it must not wrap it
+                # (attn_prefill_chunk); single-token rows are plain decode
+                # writes
+                cap = caches[0]["kv"]["k"].shape[2]
+                multi = counts > 1
+                if multi.any() and \
+                        int((base[multi] + counts[multi]).max()) > cap:
+                    raise ValueError(
+                        "chunked prefill would wrap the KV ring buffer: "
+                        "size caches to the full prompt (prompt end "
+                        f"{int((base[multi] + counts[multi]).max())} > "
+                        f"capacity {cap})")
+            with trace.span("engine.state"):
+                buddies = self._buddy_state()
+            logits, caches, aux = transformer.prefill_chunk(
+                self.params, self.cfg, tokens, caches, base, tok_valid,
+                policy=self.policy, buddies=buddies, window=self.window,
+                record=True, block_tables=tables)
         self._account(aux, active=tok_valid.reshape(-1))
         return logits, caches
 
@@ -570,9 +584,21 @@ class ServeEngine:
         n_active = int(active.sum())
         if n_active == 0:
             return
+        with trace.span("engine.wait"):
+            # one device -> host copy of every per-slot mask of each
+            # group; the first waits for the step's device work
+            hosts = [torch.stack([rec[k].to(torch.int32)
+                                  for k in _SLOT_KEYS]).cpu().numpy()
+                     for rec in aux.get("recorded", [])]    # [6, L, T, K]
+        with trace.span("engine.replay"):
+            self._replay(hosts, active, n_active)
+
+    def _replay(self, hosts, active: np.ndarray, n_active: int) -> None:
+        """``_account``'s replay of the step from the host copies of its
+        per-slot masks."""
         self._step_worthwhile = None
         tele = self.telemetry
-        trace = tele.trace if tele is not None else None
+        flight = tele.trace if tele is not None else None
         sched = self.scheduler
         step_t0 = sched.now
         busy0 = self._links_busy_s()
@@ -584,10 +610,7 @@ class ServeEngine:
 
         layer_off = 0
         e_n = self.cfg.moe.num_experts
-        for rec in aux.get("recorded", []):
-            # one device -> host copy of every per-slot mask of the group
-            host = torch.stack([rec[k].to(torch.int32) for k in _SLOT_KEYS]) \
-                .cpu().numpy()                                # [6, L, T, K]
+        for host in hosts:
             idx = host[0]
             sub_sl, miss_sl, deg_sl, drop_sl, peer_sl = (host[1:] != 0)
             for li in range(idx.shape[0]):
@@ -654,12 +677,12 @@ class ServeEngine:
                                                       cursor)
                 stall += fstall
                 step_stall += stall
-                if trace is not None:
+                if flight is not None:
                     if stall > 0.0:
-                        trace.span("layers", layer, "stall", "stall",
+                        flight.span("layers", layer, "stall", "stall",
                                    stall_t0, cursor, stall_s=stall,
                                    n_fetch=int((miss_row > 0).sum()))
-                    trace.span("layers", layer, "compute", "compute",
+                    flight.span("layers", layer, "compute", "compute",
                                cursor, cursor + per_layer)
                 cursor += per_layer          # this layer's compute slice
                 self._issue_prefetches(layer, used)
@@ -682,8 +705,8 @@ class ServeEngine:
             m.ema("step_time_s", alpha=0.05).update(step_time)
             m.histogram("step_stall_s").observe(step_stall)
             m.gauge("inflight_transfers").set(sched.n_in_flight)
-            if trace is not None:
-                trace.span("engine", 0, "step",
+            if flight is not None:
+                flight.span("engine", 0, "step",
                            f"step{self.stats.steps - 1}", step_t0, cursor,
                            tokens=n_active, stall_s=step_stall,
                            overlapped_s=overlapped)
@@ -981,13 +1004,14 @@ class ServeEngine:
     def sample_tokens(self, logits, greedy: bool, temperature: float = 1.0):
         """Next-token choice from [B, V] logits: argmax, or temperature
         sampling from the engine's seeded torch.Generator."""
-        if greedy:
-            return logits.argmax(-1).cpu().numpy()
-        if temperature <= 0.0:
-            raise ValueError("temperature must be > 0 for sampling")
-        p = torch.softmax(logits.float() / temperature, dim=-1)
-        return torch.multinomial(p, 1, generator=self._gen)[:, 0] \
-            .cpu().numpy()
+        with trace.span("engine.sample"):
+            if greedy:
+                return logits.argmax(-1).cpu().numpy()
+            if temperature <= 0.0:
+                raise ValueError("temperature must be > 0 for sampling")
+            p = torch.softmax(logits.float() / temperature, dim=-1)
+            return torch.multinomial(p, 1, generator=self._gen)[:, 0] \
+                .cpu().numpy()
 
     def _tokens(self, arr) -> torch.Tensor:
         return torch.as_tensor(np.asarray(arr), dtype=torch.int64) \
@@ -1006,13 +1030,14 @@ class ServeEngine:
         out[:, :p_len] = prompts
         tok = self._tokens(prompts[:, 0])
         for pos in range(total - 1):
-            logits, caches = self.step(tok, caches, pos, active=row_mask)
-            if pos + 1 < p_len:
-                tok = self._tokens(prompts[:, pos + 1])
-            else:
-                nxt = self.sample_tokens(logits, greedy, temperature)
-                out[:, pos + 1] = nxt
-                tok = self._tokens(nxt)
+            with trace.span("serve.step", step=pos):
+                logits, caches = self.step(tok, caches, pos, active=row_mask)
+                if pos + 1 < p_len:
+                    tok = self._tokens(prompts[:, pos + 1])
+                else:
+                    nxt = self.sample_tokens(logits, greedy, temperature)
+                    out[:, pos + 1] = nxt
+                    tok = self._tokens(nxt)
         return out
 
     def teacher_forced_nll(self, tokens: np.ndarray,

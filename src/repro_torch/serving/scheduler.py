@@ -45,6 +45,7 @@ from typing import Callable, List, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch.runtime import trace
 from repro_torch.runtime.prefetch import AdaptiveBudgetController
 
 # Request lifecycle states
@@ -209,6 +210,10 @@ class ServeRequest:
     prefix_hit_tokens: int = 0          # prompt tokens served from the cache
     tokens: list = dataclasses.field(default_factory=list)
     token_times: list = dataclasses.field(default_factory=list)
+    # wall clock (time.perf_counter) of the admission and of each emitted
+    # token, kept while host spans are on (runtime.trace.start_host)
+    wall_admitted_s: float = -1.0
+    wall_token_s: Optional[list] = None
 
     # -- metrics --------------------------------------------------------
     def ttft(self) -> float:
@@ -515,38 +520,40 @@ class ContinuousScheduler:
     def _admit(self, queue: RequestQueue, slot, pos, tok, caches):
         """Fill free slots from the backlog at the current clock; reset the
         decode caches of reused rows. Returns (caches, active mask)."""
-        eng = self.engine
-        now = eng.scheduler.now
-        newly = []
-        for i in range(self.slots):
-            if slot[i] is not None:
-                continue
-            r = queue.pop(now,
-                          lambda rq: self._est_service(rq, self._est_step_s))
-            if r is None:
-                break
-            r.state = RUNNING
-            r.admitted_s = now
-            r.cursor = 1
-            slot[i] = r
-            pos[i] = 0
-            tok[i] = int(r.prompt[0])
-            newly.append(i)
-        if newly:
-            caches = eng.reset_rows(caches, newly)
-        if getattr(eng, "prefix_tree", None) is not None:
-            # radix-cache admission: adopt the longest cached prefix and
-            # start prefill at the first novel token — a full-prefix hit
-            # leaves exactly one token to feed (near-zero TTFT)
-            for i in newly:
-                r = slot[i]
-                m = eng.adopt_prefix(i, r.prompt)
-                if m > 0:
-                    r.prefix_hit_tokens = m
-                    pos[i] = m
-                    tok[i] = int(r.prompt[m])
-                    r.cursor = m + 1
-        return caches, np.array([s is not None for s in slot], bool)
+        with trace.span("sched.admit"):
+            eng = self.engine
+            now = eng.scheduler.now
+            newly = []
+            for i in range(self.slots):
+                if slot[i] is not None:
+                    continue
+                r = queue.pop(now, lambda rq: self._est_service(
+                    rq, self._est_step_s))
+                if r is None:
+                    break
+                r.state = RUNNING
+                r.admitted_s = now
+                trace.admitted(r)
+                r.cursor = 1
+                slot[i] = r
+                pos[i] = 0
+                tok[i] = int(r.prompt[0])
+                newly.append(i)
+            if newly:
+                caches = eng.reset_rows(caches, newly)
+            if getattr(eng, "prefix_tree", None) is not None:
+                # radix-cache admission: adopt the longest cached prefix and
+                # start prefill at the first novel token — a full-prefix hit
+                # leaves exactly one token to feed (near-zero TTFT)
+                for i in newly:
+                    r = slot[i]
+                    m = eng.adopt_prefix(i, r.prompt)
+                    if m > 0:
+                        r.prefix_hit_tokens = m
+                        pos[i] = m
+                        tok[i] = int(r.prompt[m])
+                        r.cursor = m + 1
+            return caches, np.array([s is not None for s in slot], bool)
 
     def _tick(self, t0: float, n_active: int) -> float:
         """Post-step bookkeeping: refine the EWMA step estimate, count the
@@ -563,6 +570,7 @@ class ContinuousScheduler:
         r = slot[i]
         r.tokens.append(nxt)
         r.token_times.append(t1)
+        trace.emitted(r)
         if r.first_token_s < 0:
             r.first_token_s = t1
         tok[i] = nxt
@@ -612,16 +620,17 @@ class ContinuousScheduler:
         controller rides the same step loop: its tick is interval-gated on
         the simulated clock, so calling it here AND from the engine's
         step accounting never double-fires a window."""
-        if self.controller is not None:
-            self.controller.observe_step(
-                self.engine.stall_breakdown(),
-                queue.depth(self.engine.scheduler.now),
-                worthwhile=getattr(self.engine,
-                                   "last_prefetch_worthwhile", None))
-            self.controller.apply(self.engine)
-        placement = getattr(self.engine, "placement", None)
-        if placement is not None:
-            placement.maybe_tick(self.engine)
+        with trace.span("sched.feedback"):
+            if self.controller is not None:
+                self.controller.observe_step(
+                    self.engine.stall_breakdown(),
+                    queue.depth(self.engine.scheduler.now),
+                    worthwhile=getattr(self.engine,
+                                       "last_prefetch_worthwhile", None))
+                self.controller.apply(self.engine)
+            placement = getattr(self.engine, "placement", None)
+            if placement is not None:
+                placement.maybe_tick(self.engine)
 
     def run(self, queue: RequestQueue,
             max_context: Optional[int] = None) -> dict:
@@ -640,34 +649,41 @@ class ContinuousScheduler:
         self._est_step_s = eng.hw.decode_compute_time(eng._active_params, b)
 
         while self.steps < self.max_steps:
-            caches, active = self._admit(queue, slot, pos, tok, caches)
-            if not active.any():
-                nxt = queue.next_arrival()
-                if nxt is None:
-                    break                       # drained: all work done
-                eng.advance_clock(max(eng.scheduler.now, nxt))
-                continue
-
-            # ---- one fused step: prefill + decode rows together -------
-            t0 = eng.scheduler.now
-            logits, caches = eng.step(eng._tokens(tok), caches, pos.copy(),
-                                      active=active)
-            t1 = self._tick(t0, int(active.sum()))
-
-            sampled = eng.sample_tokens(logits, self.greedy, self.temperature)
-            for i in range(b):
-                r = slot[i]
-                if r is None:
+            with trace.span("serve.step", step=self.steps) as sp:
+                caches, active = self._admit(queue, slot, pos, tok, caches)
+                if not active.any():
+                    if sp is not None:
+                        sp.drop()               # no step ran
+                    nxt = queue.next_arrival()
+                    if nxt is None:
+                        break                   # drained: all work done
+                    eng.advance_clock(max(eng.scheduler.now, nxt))
                     continue
-                pos[i] += 1
-                if r.cursor < len(r.prompt):    # still prefilling this row
-                    tok[i] = int(r.prompt[r.cursor])
-                    r.cursor += 1
-                    continue
-                if pos[i] == len(r.prompt):     # prefill just completed
-                    self._maybe_insert_prefix(i, r)
-                self._emit(slot, i, int(sampled[i]), t1, tok)
-            self._feedback(queue)
+
+                # ---- one fused step: prefill + decode rows together ---
+                t0 = eng.scheduler.now
+                with trace.span("sched.feed"):
+                    tokens = eng._tokens(tok)
+                logits, caches = eng.step(tokens, caches, pos.copy(),
+                                          active=active)
+                t1 = self._tick(t0, int(active.sum()))
+
+                sampled = eng.sample_tokens(logits, self.greedy,
+                                            self.temperature)
+                with trace.span("sched.emit"):
+                    for i in range(b):
+                        r = slot[i]
+                        if r is None:
+                            continue
+                        pos[i] += 1
+                        if r.cursor < len(r.prompt):    # still prefilling
+                            tok[i] = int(r.prompt[r.cursor])
+                            r.cursor += 1
+                            continue
+                        if pos[i] == len(r.prompt):     # prefill completed
+                            self._maybe_insert_prefix(i, r)
+                        self._emit(slot, i, int(sampled[i]), t1, tok)
+                self._feedback(queue)
 
         return self.summary(queue, t_start)
 
@@ -690,61 +706,72 @@ class ContinuousScheduler:
         self._est_step_s = eng.hw.decode_compute_time(eng._active_params, b)
 
         while self.steps < self.max_steps:
-            caches, active = self._admit(queue, slot, pos, tok, caches)
-            if not active.any():
-                nxt = queue.next_arrival()
-                if nxt is None:
-                    break                       # drained: all work done
-                eng.advance_clock(max(eng.scheduler.now, nxt))
-                continue
+            with trace.span("serve.step", step=self.steps) as sp:
+                caches, active = self._admit(queue, slot, pos, tok, caches)
+                if not active.any():
+                    if sp is not None:
+                        sp.drop()               # no step ran
+                    nxt = queue.next_arrival()
+                    if nxt is None:
+                        break                   # drained: all work done
+                    eng.advance_clock(max(eng.scheduler.now, nxt))
+                    continue
 
-            # ---- one fused step: prefill chunks + decode rows ---------
-            t0 = eng.scheduler.now
-            n_feed = np.zeros(b, np.int32)
-            prefilling = any(slot[i] is not None
-                             and pos[i] < len(slot[i].prompt)
-                             for i in range(b))
-            if prefilling:
-                chunk = self._effective_chunk(slot, pos)
-                tokens = np.zeros((b, chunk), np.int64)
-                valid = np.zeros((b, chunk), bool)
-                for i in range(b):
-                    r = slot[i]
-                    if r is None:
-                        continue
-                    if pos[i] < len(r.prompt):
-                        n = min(chunk, len(r.prompt) - pos[i])
-                        tokens[i, :n] = r.prompt[pos[i]:pos[i] + n]
+                # ---- one fused step: prefill chunks + decode rows -----
+                t0 = eng.scheduler.now
+                with trace.span("sched.feed"):
+                    n_feed = np.zeros(b, np.int32)
+                    prefilling = any(slot[i] is not None
+                                     and pos[i] < len(slot[i].prompt)
+                                     for i in range(b))
+                    if prefilling:
+                        chunk = self._effective_chunk(slot, pos)
+                        tokens = np.zeros((b, chunk), np.int64)
+                        valid = np.zeros((b, chunk), bool)
+                        for i in range(b):
+                            r = slot[i]
+                            if r is None:
+                                continue
+                            if pos[i] < len(r.prompt):
+                                n = min(chunk, len(r.prompt) - pos[i])
+                                tokens[i, :n] = r.prompt[pos[i]:pos[i] + n]
+                            else:
+                                n = 1
+                                tokens[i, 0] = tok[i]
+                            valid[i, :n] = True
+                            n_feed[i] = n
                     else:
-                        n = 1
-                        tokens[i, 0] = tok[i]
-                    valid[i, :n] = True
-                    n_feed[i] = n
-                logits, caches = eng.prefill_rows(
-                    tokens, active, caches, base_pos=pos.copy(),
-                    tok_valid=valid)
-                last = torch.from_numpy((n_feed - 1).clip(0).astype(np.int64))
-                step_logits = logits[torch.arange(b, device=logits.device),
-                                     last.to(logits.device)]
-            else:
-                n_feed[active] = 1
-                step_logits, caches = eng.step(
-                    eng._tokens(tok), caches, pos.copy(), active=active)
-            t1 = self._tick(t0, int(active.sum()))
+                        n_feed[active] = 1
+                        tokens = eng._tokens(tok)
+                if prefilling:
+                    logits, caches = eng.prefill_rows(
+                        tokens, active, caches, base_pos=pos.copy(),
+                        tok_valid=valid)
+                    with trace.span("sched.select"):
+                        last = torch.from_numpy(
+                            (n_feed - 1).clip(0).astype(np.int64))
+                        step_logits = logits[
+                            torch.arange(b, device=logits.device),
+                            last.to(logits.device)]
+                else:
+                    step_logits, caches = eng.step(
+                        tokens, caches, pos.copy(), active=active)
+                t1 = self._tick(t0, int(active.sum()))
 
-            sampled = eng.sample_tokens(step_logits, self.greedy,
-                                        self.temperature)
-            for i in range(b):
-                r = slot[i]
-                if r is None:
-                    continue
-                pos[i] += n_feed[i]
-                if pos[i] < len(r.prompt):      # still prefilling this row
-                    continue
-                if pos[i] == len(r.prompt):     # prefill just completed
-                    self._maybe_insert_prefix(i, r)
-                self._emit(slot, i, int(sampled[i]), t1, tok)
-            self._feedback(queue)
+                sampled = eng.sample_tokens(step_logits, self.greedy,
+                                            self.temperature)
+                with trace.span("sched.emit"):
+                    for i in range(b):
+                        r = slot[i]
+                        if r is None:
+                            continue
+                        pos[i] += n_feed[i]
+                        if pos[i] < len(r.prompt):  # still prefilling
+                            continue
+                        if pos[i] == len(r.prompt):     # prefill completed
+                            self._maybe_insert_prefix(i, r)
+                        self._emit(slot, i, int(sampled[i]), t1, tok)
+                self._feedback(queue)
 
         return self.summary(queue, t_start)
 

@@ -13,9 +13,11 @@ deepseek-v2-lite-buddy, at full width, cut to --layers layers, random
 weights from seed 0, buddy profiling, cache-rate 0.5, prev-step predictor),
 warms it up, then for the fused and the unfused dispatch (the gather
 branch at batch 4 when 4 x top-k < experts, as in DeepSeek, else the
-capacity branch, as in Mixtral) times --steps decode steps three ways: wall
-clock (synchronized), the host-side timeline replay inside the engine
-(``ServeEngine._account``), and torch.profiler's device time per kernel.
+capacity branch, as in Mixtral) times --steps decode steps with the
+program's host spans on (``runtime.trace``, docs/trace_schema.md "host")
+three ways: wall clock (synchronized), host ms per span (the issue, the
+wait for the device, the timeline replay of ``ServeEngine._account``,
+...), and torch.profiler's device time per kernel and per span.
 With --quant-tier the engines carry the replica tier at coverage 0.5
 (chip_smoke.py's tier path: 15 full slots and 32 replicas per layer at
 full width), so degraded slots run through the grouped kernel's int8 half (fused)
@@ -25,7 +27,8 @@ continuous scheduler's fused step while every slot prefills), and the
 unfused dispatch is the dropless capacity branch (expert_ffn). With
 --paged-kv the engines keep their KV in a block pool (16-token blocks), and
 the device time of the page gathers and of the copy-on-write copies is
-reported by name (the ``paged_gather`` and ``kv_cow_copy`` ranges). With
+reported by name (the ``model.paged_gather`` and ``engine.kv_cow_copy``
+spans). With
 --prefix-cache as well, every timed step is a prefix hit's first step: the
 four rows are freed, each adopts the first 60 tokens (not a multiple of the
 block) of a prompt another row donated, and the step writes at position 60,
@@ -54,15 +57,12 @@ def _device_us(evt) -> float:
     return 0.0
 
 
-RANGES = ("paged_gather", "kv_cow_copy")    # record_function names
-HOST_TIMED = ("_account", "_map_rows", "paged_plan")
 HIT = 60                                     # adopted tokens per prefix hit
 
 
 def profile_dispatch(serve, params, layers: int, steps: int, fused: bool,
                      tier_flags=(), chunk: int = 1, kv_flags=(),
                      arch: str = "deepseek-v2-lite-buddy"):
-    from repro_torch.models import attention
     flags = ["--arch", arch, "--layers", str(layers), "--cache-rate", "0.5", "--policy",
              "buddy", "--predictor", "prev-step", "--batch", "4"]
     eng, lm = serve.build_engine(
@@ -70,35 +70,23 @@ def profile_dispatch(serve, params, layers: int, steps: int, fused: bool,
                          + (["--fused-dispatch"] if fused else [])),
         params=params)
     hits = "--prefix-cache" in kv_flags
-    host_s = dict.fromkeys(HOST_TIMED, 0.0)
+    return _profile(eng, lm, steps, fused, tier_flags, chunk, kv_flags,
+                    layers, hits)
 
-    def timed(name, fn):
-        def call(*a, **kw):
-            t0 = time.perf_counter()
-            out = fn(*a, **kw)
-            host_s[name] += time.perf_counter() - t0
-            return out
-        return call
 
-    # the host's share of a step: the timeline replay, and in paged mode
-    # mapping the rows' write ranges (with their copies) and the step's plan
-    eng._account = timed("_account", eng._account)
-    eng._map_rows = timed("_map_rows", eng._map_rows)
-    plan_fn = attention.paged_plan
-    attention.paged_plan = timed("paged_plan", plan_fn)
-    try:
-        return _profile(eng, lm, steps, fused, tier_flags, chunk, kv_flags,
-                        layers, hits, host_s)
-    finally:
-        attention.paged_plan = plan_fn
+def _host_ms(host, steps) -> dict:
+    """Host ms per step by span name (``HostRecorder.table``)."""
+    return {k: row["total_ms"] / steps for k, row in host.table().items()}
 
 
 def _profile(eng, lm, steps, fused, tier_flags, chunk, kv_flags, layers,
-             hits, host_s):
+             hits):
     import numpy as np
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.runtime import trace
     n_tok = 2 * steps * chunk + 4 + (HIT + chunk if hits else 0)
     prompts = lm.sample(4, n_tok)
     caches = eng.init_caches(4, n_tok)
@@ -132,25 +120,29 @@ def _profile(eng, lm, steps, fused, tier_flags, chunk, kv_flags, layers,
                                 base_pos=np.full(4, HIT))
 
     def run(first):
+        """--steps steps from position ``first`` with the host spans on:
+        (wall s, the spans' recorder)."""
         nonlocal tok, caches
-        for k in host_s:
-            host_s[k] = 0.0
-        t0 = time.perf_counter()
-        for pos in range(first, first + steps * chunk, chunk):
-            if hits:
-                logits, caches = hit_step()
-                eng.sample_tokens(logits if chunk == 1 else logits[:, -1],
-                                  True)
-            elif chunk == 1:
-                logits, caches = eng.step(tok, caches, pos)
-                tok = eng._tokens(eng.sample_tokens(logits, True))
-            else:
-                logits, caches = eng.prefill_rows(
-                    prompts[:, pos:pos + chunk], np.ones(4, bool), caches,
-                    base_pos=np.full(4, pos))
-                eng.sample_tokens(logits[:, -1], True)
-        torch.cuda.synchronize()
-        return time.perf_counter() - t0, dict(host_s)
+        host = trace.start_host()
+        try:
+            t0 = time.perf_counter()
+            for pos in range(first, first + steps * chunk, chunk):
+                if hits:
+                    logits, caches = hit_step()
+                    eng.sample_tokens(
+                        logits if chunk == 1 else logits[:, -1], True)
+                elif chunk == 1:
+                    logits, caches = eng.step(tok, caches, pos)
+                    tok = eng._tokens(eng.sample_tokens(logits, True))
+                else:
+                    logits, caches = eng.prefill_rows(
+                        prompts[:, pos:pos + chunk], np.ones(4, bool),
+                        caches, base_pos=np.full(4, pos))
+                    eng.sample_tokens(logits[:, -1], True)
+            torch.cuda.synchronize()
+            return time.perf_counter() - t0, host
+        finally:
+            trace.stop_host()
 
     wall, host = run(3)                            # without the profiler
     with profile(activities=[ProfilerActivity.CPU,
@@ -158,17 +150,22 @@ def _profile(eng, lm, steps, fused, tier_flags, chunk, kv_flags, layers,
         wall_prof, _ = run(3 + steps * chunk)
     # device-side kernel and copy events only: the CPU-side aten ops that
     # launched them carry the same device time again
-    # a range's kernels' device time is its CPU-side event's total; the
+    # a span's kernels' device time is its CPU-side range's total (the
+    # per-layer ranges "model.attn[3]" summed by span name); the
     # device-side annotation of the same name spans the launch gaps
     # between those kernels too, so it is not used
-    named = {e.key: (float(getattr(e, "device_time_total",
-                                   getattr(e, "cuda_time_total", 0.0))),
-                     e.count)
-             for e in prof.key_averages()
-             if e.key in RANGES and e.device_type == DeviceType.CPU}
+    named = {}
+    for e in prof.key_averages():
+        name = e.key.split("[")[0]
+        if name in trace.SPAN_NAMES:
+            us, n = named.get(name, (0.0, 0))
+            if e.device_type == DeviceType.CPU:
+                named[name] = (us + float(getattr(
+                    e, "device_time_total", getattr(e, "cuda_time_total",
+                                                    0.0))), n + e.count)
     rows = [(e.key, _device_us(e), e.count) for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA and _device_us(e) > 0
-            and e.key not in RANGES]
+            and e.key.split("[")[0] not in trace.SPAN_NAMES]
     busy_us = sum(r[1] for r in rows)
     rows.sort(key=lambda r: -r[1])
     moe = eng.cfg.moe
@@ -188,8 +185,10 @@ def _profile(eng, lm, steps, fused, tier_flags, chunk, kv_flags, layers,
         "degraded_slots_all_steps": (eng.tier.degraded_tokens
                                      if eng.tier is not None else 0),
         "wall_ms_per_step": wall / steps * 1e3,
-        "host_account_ms_per_step": host["_account"] / steps * 1e3,
-        "host_ms_per_step": {k: v / steps * 1e3 for k, v in host.items()},
+        "host_account_ms_per_step": sum(
+            _host_ms(host, steps).get(k, 0.0)
+            for k in ("engine.wait", "engine.replay")),
+        "host_ms_per_step": _host_ms(host, steps),
         "profiled_wall_ms_per_step": wall_prof / steps * 1e3,
         "device_busy_ms_per_step": busy_us / steps / 1e3,
         "device_ops_per_step": sum(r[2] for r in rows) / steps,
