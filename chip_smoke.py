@@ -551,6 +551,14 @@ def ffn_plan(x, groups: int, f_n: int, tensors, fp=True,
     return {"instance": plan["instance"], "bk": plan["bk"]}
 
 
+def live_rows(x) -> tuple:
+    """(rows, groups) of an [G, C, D] buffer that hold an element other
+    than +-0: the rows expert_ffn computes, the groups whose weights it
+    reads."""
+    live = (x != 0).any(-1)
+    return int(live.sum()), int(live.any(-1).sum())
+
+
 def max_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max()) if a.numel() else 0.0
 
@@ -800,11 +808,13 @@ def kernel_expert_ffn(dev, gen):
         err = max_err(got, want)
         require(err <= TOL_F32 * (1 + float(want.abs().max())),
                 f"expert_ffn {name}: err {err}")
-        # the kernel has no row counts: every row of every expert is work
-        flops = 2 * e_n * x.shape[1] * d_n * f_n * 3
-        moved = nbytes(x, w1, w3, w2, got)
+        # the kernel computes the live rows, through the live experts
+        n_rows, n_live = live_rows(x)
+        flops = 2 * n_rows * d_n * f_n * 3
+        moved = nbytes(x, got) + nbytes(w1, w3, w2) * n_live // e_n
         b_ms, b_by = bound(moved, flops)
         rows[name] = {"shape": list(x.shape) + [f_n], "max_abs_err": err,
+                      "live_rows": n_rows, "live_experts": n_live,
                       "max_abs_plain": float(want.abs().max()),
                       **ffn_plan(x, e_n, f_n, (x, w1, w3, w2)),
                       "ms": time_ms(lambda: expert_ffn_cuda(x, w1, w3, w2)),
@@ -894,7 +904,9 @@ def kernel_train_grads(dev, gen):
     del grads
     c_n = x.shape[1]
     mm = 2 * e_n * c_n * d_n * f_n               # one [C, D] x [D, F] product
-    fwd_b = bound(nbytes(x, *ws, x), 3 * mm)
+    n_rows, n_live = live_rows(x)                 # what the forward computes
+    fwd_b = bound(nbytes(x, x) + nbytes(*ws) * n_live // e_n,
+                  3 * 2 * n_rows * d_n * f_n)
     bwd_b = bound(nbytes(x, *ws, dy) + nbytes(x, *ws), 8 * mm)
     leaves = [t.detach().requires_grad_(True) for t in (x, *ws)]
     y_plain = expert_ffn_plain(*leaves)
@@ -1370,9 +1382,9 @@ def kernel_mixtral(dev, gen):
     a fused decode step's [16, 8, 4096] with row counts; quant_ffn on the
     int8 tier's degraded half of a decode step's slots, binned by expert
     into [8, 8, 4096] with counts; route at E = 8, K = 2, R = 7, T = 4 and
-    32, with the tier's mask. No kernel has row counts in the capacity
-    branch, so expert_ffn's bound counts every row; the others count the
-    live groups' weights and the filled rows."""
+    32, with the tier's mask. Each bound counts the live groups' weights
+    and the filled rows: expert_ffn's from x, whose zero rows it skips,
+    the others' from their row counts."""
     import torch
     from repro_torch.kernels.expert_ffn import expert_ffn_cuda, expert_ffn_plain
     from repro_torch.kernels.grouped_ffn import (grouped_ffn_cuda,
@@ -1391,10 +1403,12 @@ def kernel_mixtral(dev, gen):
     for name, tokens in (("decode", t_n), ("chunk8", 4 * 8)):
         x = _capacity_binned(gen, torch.randn(tokens, d_n, generator=gen), 4,
                              e_n, k_n, dev)
+        n_rows, n_live = live_rows(x)
         rows[name] = dict(_ffn_case(
             "expert_ffn", expert_ffn_cuda, expert_ffn_plain, (x, w1, w3, w2),
-            nbytes(x) * 2 + w_bytes, 2 * x.numel() * f_n * 3),
-            **ffn_plan(x, e_n, f_n, (x, w1, w3, w2)))
+            nbytes(x) * 2 + n_live * w_bytes // e_n,
+            2 * n_rows * d_n * f_n * 3), live_rows=n_rows,
+            live_experts=n_live, **ffn_plan(x, e_n, f_n, (x, w1, w3, w2)))
     out["expert_ffn"] = rows
     buf, counts = _binned(gen, torch.randn(t_n, d_n, generator=gen), e_n,
                           k_n, t_n * k_n, 0.0, dev)
@@ -3423,9 +3437,9 @@ def _ffn_at_bound(tap) -> dict:
     decode buffer [E, 4 x 2, D]; the fused step's [2E, 8, D] with row
     counts; the tier's degraded slots [E, 8, D] with counts): ms per call (CUDA events) and device time per call
     (torch.profiler) against its bound, the plain version's ms beside
-    them. The bound: x, the output and, where there are row counts, the
-    live groups' weights and the counts, moved once; without counts every
-    group's weights (the kernel reads them all)."""
+    them. The bound: x, the output and the live groups' weights, moved
+    once, and the counts where there are any; expert_ffn's live groups and
+    filled rows are those of x with an element other than +-0."""
     from repro_torch.kernels.expert_ffn import expert_ffn_plain, ffn_flops
     from repro_torch.kernels.grouped_ffn import grouped_ffn_plain
     from repro_torch.kernels.ops import _CUDA
@@ -3441,7 +3455,11 @@ def _ffn_at_bound(tap) -> dict:
         for a, kw, _ in tap.deep[name]:
             g_n, c_n, _ = a[0].shape
             counts = kw.get("counts", a[at] if len(a) > at else None)
-            if counts is None:
+            if name == "expert_ffn":
+                rows = (a[0] != 0).any(-1).cpu()
+                live = rows.any(-1).nonzero()[:, 0].tolist()
+                filled = int(rows.sum())
+            elif counts is None:
                 live, filled = list(range(g_n)), g_n * c_n
             else:
                 cnt = counts.cpu()

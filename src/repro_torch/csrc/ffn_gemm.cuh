@@ -65,6 +65,13 @@
 //    mismatch.
 //  - Empty groups, and row tiles past a group's count, return at once
 //    (uniform over the block): they cost a block launch and no weight bytes.
+//  - Rows by index (ROWS_INDEXED, full-precision class only; expert_ffn.cu
+//    alone compiles it): the live rows of a group need not be a prefix.
+//    counts is then followed by idx [E, C], each group's live rows in row
+//    order; gate/up reads row m of its tile from x[g, idx[g, m]] and writes
+//    h compactly, down stores row m to out[g, idx[g, m]]. Every output is
+//    the same FMA chain as in the prefix layout, so the results are the
+//    same bits. The other instances compile no index.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -85,6 +92,7 @@ constexpr int MIN_BLOCKS = 3; // per SM: caps registers at 170
 
 constexpr int CLASS_FP = 1;   // full-precision groups [0, E)
 constexpr int CLASS_Q = 2;    // int8 groups [E, G)
+constexpr int ROWS_INDEXED = 4;  // with CLASS_FP alone: rows through idx (see the note)
 
 // The stage depth of a launch serving CLASSES (see the design note).
 template <int CLASSES>
@@ -169,6 +177,44 @@ __device__ __forceinline__ void copy_tile(E* dst, const E* __restrict__ src, int
   }
 }
 
+// copy_tile with rows by index: tile row r is row ridx[r] of src (ridx is
+// read for valid rows only). Kept apart from copy_tile so that the
+// instances without an index compile the same code.
+template <typename E, bool VEC16, int R, int CC>
+__device__ __forceinline__ void gather_tile(E* dst, const E* __restrict__ src,
+                                            const int* __restrict__ ridx, int ld, int r_valid,
+                                            int c_valid) {
+  if constexpr (VEC16) {
+    constexpr int V = 16 / sizeof(E), PER_ROW = CC / V, N = R * PER_ROW;
+#pragma unroll
+    for (int l = 0; l < (N + THREADS - 1) / THREADS; ++l) {
+      const int i = threadIdx.x + l * THREADS;
+      if (N % THREADS == 0 || i < N) {
+        const int r = i / PER_ROW, c = (i % PER_ROW) * V;
+        const bool ok = r < r_valid && c < c_valid;
+        cp16(dst + r * CC + c, ok ? src + (size_t)ridx[r] * ld + c : src, ok ? 16 : 0);
+      }
+    }
+  } else {
+    constexpr int N = R * CC;
+#pragma unroll 4
+    for (int l = 0; l < (N + THREADS - 1) / THREADS; ++l) {
+      const int i = threadIdx.x + l * THREADS;
+      if (N % THREADS == 0 || i < N) {
+        const int r = i / CC, c = i % CC;
+        const bool ok = r < r_valid && c < c_valid;
+        if constexpr (sizeof(E) == 4) {
+          cp4(dst + i, ok ? src + (size_t)ridx[r] * ld + c : src, ok ? 4 : 0);
+        } else {
+          using U = typename Bits<sizeof(E)>::type;
+          reinterpret_cast<U*>(dst)[i] =
+              ok ? reinterpret_cast<const U*>(src)[(size_t)ridx[r] * ld + c] : U(0);
+        }
+      }
+    }
+  }
+}
+
 // N consecutive elements of shared memory, widened to f32 (p is aligned to
 // N elements).
 template <int N>
@@ -225,12 +271,13 @@ struct Layout {
 // NMAT weight matrices [depth, cols] against one activation slab [rows,
 // depth]: acc[q][i][j] = sum_k a[m0 + row_i, k] * w_q[k, n0 + col_j], one FMA
 // chain per output in increasing k, through the cp.async ring of SK-deep
-// stages.
-template <typename A, typename W, int NMAT, int RM, bool VEC16, int SK>
+// stages. GATHER: activation row m is row ridx[m] of a.
+template <typename A, typename W, int NMAT, int RM, bool VEC16, int SK, bool GATHER>
 __device__ __forceinline__ void mma_ring(const A* __restrict__ a, const W* __restrict__ w0,
                                          const W* __restrict__ w1, int rows, int depth, int cols,
                                          int m0, int n0, unsigned char* smem, int stage_bytes,
-                                         float (&acc)[NMAT][Layout<RM>::TM][Layout<RM>::TN]) {
+                                         float (&acc)[NMAT][Layout<RM>::TM][Layout<RM>::TN],
+                                         const int* __restrict__ ridx) {
   using L = Layout<RM>;
   static_assert(SK % BK == 0, "a stage is whole BK-deep sub-slices");
   constexpr int A_BYTES = BM * SK * sizeof(A), B_BYTES = SK * BN * sizeof(W);
@@ -240,8 +287,12 @@ __device__ __forceinline__ void mma_ring(const A* __restrict__ a, const W* __res
   auto load = [&](int kt) {
     unsigned char* s = smem + (kt % STAGES) * stage_bytes;
     const int k0 = kt * SK;
-    copy_tile<A, VEC16, RM, SK>(reinterpret_cast<A*>(s), a_tile + k0, depth, rows - m0,
-                                depth - k0);
+    if constexpr (GATHER)
+      gather_tile<A, VEC16, RM, SK>(reinterpret_cast<A*>(s), a + k0, ridx + m0, depth, rows - m0,
+                                    depth - k0);
+    else
+      copy_tile<A, VEC16, RM, SK>(reinterpret_cast<A*>(s), a_tile + k0, depth, rows - m0,
+                                  depth - k0);
     copy_tile<W, VEC16, SK, BN>(reinterpret_cast<W*>(s + A_BYTES), w0 + (size_t)k0 * cols + n0,
                                 cols, depth - k0, cols - n0);
     if constexpr (NMAT == 2)
@@ -287,15 +338,18 @@ __device__ __forceinline__ void mma_ring(const A* __restrict__ a, const W* __res
 }
 
 // One gate/up tile: x [rows, D] (T), w1/w3 [D, F] (W) -> h [rows, F] (f32).
-template <typename T, typename W, bool QUANT, int RM, bool VEC16, int SK>
+// GATHER: row m is x's row ridx[m]; h stays compact.
+template <typename T, typename W, bool QUANT, int RM, bool VEC16, int SK, bool GATHER = false>
 __device__ __forceinline__ void gate_up_tile(const T* __restrict__ x, const W* __restrict__ w1,
                                              const W* __restrict__ w3, const float* __restrict__ s1,
                                              const float* __restrict__ s3, float* __restrict__ h,
                                              int rows, int D, int F, int m0, int n0,
-                                             unsigned char* smem, int stage_bytes) {
+                                             unsigned char* smem, int stage_bytes,
+                                             const int* __restrict__ ridx = nullptr) {
   using L = Layout<RM>;
   float acc[2][L::TM][L::TN] = {};
-  mma_ring<T, W, 2, RM, VEC16, SK>(x, w1, w3, rows, D, F, m0, n0, smem, stage_bytes, acc);
+  mma_ring<T, W, 2, RM, VEC16, SK, GATHER>(x, w1, w3, rows, D, F, m0, n0, smem, stage_bytes, acc,
+                                           ridx);
   const int rg = threadIdx.x / L::CG, cg = threadIdx.x % L::CG;
 #pragma unroll
   for (int i = 0; i < L::TM; ++i) {
@@ -317,14 +371,17 @@ __device__ __forceinline__ void gate_up_tile(const T* __restrict__ x, const W* _
 }
 
 // One down tile: h [rows, F] (f32), w2 [F, D] (W) -> out [rows, D] (T).
-template <typename T, typename W, bool QUANT, int RM, bool VEC16, int SK>
+// GATHER: row m goes to out's row ridx[m].
+template <typename T, typename W, bool QUANT, int RM, bool VEC16, int SK, bool GATHER = false>
 __device__ __forceinline__ void down_tile(const float* __restrict__ h, const W* __restrict__ w2,
                                           const float* __restrict__ s2, T* __restrict__ out,
                                           int rows, int F, int D, int m0, int n0,
-                                          unsigned char* smem, int stage_bytes) {
+                                          unsigned char* smem, int stage_bytes,
+                                          const int* __restrict__ ridx = nullptr) {
   using L = Layout<RM>;
   float acc[1][L::TM][L::TN] = {};
-  mma_ring<float, W, 1, RM, VEC16, SK>(h, w2, nullptr, rows, F, D, m0, n0, smem, stage_bytes, acc);
+  mma_ring<float, W, 1, RM, VEC16, SK, false>(h, w2, nullptr, rows, F, D, m0, n0, smem,
+                                              stage_bytes, acc, nullptr);
   const int rg = threadIdx.x / L::CG, cg = threadIdx.x % L::CG;
 #pragma unroll
   for (int i = 0; i < L::TM; ++i) {
@@ -332,8 +389,12 @@ __device__ __forceinline__ void down_tile(const float* __restrict__ h, const W* 
 #pragma unroll
     for (int j = 0; j < L::TN; ++j) {
       const int n = n0 + cg * L::TN + j;
-      if (m < rows && n < D)
-        st(out + (size_t)m * D + n, QUANT ? acc[0][i][j] * s2[n] : acc[0][i][j]);
+      if (m < rows && n < D) {
+        if constexpr (GATHER)
+          st(out + (size_t)ridx[m] * D + n, QUANT ? acc[0][i][j] * s2[n] : acc[0][i][j]);
+        else
+          st(out + (size_t)m * D + n, QUANT ? acc[0][i][j] * s2[n] : acc[0][i][j]);
+      }
     }
   }
 }
@@ -348,6 +409,15 @@ __device__ __forceinline__ void by_rows(int live, Fn&& fn) {
   else if (live <= 8) fn(std::integral_constant<int, 8>());
   else if (live <= 16) fn(std::integral_constant<int, 16>());
   else fn(std::integral_constant<int, 32>());
+}
+
+// Rows by index: idx [E, C] follows counts [E] (see the design note).
+template <int CLASSES>
+__device__ __forceinline__ const int* row_index(const int* counts, int E, int C, int g) {
+  static_assert((CLASSES & ROWS_INDEXED) == 0 || CLASSES == (CLASS_FP | ROWS_INDEXED),
+                "rows by index serve the full-precision class alone");
+  if constexpr ((CLASSES & ROWS_INDEXED) != 0) return counts + E + (size_t)g * C;
+  else return nullptr;
 }
 
 // grid (ceil(F / BN), ceil(C / BM), G); x [G, C, D], h [G, C, F].
@@ -371,8 +441,9 @@ gate_up_kernel(const T* __restrict__ x, const T* __restrict__ w1, const T* __res
     if constexpr ((CLASSES & CLASS_FP) != 0) {
       const size_t wo = (size_t)g * D * F;
       by_rows(live, [&](auto rm) {
-        gate_up_tile<T, T, false, decltype(rm)::value, VEC16, SK>(
-            xg, w1 + wo, w3 + wo, nullptr, nullptr, hg, rows, D, F, m0, n0, smem, stage_bytes);
+        gate_up_tile<T, T, false, decltype(rm)::value, VEC16, SK, (CLASSES & ROWS_INDEXED) != 0>(
+            xg, w1 + wo, w3 + wo, nullptr, nullptr, hg, rows, D, F, m0, n0, smem, stage_bytes,
+            row_index<CLASSES>(counts, E, C, g));
       });
     }
   } else {
@@ -407,8 +478,9 @@ down_kernel(const float* __restrict__ h, const T* __restrict__ w2,
   if (g < E) {
     if constexpr ((CLASSES & CLASS_FP) != 0) {
       by_rows(live, [&](auto rm) {
-        down_tile<T, T, false, decltype(rm)::value, VEC16, SK>(
-            hg, w2 + (size_t)g * F * D, nullptr, og, rows, F, D, m0, n0, smem, stage_bytes);
+        down_tile<T, T, false, decltype(rm)::value, VEC16, SK, (CLASSES & ROWS_INDEXED) != 0>(
+            hg, w2 + (size_t)g * F * D, nullptr, og, rows, F, D, m0, n0, smem, stage_bytes,
+            row_index<CLASSES>(counts, E, C, g));
       });
     }
   } else {

@@ -6,7 +6,12 @@ Replaces the TPU kernel ``expert_ffn_pallas`` (repro/kernels/expert_ffn.py):
 x.dtype inputs, f32 accumulation and the hidden product cast back to x.dtype
 between the two matmuls. Bound on the H100: the weight bytes at the capacity
 path's shapes; see the source note in the .cu file for the design. One call
-is two launches (gate/up, then down); ``launches`` counts calls.
+is three launches: the live-row compaction, gate/up, then down. Only the
+live rows of x (any element other than +-0) are computed, and every other
+row of the output is zero, as the plain version gives it for finite
+weights. ``launches`` counts calls, ``rows_given`` the rows they were
+handed (E x C a call, on the host); the rows computed are a running total
+on each device, read by ``rows_computed()``.
 
 The JAX package has no backward kernel (it trains on the jnp einsums), so
 ``ExpertFFN``'s gradient is torch ops, the same on both devices: it
@@ -85,9 +90,12 @@ def ffn_flops(groups: int, c_n: int, d_n: int, f_n: int) -> int:
 
 
 def expert_ffn_cost(x, w1, w3, w2) -> tuple:
-    """(flops, bytes) of one call, from shapes only: every row of the
-    [E, C, D] buffer through every expert's SwiGLU (the kernel has no row
-    counts); x and the three weights read once, out written once."""
+    """(flops, bytes) of one call, from shapes only (which rows are live is
+    never read: that would wait for the card): every row of the [E, C, D]
+    buffer through every expert's SwiGLU, as the reference's dense path
+    computes it; x and the three weights read once, out written once. The
+    kernel skips rows that are zero, so on a sparse buffer this is above
+    the work done."""
     e_n, c_n, d_n = x.shape
     return (ffn_flops(e_n, c_n, d_n, w1.shape[-1]),
             _build.nbytes(x, w1, w3, w2, x))
@@ -137,9 +145,38 @@ def _lib():
     fn = lib.expert_ffn_launch
     if not fn.argtypes:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [i, p, p, p, p, p, p, i, i, i, i, i, i, i, p]
+        fn.argtypes = [i, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, p]
         fn.restype = ctypes.c_int
     return lib
+
+
+# Per device: the compaction's per-group arrival counts (int32, zero
+# between launches: the kernel leaves them zero) and its running total of
+# rows computed (int64).
+_LIVE: dict = {}
+
+
+def _live_counters(dev, groups: int) -> tuple:
+    done, computed = _LIVE.get(dev, (None, None))
+    if computed is None:
+        computed = torch.zeros(1, dtype=torch.int64, device=dev)
+    if done is None or done.numel() < groups:
+        done = torch.zeros(groups, dtype=torch.int32, device=dev)
+    _LIVE[dev] = (done, computed)
+    return done, computed
+
+
+def rows_computed() -> int:
+    """Rows the kernel computed since the last reset, summed over devices:
+    one copy from each device, which waits for its queued work. Read it
+    after a run, never inside a step."""
+    return sum(int(computed.item()) for _, computed in _LIVE.values())
+
+
+def reset_rows() -> None:
+    expert_ffn_cuda.rows_given = 0
+    for _, computed in _LIVE.values():
+        computed.zero_()
 
 
 def check_ffn_operands(name, x, w1, w3, w2, groups):
@@ -183,13 +220,19 @@ def expert_ffn_cuda(x, w1, w3, w2):
     h = torch.empty((e_n, c_n, f_n), dtype=torch.float32, device=x.device)
     plan = launch_plan(x.element_size(), e_n, c_n, d_n, f_n,
                        ptrs=[t.data_ptr() for t in (x, w1, w3, w2, h)])
+    # the compaction's output: counts [E], then idx [E, C]
+    rows = torch.empty(e_n * (c_n + 1), dtype=torch.int32, device=x.device)
+    done, computed = _live_counters(x.device, e_n)
     p = _build.ptr
     err = _lib().expert_ffn_launch(
-        DTYPE_CODES[x.dtype], p(x), p(w1), p(w3), p(w2), p(h), p(out),
-        e_n, c_n, d_n, f_n, *plan_args(plan), _build.stream_ptr(x.device))
+        DTYPE_CODES[x.dtype], p(x), p(w1), p(w3), p(w2), p(rows), p(done),
+        p(computed), p(h), p(out), e_n, c_n, d_n, f_n, *plan_args(plan),
+        _build.stream_ptr(x.device))
     _build.check(err, "expert_ffn")
     expert_ffn_cuda.launches += 1
+    expert_ffn_cuda.rows_given += e_n * c_n
     return out
 
 
 expert_ffn_cuda.launches = 0
+expert_ffn_cuda.rows_given = 0

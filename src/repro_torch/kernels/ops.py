@@ -38,7 +38,8 @@ from repro_torch.kernels.buddy_substitute import (buddy_substitute_cost,
                                                   buddy_substitute_plain)
 from repro_torch.kernels.expert_ffn import (ExpertFFN, expert_ffn_cost,
                                             expert_ffn_cuda,
-                                            expert_ffn_plain)
+                                            expert_ffn_plain, reset_rows,
+                                            rows_computed)
 from repro_torch.kernels.grouped_ffn import (grouped_ffn_cost,
                                              grouped_ffn_cuda,
                                              grouped_ffn_plain)
@@ -254,5 +255,18 @@ def launch_counts() -> dict:
 
 
 def reset_launch_counts() -> None:
+    """Also resets ``expert_ffn_rows``."""
     for fn in _CUDA.values():
         fn.launches = 0
+    reset_rows()
+
+
+def expert_ffn_rows() -> dict:
+    """{"given": rows the expert_ffn kernel was handed (E x C a call),
+    "computed": the live rows it computed} since the last reset. "given"
+    is counted on the host; "computed" is a running total on the device,
+    added by the kernel itself, and reading it copies it from the device
+    once (a wait for the queued work): read it after a run, never inside
+    a step."""
+    return {"given": expert_ffn_cuda.rows_given,
+            "computed": rows_computed()}

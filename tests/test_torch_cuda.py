@@ -560,6 +560,91 @@ def test_expert_ffn_at_mixtral_8x22b_width(dev, rows):
                                atol=TOL[torch.float32])
 
 
+def _decode_live(g, e, b, k):
+    """[E, B * K] live rows of a decode step's capacity buffer: B tokens'
+    K distinct picks binned per token, laid out [E, B, cap] with cap = K
+    (moe.py's row-local binning; a token's pick of e takes its first
+    slot)."""
+    live = torch.zeros(e, b, k, dtype=torch.bool)
+    for t in range(b):
+        live[torch.randperm(e, generator=g)[:k], t, 0] = True
+    return live.view(e, b * k)
+
+
+def _live_pattern(pattern, g, e, c):
+    """[E, C] live rows of a small buffer, by fill pattern."""
+    live = torch.rand(e, c, generator=g) < 0.3
+    if pattern == "empty_expert":
+        live[1] = False
+    elif pattern == "two_tiles":                 # 33-40 rows: two row tiles
+        live[0] = False
+        live[0, torch.randperm(c, generator=g)[:36]] = True
+    elif pattern == "all":
+        live[:] = True
+    elif pattern == "none":
+        live[:] = False
+    return live
+
+
+# (pattern, dtype, instance): the decode buffer at its shape; the others
+# small, in both instances of the tile (elem: rows not a multiple of 16 B)
+LIVE_CASES = ([("decode", dt, "vec16") for dt in (torch.float32,
+                                                  torch.bfloat16)]
+              + [(p, dt, inst)
+                 for p in ("empty_expert", "two_tiles", "all", "none", "nan")
+                 for dt in (torch.float32, torch.bfloat16)
+                 for inst in ("vec16", "elem")])
+
+
+@pytest.mark.parametrize("pattern,dtype,instance", LIVE_CASES)
+def test_expert_ffn_computes_live_rows(dev, pattern, dtype, instance):
+    """Only the rows with an element other than +-0 are computed (NaN is
+    live): they match the plain version and are the same bits as the same
+    rows packed to the front of each expert; every other output row is
+    zero; the device's count of rows computed is the live rows."""
+    g = _gen(LIVE_CASES.index((pattern, dtype, instance)))
+    if pattern == "decode":                      # 64 tokens x 2 picks
+        e, c, d, f = 8, 128, WIDE_D, WIDE_F
+        live = _decode_live(g, e, 64, 2)
+        wg = torch.Generator(device=dev).manual_seed(38)
+        ws = [torch.randn(e, a, b, generator=wg, device=dev).mul_(0.02)
+              .to(dtype) for a, b in ((d, f), (d, f), (f, d))]
+    else:
+        e, c, (d, f) = 4, 48, (64, 136) if instance == "vec16" else (37, 24)
+        live = _live_pattern(pattern, g, e, c)
+        ws = _weights(g, e, d, f, dtype, dev)
+    assert launch_plan(dtype.itemsize, e, c, d, f)["instance"] == instance
+    x = torch.randn(e, c, d, generator=g)
+    x[~live] = 0.0
+    x[~live & (torch.rand(e, c, generator=g) < 0.5)] = -0.0
+    nan = None
+    if pattern == "nan":
+        nan = tuple(int(i) for i in live.nonzero()[0])
+        x[nan][d // 2] = float("nan")
+    x = x.to(dtype).to(dev)
+    before = ops.expert_ffn_rows()
+    got = expert_ffn_cuda(x, *ws)
+    want = expert_ffn_plain(x, *ws)
+    finite = live.clone()
+    if nan is not None:
+        finite[nan] = False
+        assert torch.isnan(got[nan]).all()
+    finite = finite.to(dev)
+    torch.testing.assert_close(got[finite].float(), want[finite].float(),
+                               rtol=TOL[dtype], atol=TOL[dtype])
+    assert torch.all(got[~live.to(dev)] == 0)
+    # the same rows packed to the front of each expert, in row order
+    packed = torch.zeros_like(x)
+    front = torch.arange(c)[None, :] < live.sum(1, keepdim=True)
+    packed[front.to(dev)] = x[live.to(dev)]
+    bits = torch.int32 if dtype == torch.float32 else torch.int16
+    assert torch.equal(got[live.to(dev)].view(bits),
+                       expert_ffn_cuda(packed, *ws)[front.to(dev)].view(bits))
+    after = ops.expert_ffn_rows()
+    assert after["given"] - before["given"] == 2 * e * c
+    assert after["computed"] - before["computed"] == 2 * int(live.sum())
+
+
 def test_grouped_ffn_at_mixtral_8x22b_width(dev):
     """Two fp groups and two int8 groups, one of them empty."""
     x, ws = _wide_case(1, 4, 4, dev)

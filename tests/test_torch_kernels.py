@@ -196,6 +196,30 @@ def test_expert_ffn_matches_ref(e, c, d, f, dtype):
                                rtol=TOL[dtype], atol=TOL[dtype])
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_expert_ffn_plain_zero_rows_give_zero(dtype):
+    """What the CUDA kernel's live-row compaction relies on: a row of +0s
+    or -0s gives an output row that is exactly zero, so the buffer's result
+    equals its live rows computed alone, put back among zero rows."""
+    rng = np.random.default_rng(38)
+    e, c, d, f = 3, 12, 40, 24
+    x = (rng.normal(size=(e, c, d)) * 0.1).astype(np.float32)
+    dead = rng.random((e, c)) < 0.6
+    x[dead] = np.where(rng.random((int(dead.sum()), 1)) < 0.5, 0.0, -0.0)
+    xt = _t(x).to(dtype)
+    ws = [_t(w).to(dtype) for w in _ffn_weights(rng, e, d, f)]
+    got = expert_ffn_plain(xt, *ws)
+    dead = torch.from_numpy(dead)
+    assert torch.all(got[dead] == 0)
+    alone = torch.zeros_like(got)
+    for i in range(e):
+        rows = xt[i][~dead[i]][None]
+        alone[i][~dead[i]] = expert_ffn_plain(
+            rows, *(w[i:i + 1] for w in ws))[0]
+    tol = TOL[np.float32 if dtype == torch.float32 else "bfloat16"]
+    torch.testing.assert_close(alone, got, rtol=tol, atol=tol)
+
+
 def test_expert_ffn_matches_pallas_tiles():
     """The Pallas kernel with ragged C/F tiles (its padding path) agrees."""
     rng = np.random.default_rng(3)

@@ -17,7 +17,9 @@ capacity branch, as in Mixtral) times --steps decode steps with the
 program's host spans on (``runtime.trace``, docs/trace_schema.md "host")
 three ways: wall clock (synchronized), host ms per span (the issue, the
 wait for the device, the timeline replay of ``ServeEngine._account``,
-...), and torch.profiler's device time per kernel and per span.
+...), and torch.profiler's device time per kernel and per span; beside
+them the rows expert_ffn computed of those it was given over the timed
+steps (``kernels.ops.expert_ffn_rows``, read after the steps).
 With --quant-tier the engines carry the replica tier at coverage 0.5
 (chip_smoke.py's tier path: 15 full slots and 32 replicas per layer at
 full width), so degraded slots run through the grouped kernel's int8 half (fused)
@@ -86,6 +88,7 @@ def _profile(eng, lm, steps, fused, tier_flags, chunk, kv_flags, layers,
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from repro_torch.kernels import ops
     from repro_torch.runtime import trace
     n_tok = 2 * steps * chunk + 4 + (HIT + chunk if hits else 0)
     prompts = lm.sample(4, n_tok)
@@ -144,7 +147,9 @@ def _profile(eng, lm, steps, fused, tier_flags, chunk, kv_flags, layers,
         finally:
             trace.stop_host()
 
+    rows0 = ops.expert_ffn_rows()
     wall, host = run(3)                            # without the profiler
+    ffn_rows = {k: v - rows0[k] for k, v in ops.expert_ffn_rows().items()}
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         wall_prof, _ = run(3 + steps * chunk)
@@ -184,6 +189,9 @@ def _profile(eng, lm, steps, fused, tier_flags, chunk, kv_flags, layers,
                        else 0),
         "degraded_slots_all_steps": (eng.tier.degraded_tokens
                                      if eng.tier is not None else 0),
+        "expert_ffn_rows": {**ffn_rows, "computed_over_given": (
+            ffn_rows["computed"] / ffn_rows["given"] if ffn_rows["given"]
+            else None)},
         "wall_ms_per_step": wall / steps * 1e3,
         "host_account_ms_per_step": sum(
             _host_ms(host, steps).get(k, 0.0)
