@@ -26,19 +26,10 @@ from typing import Optional
 import numpy as np
 import torch
 
-from chipbench import devtrace, traffic, weights, yardstick
+from chipbench import devtrace, families, traffic, weights, yardstick
 
 ROOT = Path(__file__).resolve().parents[1]
 HERE = Path(__file__).resolve().parent
-# the run-time sizes the program's config must equal, per as_run key
-_CFG_KEYS = {"d_model": "d_model", "num_heads": "num_heads",
-             "num_kv_heads": "num_kv_heads", "head_dim": "head_dim",
-             "vocab_size": "vocab_size", "num_layers": "num_layers",
-             "num_experts": "moe.num_experts", "top_k": "moe.top_k",
-             "expert_d_ff": "moe.d_ff",
-             "num_shared_experts": "moe.num_shared_experts",
-             "norm_eps": "norm_eps", "rope_theta": "rope_theta",
-             "sliding_window": "sliding_window", "dtype": "dtype"}
 
 
 class WindowClosed(Exception):
@@ -46,7 +37,9 @@ class WindowClosed(Exception):
 
 
 def load_cell(name: str, root: Path = ROOT) -> dict:
-    """Everything one cell names, found by the names in BENCHMARK.json."""
+    """Everything one cell names, found by the names in BENCHMARK.json,
+    with the module of its configuration's family; a configuration whose
+    family is missing or unknown stops here."""
     spec = json.loads((root / "BENCHMARK.json").read_text())
     wl = [w for w in spec["workloads"] if w["name"] == name]
     if not wl:
@@ -54,6 +47,8 @@ def load_cell(name: str, root: Path = ROOT) -> dict:
     wl = wl[0]
     cfg_entry = [c for c in spec["configs"] if c["name"] == wl["config"]][0]
     base = root / "chipbench"
+    config = json.loads((root / cfg_entry["file"]).read_text())
+    family = families.load(config.get("family"), base / "families")
     e2e = [m for m in spec["end_to_end"]
            if "workloads" not in m or name in m["workloads"]]
     names = {m["name"] for m in e2e}
@@ -61,7 +56,7 @@ def load_cell(name: str, root: Path = ROOT) -> dict:
                  if (name in m["workloads"] if "workloads" in m
                      else m["moves"] in names)]
     return {"name": name, "chips": wl["chips"],
-            "config": json.loads((root / cfg_entry["file"]).read_text()),
+            "config": config, "family": family,
             "cell": json.loads((base / "workloads" / f"{name}.json")
                                .read_text()),
             "mix": json.loads((base / "traffic" / f"{wl['traffic']}.json")
@@ -86,14 +81,14 @@ class Step:
     rids: list                # request id per batch row, -1 empty
     pos: np.ndarray           # [B] position, or chunk base position
     valid: np.ndarray         # [B] active rows, or [B, C] valid tokens
-    residency: np.ndarray     # [L, E] the step's expert residency
+    residency: np.ndarray     # [M, E] the step's expert residency
     traced: bool = False
     t_dev: float = math.nan   # the step's device work done
     t_account: float = math.nan
     t_exit: float = math.nan
     t_sample0: float = math.nan
     t_sample1: float = math.nan
-    aux: Optional[dict] = None  # [L, T, K] top-k / substituted / missed
+    aux: Optional[dict] = None  # [M, T, K] top-k / substituted / missed
     served_logit: Optional[torch.Tensor] = None  # [B] the sampled token's
     events: Optional[tuple] = None  # traced: CUDA events, entry to _account
 
@@ -107,6 +102,7 @@ class Run:
                  device: str = "cuda", t_process: Optional[float] = None):
         self.cell = cell
         self.rc = cell["config"]["as_run"]
+        self.family = cell["family"]
         self.seed = int(seed)
         self.seconds = float(seconds)
         self.trace = bool(trace)
@@ -141,7 +137,8 @@ class Run:
         cfg = serve.model_config(args)
         self._same_sizes(cfg)
         t0 = t()
-        self.params = weights.make(self.rc, self.seed, self.device)
+        self.params = weights.make(self.family, self.rc, self.seed,
+                                   self.device)
         self._sync()
         self.setup["init_s"] = t() - t0
         orig = serve.profile_buddies
@@ -193,7 +190,7 @@ class Run:
             raise ValueError(f"the reference cannot judge {bad}")
 
     def _same_sizes(self, cfg) -> None:
-        for key, attr in _CFG_KEYS.items():
+        for key, attr in self.family.CFG_KEYS.items():
             v = cfg
             for a in attr.split("."):
                 v = getattr(v, a)
@@ -453,7 +450,7 @@ class Run:
     def step_flops(self, st: Step) -> float:
         """Operations the step's valid tokens need: every fed position at
         its context; the head only where the row's logits are sampled."""
-        rc = self.rc
+        fam, rc = self.family, self.rc
         total = 0.0
         for i, rid in enumerate(st.rids):
             if rid < 0:
@@ -463,13 +460,14 @@ class Run:
                 if not st.valid[i]:
                     continue
                 p = int(st.pos[i])
-                total += yardstick.token_flops(rc, p + 1, p >= plen - 1)
+                total += yardstick.token_flops(fam, rc, p + 1,
+                                               p >= plen - 1)
             else:
                 n = int(st.valid[i].sum())
                 for j in range(n):
                     p = int(st.pos[i]) + j
                     total += yardstick.token_flops(
-                        rc, p + 1, j == n - 1 and p >= plen - 1)
+                        fam, rc, p + 1, j == n - 1 and p >= plen - 1)
         return total
 
     def attempted_failed(self) -> tuple:

@@ -1,6 +1,9 @@
 """How ``correct`` is decided: the served tokens of a sample of the
-requests the window finished, judged by the plain reference
-(``chipbench.reference``) over each prompt and its served tokens.
+requests the window finished, judged by the plain reference (the
+configuration's family's ``Reference``, ``chipbench/families/``, on the
+shared parts of ``chipbench.reference``) over each prompt and its served
+tokens. Every array kept per layer is kept per MoE layer
+(``family.moe_layers``).
 
 The reference works out again the serving state the routing reads:
   * the buddy tables, from its own profiling forwards over the seed-0
@@ -124,7 +127,8 @@ class Block:
         the reference's residency and distribution gate of the step that
         made it."""
         rc = run.rc
-        l_n, k_n, e_n = rc["num_layers"], rc["top_k"], rc["num_experts"]
+        l_n = run.family.moe_layers(rc)
+        k_n, e_n = rc["top_k"], rc["num_experts"]
         beta = float(run.args.beta)
         self.prog = {k: torch.zeros((l_n, self.n, k_n), dtype=dt, device=dev)
                      for k, dt in (("indices", torch.int64),
@@ -146,9 +150,9 @@ class Block:
             for k in self.prog:
                 self.prog[k][:, ns_t] = st.aux[k].to(dev)[:, ts_t].to(
                     self.prog[k].dtype)
-            res = torch.as_tensor(res_steps[si], device=dev)     # [L, E]
+            res = torch.as_tensor(res_steps[si], device=dev)     # [M, E]
             self.resident[:, ns_t] = res[:, None, :]
-            idx = st.aux["indices"].to(dev).long()                # [L, T, K]
+            idx = st.aux["indices"].to(dev).long()                # [M, T, K]
             req = torch.zeros((l_n, e_n), dtype=torch.bool, device=dev)
             req.scatter_(1, idx.reshape(l_n, -1), True)
             n_req = req.sum(-1).float().clamp(min=1.0)
@@ -181,9 +185,9 @@ def replay(run, table) -> tuple:
     residency cells that differ from the program's, the missed slots that
     differ, and the active tokens of a step without records."""
     rc, args = run.rc, run.args
-    rp = residency.Replay(rc, float(args.cache_rate), table,
+    rp = residency.Replay(run.family, rc, float(args.cache_rate), table,
                           int(args.prefetch_k), int(args.lookahead))
-    layers = np.arange(rc["num_layers"])[:, None, None]
+    layers = np.arange(run.family.moe_layers(rc))[:, None, None]
     out, faults = [], 0
     for st in run.steps:
         res = rp.residency()
@@ -244,7 +248,8 @@ def _tally(parts, flips: int, sets: int) -> dict:
 def _setup_reference(run, tf32: bool):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    return moe_lm.Reference(run.params, run.rc, moe_lm.Arith(tf32=tf32))
+    return run.family.Reference(run.params, run.rc,
+                                moe_lm.Arith(tf32=tf32))
 
 
 def program_numbers(run) -> dict:
@@ -285,7 +290,8 @@ def control_numbers(run) -> dict:
     steps: the control serves no steps of its own."""
     dev = run.device
     ref = _setup_reference(run, tf32=False)
-    ctl = moe_lm.Reference(run.params, run.rc, moe_lm.Arith(tf32=True))
+    ctl = run.family.Reference(run.params, run.rc,
+                               moe_lm.Arith(tf32=True))
     alpha = float(run.args.alpha)
     with torch.no_grad():
         c_t, c_q, c_top, _, _ = serving_state.profile_tables(

@@ -47,21 +47,6 @@ def expert_bytes(rc: dict) -> int:
     return 3 * rc["d_model"] * rc["expert_d_ff"] * DTYPE_BYTES
 
 
-def active_params(rc: dict) -> int:
-    """Per-token active parameters by the runtime's count: embedding and
-    head, every layer's attention, router and norms, top-k plus shared
-    experts (the shared ones counted twice, as the runtime does)."""
-    d, v, hd = rc["d_model"], rc["vocab_size"], rc["head_dim"]
-    h, kv, l_n = rc["num_heads"], rc["num_kv_heads"], rc["num_layers"]
-    e_n, k_n = rc["num_experts"], rc["top_k"]
-    s_n, f = rc["num_shared_experts"], rc["expert_d_ff"]
-    n = 2 * v * d
-    attn = d * (h * hd) + 2 * d * (kv * hd) + (h * hd) * d
-    ffn = e_n * 3 * d * f + d * e_n + s_n * 3 * d * f
-    n += l_n * (attn + ffn + 2 * d)
-    return n - l_n * (e_n * 3 * d * f - (k_n + s_n) * 3 * d * f)
-
-
 def compute_time(params: int, n_tokens: int) -> float:
     flops = 2.0 * params * n_tokens
     mem = params * DTYPE_BYTES
@@ -292,13 +277,16 @@ class Predictor:
 
 
 class Replay:
-    """The serving state of one run, stepped as the engine steps it.
-    ``table`` [L, E, R] the buddy lists (for the buddy-aware eviction);
-    ``prefetch_k`` < 0: half the cache's capacity."""
+    """The serving state of one run, stepped as the engine steps it, over
+    the configuration's MoE layers (``family.moe_layers``; the step's
+    modeled compute from ``family.active_params``). ``table`` [M, E, R]
+    the buddy lists (for the buddy-aware eviction); ``prefetch_k`` < 0:
+    half the cache's capacity."""
 
-    def __init__(self, rc: dict, cache_rate: float, table: np.ndarray,
-                 prefetch_k: int = -1, lookahead: int = 1):
-        self.l_n, self.e_n = rc["num_layers"], rc["num_experts"]
+    def __init__(self, family, rc: dict, cache_rate: float,
+                 table: np.ndarray, prefetch_k: int = -1,
+                 lookahead: int = 1):
+        self.l_n, self.e_n = family.moe_layers(rc), rc["num_experts"]
         self.cache = Cache(self.l_n, self.e_n, cache_rate,
                            np.asarray(table))
         self.link = Link(self.cache.on_event)
@@ -307,14 +295,14 @@ class Replay:
                   else int(prefetch_k))
         self.lookahead = int(lookahead)
         self.nbytes = expert_bytes(rc)
-        self.params = active_params(rc)
+        self.params = family.active_params(rc)
 
     def residency(self) -> np.ndarray:
         return self.cache.resident.copy()
 
     def step(self, idx: np.ndarray, missed: np.ndarray,
              active: np.ndarray) -> None:
-        """One step: idx [L, T, K] the router's top-k, missed [L, T, K]
+        """One step: idx [M, T, K] the router's top-k, missed [M, T, K]
         the slots that fetch, active [T] the tokens the step serves."""
         n_active = int(active.sum())
         if n_active == 0:

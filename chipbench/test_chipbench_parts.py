@@ -8,6 +8,7 @@ import numpy as np
 import pytest
 
 from chipbench import bench, devtrace, run as run_mod, traffic, yardstick
+from chipbench.families import moe_gqa
 
 
 def _mix(name):
@@ -62,11 +63,13 @@ def test_token_flops_by_hand():
     # scores and values over 5 keys: 4 * 2 heads * 4 * 5 = 160
     # router 2 * 8 * 4 = 64; 3 experts (2 routed + 1 shared) of
     # 3 matrices 8x6: 3 * 6 * 8 * 6 = 864
-    assert yardstick.layer_flops(RC, 5) == 384 + 160 + 64 + 864
-    assert yardstick.token_flops(RC, 5, head=True) == \
+    # (the moe_gqa family's count: every layer alike)
+    for layer in range(3):
+        assert moe_gqa.layer_flops(RC, 5, layer) == 384 + 160 + 64 + 864
+    assert yardstick.token_flops(moe_gqa, RC, 5, head=True) == \
         3 * (384 + 160 + 64 + 864) + 2 * 8 * 10
     windowed = dict(RC, sliding_window=3)
-    assert yardstick.layer_flops(windowed, 5) == 384 + 96 + 64 + 864
+    assert moe_gqa.layer_flops(windowed, 5, 0) == 384 + 96 + 64 + 864
 
 
 def test_ffn_need_and_bound_by_hand():

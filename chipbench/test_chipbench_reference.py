@@ -8,6 +8,7 @@ import pytest
 import torch
 
 from chipbench import check, tiny
+from chipbench.families import moe_gqa
 from chipbench.reference import moe_lm
 
 CELLS = ["mixtral22.decode64", "mixtral22.prefill"]
@@ -48,8 +49,8 @@ def test_control_rounds_where_the_program_does_not():
     res_steps, _ = check.replay(run, tables[0].cpu().numpy())
     blk = next(iter(check._blocks(run, run.device, res_steps)))
     route = blk.routing(run, *tables, blk.prog["indices"])
-    ref = moe_lm.Reference(run.params, run.rc)
-    ctl = moe_lm.Reference(run.params, run.rc, moe_lm.Arith(tf32=True))
+    ref = run.family.Reference(run.params, run.rc)
+    ctl = run.family.Reference(run.params, run.rc, moe_lm.Arith(tf32=True))
     a, _ = ref.forward(blk.tokens, blk.seqs, route, head_at=blk.served_at)
     b, _ = ctl.forward(blk.tokens, blk.seqs, route, head_at=blk.served_at)
     assert float((a - b).abs().max()) > 1e-4
@@ -156,7 +157,7 @@ def test_faults_come_out_not_correct(name, fault, monkeypatch):
 def test_weights_in_the_programs_layout(name):
     """The benchmark's weights have the leaves, shapes and dtypes of the
     program's own init at the configuration's full size (on meta)."""
-    from chipbench import bench, weights
+    from chipbench import bench
     from repro_torch.launch import serve
     from repro_torch.models import transformer
     cell = bench.load_cell(name)
@@ -173,6 +174,7 @@ def test_weights_in_the_programs_layout(name):
         else:
             yield pre, tuple(tree.shape), tree.dtype
     want = sorted(leaves(meta))
+    assert cell["family"].__file__ == moe_gqa.__file__
     got = sorted((p, s, torch.float32) for p, (s, _) in
-                 weights.shapes(cell["config"]["as_run"]).items())
+                 cell["family"].shapes(cell["config"]["as_run"]).items())
     assert got == want

@@ -1,25 +1,19 @@
 """Tiny versions of the benchmark's cells for the CPU tests: the launcher's
-``--reduced`` configs of the same architectures, a few slots and short
-requests, and the cells' own flags, traffic shape and check otherwise."""
+``--reduced`` configs of the same architectures (each family's ``TINY``),
+a few slots and short requests, and the cells' own flags, traffic shape
+and check otherwise."""
 from __future__ import annotations
 
 from chipbench import bench
 
-AS_RUN = {
-    "mixtral-8x22b": {
-        "d_model": 256, "num_heads": 4, "num_kv_heads": 2, "head_dim": 64,
-        "vocab_size": 512, "num_layers": 2, "num_experts": 4, "top_k": 2,
-        "expert_d_ff": 512, "num_shared_experts": 0, "norm_eps": 1e-5,
-        "rope_theta": 10000.0, "sliding_window": 128, "dtype": "float32"},
-}
-
-
-def cell(name: str, slots: int = 4, requests: int = 4) -> dict:
-    """``name``'s cell on its architecture's reduced config."""
-    c = bench.load_cell(name)
+def cell(name: str, slots: int = 4, requests: int = 4,
+         root=bench.ROOT) -> dict:
+    """``name``'s cell (of the benchmark under ``root``) on its
+    architecture's reduced config."""
+    c = bench.load_cell(name, root)
     arch = c["config"]["launcher"][1]
     c["config"]["launcher"] = ["--arch", arch, "--reduced"]
-    c["config"]["as_run"] = dict(AS_RUN[arch])
+    c["config"]["as_run"] = dict(c["family"].TINY[arch])
     flags = c["cell"]["launcher"]
     flags[flags.index("--slots") + 1] = str(slots)
     chunk = flags.index("--prefill-chunk") + 1

@@ -1,6 +1,7 @@
 """The benchmark's arithmetic: the card's peaks, the operations and bytes a
-token or a kernel call needs (from the configuration's shapes alone), and
-the statistics the metrics use. It reads nothing of the program."""
+token (from the family's count of each layer, ``chipbench/families/``) or
+an expert FFN call needs (from the configuration's shapes alone), and the
+statistics the metrics use. It reads nothing of the program."""
 from __future__ import annotations
 
 import numpy as np
@@ -19,28 +20,15 @@ def peaks(device_name: str) -> dict:
     raise ValueError(f"no peak table for {device_name!r}")
 
 
-def layer_flops(rc: dict, ctx: int) -> float:
-    """One token through one layer at context ``ctx`` (keys it attends
-    to, itself included): projections, scores and values, router, its
-    top-k experts and the shared experts; multiply-adds count 2."""
-    d, hd = rc["d_model"], rc["head_dim"]
-    h, kv = rc["num_heads"], rc["num_kv_heads"]
-    window = rc.get("sliding_window") or 0
-    keys = min(ctx, window) if window else ctx
-    proj = 2 * d * (h * hd + 2 * kv * hd) + 2 * h * hd * d
-    attend = 4 * h * hd * keys
-    router = 2 * d * rc["num_experts"]
-    experts = (rc["top_k"] + rc["num_shared_experts"]) * 6 * d \
-        * rc["expert_d_ff"]
-    return float(proj + attend + router + experts)
-
-
 def head_flops(rc: dict) -> float:
     return float(2 * rc["d_model"] * rc["vocab_size"])
 
 
-def token_flops(rc: dict, ctx: int, head: bool) -> float:
-    return rc["num_layers"] * layer_flops(rc, ctx) \
+def token_flops(family, rc: dict, ctx: int, head: bool) -> float:
+    """One token at context ``ctx`` through every layer, by the family's
+    count of each (``family.layer_flops``), and the head where asked."""
+    return sum(family.layer_flops(rc, ctx, layer)
+               for layer in range(rc["num_layers"])) \
         + (head_flops(rc) if head else 0.0)
 
 
